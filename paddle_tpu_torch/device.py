@@ -1,0 +1,15 @@
+"""Device selection for the port's entry points: ``cuda`` unless the
+caller names another device. Without a card, asking for ``cuda`` raises
+instead of dropping to the CPU."""
+from __future__ import annotations
+
+import torch
+
+
+def resolve_device(device=None) -> torch.device:
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device is available; pass device='cpu' to run the "
+            "port's plain PyTorch paths on the CPU")
+    return dev
