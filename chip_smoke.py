@@ -10,9 +10,12 @@ fails the run:
 1. build the hand-written kernels from paddle_tpu_torch/csrc (nvcc, all
    sources in parallel) and print their register / shared-memory report;
 2. hold each kernel against its plain PyTorch version on the card at the
-   shapes the serving path gives it (float32, max abs error <= 1e-4),
-   then time kernel, plain version and one PyTorch library call with
-   CUDA events, beside the bytes/FLOP bound of the H100;
+   shapes the serving path gives it (float32; attention within 1e-4 abs,
+   w8a16 within 1e-4 x max|ref|), then time kernel, plain version and
+   one PyTorch library call, beside the bytes/FLOP bound of the H100:
+   ragged paged attention over float32 and over int8 pages (a mixed
+   step), dense decode attention, and the w8a16 matmul at 1, 8 and 256
+   rows for every projection of the model and its head;
 3. serve 12 greedy requests end to end through
    ``SpeculativeEngine(k=0)`` at the full width of the repo's default
    GPTConfig (vocab 50304, d 1024, 24 layers, 16 heads, FFN 4096, tied
@@ -23,10 +26,23 @@ fails the run:
    (decode through the decode-attention kernel) on 4 of the prompts,
    hidden row by hidden row, and greedy tokens up to the first step
    whose top-two logit gap is below the tolerance;
-5. print the kernels line, the card line and, last, the contract line.
+5. quantized serving at the same width: FusedMultiTransformerInt8 with
+   an int8 head, int8 KV pages and the prefix cache, 12 requests that
+   share a 256-token system prompt, over a pool small enough to preempt;
+   the int8 ragged kernel launches once per layer per model call, the
+   w8a16 kernel for all 4 projections of every layer in every model
+   call of <= 256 rows and for every head call;
+6. quantized against float on the same float weights, teacher-forced
+   with phase 4's tokens, under the JAX package's documented bounds:
+   int8 KV pages (hidden within 0.05 x max|h|), int8 weights (0.1
+   relative), the int8 head (logits within 2%);
+7. prefix adoption on the fp32 pool: the shared-prompt requests with the
+   prefix cache and without agree within 1e-5 x max|h|;
+8. print the kernels line, the card line and, last, the contract line.
 Every number printed carries the card's name and power limit.
 """
 import argparse
+import gc
 import json
 import subprocess
 import sys
@@ -36,14 +52,22 @@ import numpy as np
 
 # float32 everywhere; the matmuls and convolutions in full float32
 TOL_KERNEL = 1e-4          # kernel vs plain version, max abs error
+TOL_W8A16 = 1e-4           # w8a16 vs plain version, relative to max|ref|
 TOL_REL = 1e-5             # paged vs dense: hidden / logits, rel. to max
+# the JAX package's documented bounds of quantized against float serving
+BOUND_KV8 = 0.05           # int8 KV pages: hidden, rel. to max|h_fp|
+BOUND_W8 = 0.1             # int8 weights: hidden, rel. to max|h_fp|
+BOUND_HEAD8 = 0.02         # int8 head: logits, rel. to max|logits_fp|
 HBM_BYTES_S = 3.35e12      # H100 SXM HBM3
 FP32_FLOP_S = 67e12        # H100 SXM float32 outside the tensor cores
 
 FULL = dict(vocab=50304, d=1024, layers=24, heads=16, ffn=4096,
             block_size=16, max_batch=8, chunk_tokens=128, budget=512,
             n_requests=12, min_prompt=64, max_prompt=960, new_tokens=32,
-            num_blocks=260, kernel_pool_blocks=640, timing_iters=20)
+            num_blocks=260, kernel_pool_blocks=640, timing_iters=20,
+            # quantized serving: a shared system prompt + unique suffixes
+            system_prompt=256, min_suffix=32, max_suffix=704,
+            q_num_blocks=310)
 
 
 class SmokeFailure(RuntimeError):
@@ -118,6 +142,7 @@ def _bound(nbytes, flops):
 def phase_kernels(torch, device, cfg, tag, say):
     """Each kernel against its plain version at the serving shapes, then
     timed. Returns {name: row of the kernels line}."""
+    from paddle_tpu_torch.inference.paged_cache import _quant_rows
     from paddle_tpu_torch.ops.hopper import decode_attention as da
     from paddle_tpu_torch.ops.hopper import paged_attention as pa
     F = torch.nn.functional
@@ -212,6 +237,50 @@ def phase_kernels(torch, device, cfg, tag, say):
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=lib_ms)
 
+    # -- the same mixed step over int8 pages ----------------------------
+    # the pool quantized as the serving appends write it; trash block 0
+    # keeps zero scales, so the all-trash row reads exact zeros
+    qpool, scales = _quant_rows(pool)
+    qpool[0], scales[0] = 0, 0.0
+    got = pa.paged_attention_ragged(q, qpool, btd, q_lens, lensd,
+                                    kv_scales=scales)
+    ref = pa.paged_attention_ragged_reference(q, qpool, btd, q_lens, lensd,
+                                              kv_scales=scales)
+    err = float((got - ref).abs().max())
+    require(bool(torch.isfinite(got).all()), "int8 ragged kernel: "
+            "non-finite")
+    say(f"{tag} paged_attention_ragged int8 pages vs plain: max_abs_err "
+        f"{err:.3e} (tol {TOL_KERNEL}) rows {R} q_lens {q_lens}")
+    require(err <= TOL_KERNEL, f"int8 ragged kernel disagrees: {err}")
+    # yardstick: sdpa over pages gathered and dequantized beforehand
+    kq, vq = pa.gather_pages(qpool, btd, kv_scales=scales)
+    kqt, vqt = kq.transpose(1, 2), vq.transpose(1, 2)
+    t_k = _time_ms(torch, lambda: pa.paged_attention_ragged(
+        q, qpool, btd, q_lens, lensd, plan=plan, kv_scales=scales), device,
+        iters)
+    t_p = _time_ms(torch, lambda: pa.paged_attention_ragged_reference(
+        q, qpool, btd, q_lens, lensd, kv_scales=scales), device, iters)
+    t_l = _time_ms(torch, lambda: F.scaled_dot_product_attention(
+        qp, kqt, vqt, attn_mask=lmask), device, iters)
+    ms, plain_ms, lib_ms = _device(t_k, t_p, t_l)
+    # bound: as above with hd int8 bytes + one f32 scale per (position,
+    # head, K|V)
+    nbytes = (2 * sum(q_lens) * H * hd * 4 + kv_pos * H * (hd + 4) * 2
+              + bt.nbytes + kv_lens.nbytes)
+    b_ms, b_by = _bound(nbytes, flops)
+    say(f"{tag} paged_attention_ragged int8 pages device time: kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa over dequantized "
+        f"gathered pages {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+        f"{nbytes} B, {flops} flop); wall per call: kernel {t_k[1]:.4f}, "
+        f"plain {t_p[1]:.4f}, sdpa {t_l[1]:.4f} ms")
+    rows["paged_attention_ragged_int8"] = dict(
+        name="paged_attention_ragged_int8", route="cuda",
+        source="paddle_tpu_torch/csrc/paged_attention_int8.cu",
+        replaces="paddle_tpu/ops/pallas/paged_attention.py:231",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=lib_ms)
+    del qpool, scales, kq, vq, kqt, vqt
+
     # -- dense decode attention: the oracle's decode shapes ------------
     B = 4
     cache = torch.randn((2, B, H, S, hd), generator=torch.Generator(
@@ -254,7 +323,70 @@ def phase_kernels(torch, device, cfg, tag, say):
         replaces="paddle_tpu/ops/pallas/decode_attention.py:86",
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=lib_ms)
+    rows["w8a16_matmul"] = phase_w8a16(torch, device, cfg, tag, say)
     return rows
+
+
+def phase_w8a16(torch, device, cfg, tag, say):
+    """The w8a16 kernel against its plain version at 1, 8 and 256 rows for
+    every projection of a layer and the head; each timed beside its
+    bound, the plain version and torch.matmul over the weight dequantized
+    beforehand. The kernels-line row sums one layer's four projections
+    at 8 rows (a decode step)."""
+    from paddle_tpu_torch.ops.hopper import int8_matmul as im
+    d, ffn, V = cfg["d"], cfg["ffn"], cfg["vocab"]
+    shapes = {"qkv": (d, 3 * d), "out_proj": (d, d), "ffn1": (d, ffn),
+              "ffn2": (ffn, d), "head": (d, V)}
+    iters = cfg["timing_iters"]
+    layer = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                 max_abs_err=0.0, by=set())
+    for name, (K, N) in shapes.items():
+        gen = torch.Generator().manual_seed(K * 7 + N)
+        w = torch.randint(-127, 128, (K, N), generator=gen,
+                          dtype=torch.int8).to(device)
+        wscale = torch.rand(N, generator=gen).to(device) / 127.0
+        wdeq = w.float() * wscale          # the library call's operand
+        for M in (1, 8, 256):
+            x = torch.randn((M, K), generator=gen).to(device)
+            got = im.w8a16_matmul(x, w)
+            ref = im.w8a16_matmul_reference(x, w)
+            err = float((got - ref).abs().max())
+            scale = float(ref.abs().max())
+            require(err <= TOL_W8A16 * scale, f"w8a16 {name} M {M} "
+                    f"disagrees: {err} vs max|ref| {scale}")
+            t_k = _time_ms(torch, lambda: im.w8a16_matmul(x, w), device,
+                           iters)
+            t_p = _time_ms(torch, lambda: im.w8a16_matmul_reference(x, w),
+                           device, iters)
+            t_l = _time_ms(torch, lambda: torch.matmul(x, wdeq), device,
+                           iters)
+            ms, plain_ms, lib_ms = _device(t_k, t_p, t_l)
+            nbytes = M * K * 4 + K * N + M * N * 4
+            b_ms, b_by = _bound(nbytes, 2 * M * K * N)
+            say(f"{tag} w8a16_matmul {name} M {M} K {K} N {N}: max_abs_err "
+                f"{err:.3e} (tol {TOL_W8A16 * scale:.3e}); device time "
+                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, matmul over "
+                f"the dequantized weight {lib_ms:.4f} ms, bound {b_ms:.4f} "
+                f"ms ({b_by}; {nbytes} B); wall kernel {t_k[1]:.4f} ms")
+            if M == 8 and name != "head":
+                for key, val in (("ms", ms), ("plain_ms", plain_ms),
+                                 ("library_ms", lib_ms),
+                                 ("bound_ms", b_ms)):
+                    layer[key] += val
+                layer["max_abs_err"] = max(layer["max_abs_err"], err)
+                layer["by"].add(b_by)
+        del w, wdeq
+    say(f"{tag} w8a16_matmul one layer's 4 projections at M 8: kernel "
+        f"{layer['ms']:.4f} ms, plain {layer['plain_ms']:.4f} ms, matmul "
+        f"{layer['library_ms']:.4f} ms, bound {layer['bound_ms']:.4f} ms")
+    return dict(
+        name="w8a16_matmul", route="cuda",
+        source="paddle_tpu_torch/csrc/int8_matmul.cu",
+        replaces="paddle_tpu/ops/pallas/int8_matmul.py:61",
+        max_abs_err=layer["max_abs_err"], ms=layer["ms"],
+        plain_ms=layer["plain_ms"], bound_ms=layer["bound_ms"],
+        bound_by="bytes" if layer["by"] == {"bytes"} else "operations",
+        library_ms=layer["library_ms"])
 
 
 def build_model(torch, device, cfg, seed):
@@ -269,25 +401,31 @@ def build_model(torch, device, cfg, seed):
     return TokenServingModel(core, emb)          # tied head
 
 
-def phase_serve(torch, device, cfg, tsm, prompts, tag, say):
+def phase_serve(torch, device, cfg, tsm, prompts, tag, say, label,
+                num_blocks, **engine_kw):
     """12 greedy requests through SpeculativeEngine(k=0) with mixed
-    steps and preemption. Returns (launches, streams)."""
+    steps and preemption. Returns a dict: launches (per kernel), streams,
+    the engine, the rows of every model call and the head calls."""
     from paddle_tpu_torch.inference import SpeculativeEngine
     from paddle_tpu_torch.ops.hopper import decode_attention as da
+    from paddle_tpu_torch.ops.hopper import int8_matmul as im
     from paddle_tpu_torch.ops.hopper import paged_attention as pa
-    calls = []
-    hook = tsm.core.register_forward_pre_hook(lambda m, a: calls.append(1))
+    rows, heads = [], []
+    hook = tsm.core.register_forward_pre_hook(
+        lambda m, a: rows.append(a[0].shape[0] * a[0].shape[1]))
     eng = SpeculativeEngine(
         tsm, None, k=0, max_batch=cfg["max_batch"],
-        block_size=cfg["block_size"], num_blocks=cfg["num_blocks"],
+        block_size=cfg["block_size"], num_blocks=num_blocks,
         chunk_tokens=cfg["chunk_tokens"],
-        prefill_token_budget=cfg["budget"])
+        prefill_token_budget=cfg["budget"], **engine_kw)
+    logits = tsm.logits
+    tsm.logits = lambda h: (heads.append(1), logits(h))[1]
     if device.type == "cuda":
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     n_new = cfg["new_tokens"]
-    pa.reset_launch_count()
-    da.reset_launch_count()
+    for mod in (pa, da, im):
+        mod.reset_launch_count()
     t0 = time.perf_counter()
     rids = [eng.submit(p) for p in prompts]
     done, rounds = {}, 0
@@ -304,20 +442,22 @@ def phase_serve(torch, device, cfg, tsm, prompts, tag, say):
         torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     launches = {"paged_attention_ragged": pa.launch_count(),
-                "decode_attention": da.launch_count()}
+                "decode_attention": da.launch_count(),
+                "w8a16_matmul": im.launch_count()}
     hook.remove()
+    del tsm.logits
     peak = torch.cuda.max_memory_allocated() if device.type == "cuda" \
         else 0
     outs = eng.outcomes
     preempt = sum(o.preemptions for o in outs)
     st = eng.engine.prefill_stats
-    say(f"{tag} serving: {len(rids)} requests x {n_new} tokens in "
+    say(f"{tag} {label}: {len(rids)} requests x {n_new} tokens in "
         f"{secs:.3f} s = {len(rids) * n_new / secs:.2f} tokens/s; "
-        f"{rounds} rounds, {len(calls)} model calls, {st.mixed_steps} "
+        f"{rounds} rounds, {len(rows)} model calls, {st.mixed_steps} "
         f"mixed steps, {preempt} preemptions "
         f"({eng.engine.resilience_stats.retried} re-admissions), "
         f"ragged launches {launches['paged_attention_ragged']} "
-        f"(= {cfg['layers']} x {len(calls)} model calls), peak memory "
+        f"(= {cfg['layers']} x {len(rows)} model calls), peak memory "
         f"{peak / 2**20:.1f} MiB")
     require(all(o.status == "finished" for o in outs) and
             len(outs) == len(rids), "a request did not finish")
@@ -329,17 +469,116 @@ def phase_serve(torch, device, cfg, tsm, prompts, tag, say):
             "malformed token stream")
     if device.type == "cuda":
         require(launches["paged_attention_ragged"] ==
-                cfg["layers"] * len(calls) > 0,
+                cfg["layers"] * len(rows) > 0,
                 f"ragged launches {launches} != layers x model calls")
-    return launches, streams
+    return dict(launches=launches, streams=streams, engine=eng, rows=rows,
+                heads=len(heads))
+
+
+def phase_quant_serve(torch, device, cfg, tsm8, prompts, tag, say):
+    """Phase 3's traffic shape through the int8 model, int8 head, int8 KV
+    pages and the prefix cache; the prompts share a system prompt."""
+    r = phase_serve(torch, device, cfg, tsm8, prompts, tag, say,
+                    "quantized serving (int8 weights, int8 KV, prefix "
+                    "cache)", cfg["q_num_blocks"], kv_dtype="int8",
+                    prefix_cache=True)
+    eng = r["engine"].engine
+    cache, ps = eng.cache, eng.prefix_stats
+    fp32_bytes = (cache.num_layers * cache.num_blocks * 2 *
+                  cache.num_heads * cache.block_size * cache.head_dim * 4)
+    small = sum(1 for n in r["rows"] if n <= 256)
+    w8 = r["launches"]["w8a16_matmul"]
+    say(f"{tag} quantized serving: int8 pool {cache.pool_bytes()} B "
+        f"({cache.num_blocks} blocks, {cache.kv_bytes_per_token()} B per "
+        f"token) vs {fp32_bytes} B for fp32 pages at the same block count "
+        f"({fp32_bytes / cache.pool_bytes():.2f}x); prefix lookups "
+        f"{ps.lookups}, hit_blocks {ps.hit_blocks} of {ps.lookup_blocks}, "
+        f"tokens_skipped {ps.tokens_skipped}, tokens_computed "
+        f"{ps.tokens_computed}; w8a16 launches {w8} (= 4 x "
+        f"{cfg['layers']} x {small} model calls of <= 256 rows + "
+        f"{r['heads']} head calls); head {tsm8.weight_bytes()} B int8")
+    require(ps.hit_blocks > 0 and ps.tokens_skipped > 0,
+            "no prefix-cache hit")
+    if device.type == "cuda":
+        require(w8 == 4 * cfg["layers"] * small + r["heads"] and small > 0,
+                f"w8a16 launches {w8} != 4 x layers x {small} small calls "
+                f"+ {r['heads']} head calls")
+    return r
+
+
+def teacher_force(torch, device, cfg, core, tsm, prompts, toks,
+                  stagger=False, **engine_kw):
+    """Serve ``prompts`` through a PagedServingEngine over ``core`` (a
+    pool that never preempts), feeding request i the tokens toks[i].
+    Returns (hidden [n, new_tokens, d], the engine). ``stagger``: submit
+    each prompt once the previous one is admitted, so later prompts find
+    its registered prefix pages."""
+    from paddle_tpu_torch.inference import PagedServingEngine
+    n, n_new = len(prompts), cfg["new_tokens"]
+    need = sum(-(-(len(p) + n_new) // cfg["block_size"]) for p in prompts)
+    eng = PagedServingEngine(core, n, cfg["block_size"], need + 1,
+                             chunk_tokens=cfg["chunk_tokens"],
+                             prefill_token_budget=cfg["budget"],
+                             **engine_kw)
+    rid_of, pending = {}, list(range(n))
+
+    def submit_next():
+        i = pending.pop(0)
+        rid_of[eng.submit(tsm.embed(prompts[i]))] = i
+    submit_next()
+    while pending and not stagger:
+        submit_next()
+    ph = [[] for _ in prompts]
+    slot_req = {}
+    while any(len(h) < n_new for h in ph):
+        events = list(eng.admitted)
+        eng.admitted.clear()
+        for rid, slot, h in events:
+            slot_req[slot] = rid_of[rid]
+            ph[rid_of[rid]].append(h[0])
+            if pending:
+                submit_next()
+        x = np.zeros((n, 1, cfg["d"]), np.float32)
+        for slot, i in slot_req.items():
+            x[slot, 0] = tsm.embed([toks[i][len(ph[i]) - 1]])
+        stepping = eng.active.copy()
+        out = eng.step(torch.from_numpy(x).to(device))
+        if out is not None:
+            for slot in np.flatnonzero(stepping & eng.active):
+                i = slot_req[int(slot)]
+                ph[i].append(out[int(slot), 0])
+                if len(ph[i]) == n_new:
+                    del slot_req[int(slot)]
+                    eng.release(int(slot))
+    require(not eng.outcomes or all(o.preemptions == 0
+                                    for o in eng.outcomes),
+            "teacher-forced pool preempted")
+    return torch.stack([torch.stack(h[:n_new]) for h in ph]), eng
+
+
+def _agreement(ref_logits, logits, divergence):
+    """Greedy agreement of ``logits`` with ``ref_logits`` [n, steps, V]:
+    (steps agreeing in all, per request the first step whose reference
+    top-two gap is below ``divergence``, whether every request agrees up
+    to that step)."""
+    top2 = ref_logits.topk(2, dim=-1).values
+    gap = (top2[..., 0] - top2[..., 1]).cpu().numpy()
+    rt = ref_logits.argmax(-1).cpu().numpy()
+    gt = logits.argmax(-1).cpu().numpy()
+    first, ok = [], True
+    for i in range(rt.shape[0]):
+        small = np.flatnonzero(gap[i] < divergence)
+        upto = int(small[0]) if small.size else rt.shape[1]
+        first.append(upto)
+        ok &= bool((rt[i, :upto] == gt[i, :upto]).all())
+    return int((rt == gt).sum()), first, ok
 
 
 def phase_paged_vs_dense(torch, device, cfg, tsm, prompts, tag, say):
     """Dense oracle vs paged engine on the same 4 prompts, teacher-forced
     with the dense engine's greedy tokens. Returns the dense path's
-    launch counts."""
-    from paddle_tpu_torch.inference import (ContinuousBatchingEngine,
-                                            PagedServingEngine)
+    launch counts, the tokens and the paged hidden rows."""
+    from paddle_tpu_torch.inference import ContinuousBatchingEngine
     from paddle_tpu_torch.ops.hopper import decode_attention as da
     from paddle_tpu_torch.ops.hopper import paged_attention as pa
     core, n_new = tsm.core, cfg["new_tokens"]
@@ -374,49 +613,16 @@ def phase_paged_vs_dense(torch, device, cfg, tsm, prompts, tag, say):
                 f"dense decode launches {launches}")
 
     # paged engine, fed the dense engine's tokens
-    need = sum(-(-(len(p) + n_new) // cfg["block_size"]) for p in prompts)
-    paged = PagedServingEngine(core, 4, cfg["block_size"], need + 1,
-                               chunk_tokens=cfg["chunk_tokens"],
-                               prefill_token_budget=cfg["budget"])
-    rid_of = {paged.submit(tsm.embed(p)): i for i, p in enumerate(prompts)}
-    ph = [[] for _ in prompts]
-    slot_req = {}
-    while any(len(h) < n_new for h in ph):
-        for rid, slot, h in paged.admitted:
-            slot_req[slot] = rid_of[rid]
-            ph[rid_of[rid]].append(h[0])
-        paged.admitted.clear()
-        x = np.zeros((4, 1, cfg["d"]), np.float32)
-        for slot, i in slot_req.items():
-            x[slot, 0] = tsm.embed([toks[i][len(ph[i]) - 1]])
-        stepping = paged.active.copy()
-        out = paged.step(torch.from_numpy(x).to(device))
-        if out is not None:
-            for slot in np.flatnonzero(stepping & paged.active):
-                i = slot_req[int(slot)]
-                ph[i].append(out[int(slot), 0])
-                if len(ph[i]) == n_new:
-                    del slot_req[int(slot)]
-                    paged.release(int(slot))
+    pH, _ = teacher_force(torch, device, cfg, core, tsm, prompts, toks)
     dH = torch.stack([torch.stack(h) for h in dh])     # [4, n_new, d]
-    pH = torch.stack([torch.stack(h[:n_new]) for h in ph])
     dL, pL = tsm.logits(dH), tsm.logits(pH)
     err_h = float((dH - pH).abs().max())
     err_l = float((dL - pL).abs().max())
     tol_h = TOL_REL * float(dH.abs().max())
     tol_l = TOL_REL * float(dL.abs().max())
-    top2 = dL.topk(2, dim=-1).values
-    gap = (top2[..., 0] - top2[..., 1]).cpu().numpy()      # [4, n_new]
-    ptoks = pL.argmax(-1).cpu().numpy()
-    agree, first_small = 0, []
-    for i in range(4):
-        small = np.flatnonzero(gap[i] < tol_l)
-        upto = int(small[0]) if small.size else n_new
-        first_small.append(upto)
-        require(list(ptoks[i, :upto]) == toks[i][:upto],
-                f"request {i}: paged greedy tokens diverge before step "
-                f"{upto} (the first top-two gap below {tol_l:.3e})")
-        agree += int((ptoks[i] == np.array(toks[i])).sum())
+    agree, first_small, ok = _agreement(dL, pL, tol_l)
+    require(ok, f"paged greedy tokens diverge before the first top-two "
+            f"gap below {tol_l:.3e}: {first_small}")
     say(f"{tag} paged vs dense: hidden max_abs_diff {err_h:.3e} (tol "
         f"{tol_h:.3e} = {TOL_REL} x max|h|), logits max_abs_diff "
         f"{err_l:.3e} (tol {tol_l:.3e}); greedy tokens agree "
@@ -425,12 +631,70 @@ def phase_paged_vs_dense(torch, device, cfg, tsm, prompts, tag, say):
         f"{launches['decode_attention']}")
     require(err_h <= tol_h and err_l <= tol_l,
             "paged and dense hidden rows disagree")
-    return launches
+    return launches, toks, pH
+
+
+def phase_quant_vs_float(torch, device, cfg, tsm, tsm8, prompts, toks, pH,
+                         tag, say):
+    """Int8 KV pages, int8 weights and the int8 head, each against the
+    float path on the same float weights, teacher-forced with phase 4's
+    tokens, under the JAX package's documented bounds."""
+    prompts = prompts[:4]
+    hk, _ = teacher_force(torch, device, cfg, tsm.core, tsm, prompts, toks,
+                          dtype="int8")
+    hw, _ = teacher_force(torch, device, cfg, tsm8.core, tsm, prompts,
+                          toks)
+    m = float(pH.abs().max())
+    Lf = tsm.logits(pH)
+    lm = float(Lf.abs().max())
+    readings = [
+        ("int8 KV pages: hidden", hk, float((hk - pH).abs().max()), m,
+         BOUND_KV8, tsm.logits(hk)),
+        ("int8 weights: hidden", hw, float((hw - pH).abs().max()), m,
+         BOUND_W8, tsm.logits(hw)),
+        ("int8 head: logits", None, None, lm, BOUND_HEAD8,
+         tsm8.logits(pH)),
+    ]
+    n = len(prompts) * cfg["new_tokens"]
+    for what, _, diff, scale, bound, L in readings:
+        ldiv = float((L - Lf).abs().max())
+        if diff is None:
+            diff = ldiv
+        agree, first, ok = _agreement(Lf, L, ldiv)
+        say(f"{tag} quantized vs float, {what} max_abs_diff {diff:.4e} = "
+            f"{diff / scale:.4e} x max|ref| (bound {bound}); logits "
+            f"max_abs_diff {ldiv:.4e}; greedy tokens agree {agree}/{n}; "
+            f"first step whose float top-two gap is below the logits "
+            f"difference, per request: {first}")
+        require(diff <= bound * scale, f"{what} over its bound")
+        require(ok, f"{what}: greedy tokens diverge before the first "
+                f"top-two gap below the divergence")
+
+
+def phase_prefix(torch, device, cfg, tsm, prompts, toks, tag, say):
+    """Prefix adoption on the fp32 pool: the same shared-prompt requests
+    (teacher-forced) with the prefix cache and without."""
+    prompts = prompts[:4]
+    h_off, _ = teacher_force(torch, device, cfg, tsm.core, tsm, prompts,
+                             toks, stagger=True)
+    h_on, eng = teacher_force(torch, device, cfg, tsm.core, tsm, prompts,
+                              toks, stagger=True, prefix_cache=True)
+    ps = eng.prefix_stats
+    diff = float((h_on - h_off).abs().max())
+    tol = TOL_REL * float(h_off.abs().max())
+    say(f"{tag} prefix on vs off (fp32 pool): hidden max_abs_diff "
+        f"{diff:.3e} (tol {tol:.3e} = {TOL_REL} x max|h|); hit_blocks "
+        f"{ps.hit_blocks} of {ps.lookup_blocks}, tokens_skipped "
+        f"{ps.tokens_skipped}")
+    require(ps.hit_blocks > 0, "no prefix hit with the cache on")
+    require(diff <= tol, "prefix adoption changed the hidden rows")
 
 
 def run(device, cfg, seed=0, say=print, card=None):
     """All phases on ``device``; returns the kernels line's rows."""
     import torch
+    from paddle_tpu_torch.incubate.nn import FusedMultiTransformerInt8
+    from paddle_tpu_torch.inference import TokenServingModel
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = card or card_line()
@@ -450,15 +714,40 @@ def run(device, cfg, seed=0, say=print, card=None):
     rng = np.random.RandomState(seed + 1)
     prompts = [list(rng.randint(0, cfg["vocab"], n)) for n in rng.randint(
         cfg["min_prompt"], cfg["max_prompt"] + 1, cfg["n_requests"])]
-    serve_launches, _ = phase_serve(torch, device, cfg, tsm, prompts, tag,
-                                    say)
-    dense_launches = phase_paged_vs_dense(torch, device, cfg, tsm, prompts,
-                                          tag, say)
+    serve = phase_serve(torch, device, cfg, tsm, prompts, tag, say,
+                        "serving", cfg["num_blocks"])
+    # the engine's pool is not needed again; the engine holds reference
+    # cycles (its metrics registry), so collect them before the peak
+    # memory of the next serving phase is read
+    del serve["engine"]
+    gc.collect()
+    dense_launches, toks, pH = phase_paged_vs_dense(
+        torch, device, cfg, tsm, prompts, tag, say)
+    # the quantized model: the same float weights, int8 projections and
+    # an int8 head
+    tsm8 = TokenServingModel(FusedMultiTransformerInt8.from_float(tsm.core),
+                             tsm._embed_np, weight_dtype="int8")
+    system = list(rng.randint(0, cfg["vocab"], cfg["system_prompt"]))
+    qprompts = [system + list(rng.randint(0, cfg["vocab"], n))
+                for n in rng.randint(cfg["min_suffix"],
+                                     cfg["max_suffix"] + 1,
+                                     cfg["n_requests"])]
+    qserve = phase_quant_serve(torch, device, cfg, tsm8, qprompts, tag, say)
+    del qserve["engine"]
+    phase_quant_vs_float(torch, device, cfg, tsm, tsm8, prompts, toks, pH,
+                         tag, say)
+    phase_prefix(torch, device, cfg, tsm, qprompts, qserve["streams"], tag,
+                 say)
     rows["paged_attention_ragged"]["launches"] = \
-        serve_launches["paged_attention_ragged"]
+        serve["launches"]["paged_attention_ragged"]
+    rows["paged_attention_ragged_int8"]["launches"] = \
+        qserve["launches"]["paged_attention_ragged"]
     rows["decode_attention"]["launches"] = \
         dense_launches["decode_attention"]
-    return [rows["paged_attention_ragged"], rows["decode_attention"]]
+    rows["w8a16_matmul"]["launches"] = qserve["launches"]["w8a16_matmul"]
+    return [rows[k] for k in ("paged_attention_ragged",
+                              "paged_attention_ragged_int8",
+                              "decode_attention", "w8a16_matmul")]
 
 
 def main(argv=None):

@@ -116,16 +116,40 @@ __host__ inline int max_block_rows(int hd) {
   return rows;
 }
 
+// A K/V source the Stager reads (which: 0 = K, 1 = V; p: position < the
+// block's n_keys; d: element of the head_dim vector):
+//   Raw               what a prefetch holds in registers for 4 elements
+//   raw4(which, p, d) issue the loads of elements d .. d + 3
+//   cvt(raw)          those 4 elements as floats, once the loads landed
+//   load1(which, p, d) one element as a float (unaligned heads)
+// RowsKV serves float32/bf16 rows: `at(which, p)` points at position p's
+// head_dim vector. Quantized sources (paged_attention.cuh PagedKVQ) keep
+// the int8 payload and its scale in Raw and dequantize in cvt.
+template <typename T, class Addr>
+struct RowsKV {
+  Addr at;
+  using Raw = float4;
+  __device__ __forceinline__ float4 raw4(int which, int p, int d) const {
+    return load4(at(which, p) + d);
+  }
+  __device__ __forceinline__ static float4 cvt(const float4& r) { return r; }
+  __device__ __forceinline__ float load1(int which, int p, int d) const {
+    return to_f(at(which, p)[d]);
+  }
+};
+
 // Stages the K/V of positions [c0, c0 + nk) into shared memory. With
 // `vec` (head_dim % 4 == 0 and 4-element-aligned rows) the loads are
-// float4s: the first kPrefetch per thread come from `kr`/`vr`, already
-// loaded by prefetch(); the rest (wide heads) are loaded here in batches.
+// 4-element vectors: the first kPrefetch per thread come from `kr`/`vr`,
+// issued by prefetch() and converted only here, after the previous
+// chunk's arithmetic; the rest (wide heads) are loaded here in batches.
 template <class KV>
 struct Stager {
+  using Raw = typename KV::Raw;
   const KV& kv;
   int hd, ld, n4;
   bool vec;
-  float4 kr[kPrefetch], vr[kPrefetch];
+  Raw kr[kPrefetch], vr[kPrefetch];
 
   __device__ Stager(const KV& kv_, int hd_, bool vec_)
       : kv(kv_), hd(hd_), ld(hd_ + 1), n4(hd_ >> 2), vec(vec_) {}
@@ -138,8 +162,8 @@ struct Stager {
       const int i = threadIdx.x + u * kThreads;
       if (i < total) {
         const int p = i / n4, d = (i - p * n4) << 2;
-        kr[u] = load4(kv.kptr(c0 + p) + d);
-        vr[u] = load4(kv.vptr(c0 + p) + d);
+        kr[u] = kv.raw4(0, c0 + p, d);
+        vr[u] = kv.raw4(1, c0 + p, d);
       }
     }
   }
@@ -160,38 +184,38 @@ struct Stager {
 #pragma unroll
       for (int u = 0; u < kPrefetch; ++u) {
         const int i = threadIdx.x + u * kThreads;
-        if (i < total) put(k_s, v_s, i, kr[u], vr[u]);
+        if (i < total) put(k_s, v_s, i, KV::cvt(kr[u]), KV::cvt(vr[u]));
       }
       for (int base = threadIdx.x + kPrefetch * kThreads; base < total;
            base += kPrefetch * kThreads) {
-        float4 a[kPrefetch], b[kPrefetch];
+        Raw a[kPrefetch], b[kPrefetch];
 #pragma unroll
         for (int u = 0; u < kPrefetch; ++u) {
           const int i = base + u * kThreads;
           if (i < total) {
             const int p = i / n4, d = (i - p * n4) << 2;
-            a[u] = load4(kv.kptr(c0 + p) + d);
-            b[u] = load4(kv.vptr(c0 + p) + d);
+            a[u] = kv.raw4(0, c0 + p, d);
+            b[u] = kv.raw4(1, c0 + p, d);
           }
         }
 #pragma unroll
         for (int u = 0; u < kPrefetch; ++u) {
           const int i = base + u * kThreads;
-          if (i < total) put(k_s, v_s, i, a[u], b[u]);
+          if (i < total) put(k_s, v_s, i, KV::cvt(a[u]), KV::cvt(b[u]));
         }
       }
       return;
     }
     for (int i = threadIdx.x; i < nk * hd; i += kThreads) {
       const int p = i / hd, d = i - p * hd;
-      k_s[p * ld + d] = to_f(kv.kptr(c0 + p)[d]);
-      v_s[p * ld + d] = to_f(kv.vptr(c0 + p)[d]);
+      k_s[p * ld + d] = kv.load1(0, c0 + p, d);
+      v_s[p * ld + d] = kv.load1(1, c0 + p, d);
     }
   }
 };
 
-// kv.kptr(p) / kv.vptr(p): pointer to the head_dim vector of position p
-// (< n_keys), contiguous in d. qrow(r, d): query element of row r.
+// kv: a K/V source (RowsKV above) over positions [0, n_keys), each
+// head_dim vector contiguous in d. qrow(r, d): query element of row r.
 // orow(r, d, x): store. qpos_src(r): absolute position of row r.
 // NT = ceil(hd / 32): the accumulator lanes each thread holds per row.
 template <int NT, class KV, class QRow, class ORow, class QPos>

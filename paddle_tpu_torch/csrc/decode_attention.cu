@@ -26,15 +26,12 @@
 namespace {
 
 template <typename T>
-struct DenseKV {
+struct DenseAddr {
   const T* kp;  // this row and kv head: element (p, d) at p * ss + d
   const T* vp;
   int64_t k_ss, v_ss;
-  __device__ __forceinline__ const T* kptr(int p) const {
-    return kp + p * k_ss;
-  }
-  __device__ __forceinline__ const T* vptr(int p) const {
-    return vp + p * v_ss;
+  __device__ __forceinline__ const T* operator()(int which, int p) const {
+    return which ? vp + p * v_ss : kp + p * k_ss;
   }
 };
 
@@ -50,8 +47,8 @@ __global__ void __launch_bounds__(pt::kThreads)
   const int g = nh / nkv;
   const int len = seq_lens[b];
   const int n_keys = max(0, min(len, S));
-  DenseKV<T> kv{kc + b * k_sb + kvh * k_sh, vc + b * v_sb + kvh * v_sh,
-                k_ss, v_ss};
+  pt::RowsKV<T, DenseAddr<T>> kv{
+      {kc + b * k_sb + kvh * k_sh, vc + b * v_sb + kvh * v_sh, k_ss, v_ss}};
   auto qrow = [&](int r, int d) {
     return pt::to_f(q[b * q_sb + (int64_t)(kvh * g + r) * q_sh + d]);
   };

@@ -1,3 +1,4 @@
-from .fused_transformer import FusedMultiTransformer  # noqa: F401
+from .fused_transformer import (FusedMultiTransformer,  # noqa: F401
+                                FusedMultiTransformerInt8)
 
-__all__ = ["FusedMultiTransformer"]
+__all__ = ["FusedMultiTransformer", "FusedMultiTransformerInt8"]

@@ -17,6 +17,11 @@ protocol as the JAX class:
   — one reduction extent for every prompt length;
 * ``caches=None``: causal (or ``attn_mask``) attention over the call's
   own rows.
+
+``FusedMultiTransformerInt8`` (counterpart of the JAX class of the same
+name) stores the four projections of every layer as int8 with
+per-output-channel scales and runs them through
+``quantization.quantized_matmul`` (the w8a16 kernel on CUDA).
 """
 from __future__ import annotations
 
@@ -30,7 +35,7 @@ from ...nn import functional as F
 from ...nn.layer import LayerNorm, Linear
 from ...ops.hopper.decode_attention import decode_attention
 
-__all__ = ["FusedMultiTransformer"]
+__all__ = ["FusedMultiTransformer", "FusedMultiTransformerInt8"]
 
 
 class _Block(torch.nn.Module):
@@ -94,7 +99,8 @@ class FusedMultiTransformer(torch.nn.Module):
             prefix_cache=prefix_cache)
 
     def _proj(self, i, blk, name, x):
-        """Linear-projection seam (the JAX int8 subclass overrides it)."""
+        """Linear-projection seam (FusedMultiTransformerInt8 overrides
+        it)."""
         return getattr(blk, name)(x)
 
     def _ffn_block(self, i, blk, x):
@@ -177,3 +183,68 @@ class FusedMultiTransformer(torch.nn.Module):
         if caches is not None:
             return x, new_caches
         return x
+
+
+_PROJ = ("qkv", "out_proj", "ffn1", "ffn2")
+
+
+class FusedMultiTransformerInt8(FusedMultiTransformer):
+    """Int8 weight-quantized decoder stack: per-output-channel abs-max
+    int8 weights for the four projections of every layer, float
+    activations (weight-only). Construct with float weights (same
+    signature as FusedMultiTransformer) and call ``quantize_weights()``,
+    or build from a float model with ``from_float(model)``. The forward
+    schedule is inherited; only ``_proj`` changes."""
+
+    def __init__(self, *args, **kwargs):
+        super().__init__(*args, **kwargs)
+        self._quantized = False
+        self._bits = 8
+
+    def quantize_weights(self, bits=8):
+        """Snapshot int8 weights and DROP the float projection weights.
+        The int8 weights and their scales become buffers
+        (``weight_int8`` [in, out] int8, ``weight_scale`` [out] float32)
+        on each projection, so ``state_dict`` carries the quantized
+        model under the JAX class's names."""
+        from ...quantization.functional import quantize
+        if self._quantized:
+            raise RuntimeError(
+                "already quantized: the float weights were dropped at "
+                "quantize time; rebuild via from_float(model, bits=...)")
+        self._bits = int(bits)
+        with torch.no_grad():
+            for blk in self.layers:
+                for name in _PROJ:
+                    lin = getattr(blk, name)
+                    w = lin.weight.detach()
+                    # all-zero channels would give scale 0 -> NaN int8
+                    scale = torch.clamp_min(w.abs().amax(dim=0), 1e-8)
+                    wq = quantize(w, scale, bits=bits, axis=-1)
+                    del lin.weight
+                    lin.register_buffer("weight_int8", wq)
+                    lin.register_buffer("weight_scale", scale)
+        self._quantized = True
+        return self
+
+    @classmethod
+    def from_float(cls, model: FusedMultiTransformer, bits: int = 8):
+        """Quantized copy of a float model (the source stays as it is)."""
+        m = cls(model.embed_dim, model.num_heads,
+                model.layers[0].ffn1.weight.shape[1],
+                activation=model._act_name,
+                normalize_before=model.normalize_before,
+                epsilon=model.layers[0].ln._epsilon,
+                num_layers=model.num_layers, device=model.device)
+        m.load_state_dict(model.state_dict())
+        return m.quantize_weights(bits=bits)
+
+    def _proj(self, i, blk, name, x):
+        if not self._quantized:
+            raise RuntimeError("call quantize_weights() (or from_float) "
+                               "before forward")
+        from ...quantization.functional import quantized_matmul
+        lin = getattr(blk, name)
+        out = quantized_matmul(x, lin.weight_int8, lin.weight_scale,
+                               bits=self._bits, out_dtype=x.dtype)
+        return out + lin.bias

@@ -2,7 +2,7 @@
 paddle_tpu/inference): the names below are the ported parts."""
 from .paged_cache import (BlockAllocator, BlockOOM,  # noqa: F401
                           PagedKVCache, PagedLayerCache, PagedPrefillView,
-                          PagedRaggedView)
+                          PagedRaggedView, chain_block_hashes, chain_hash)
 from .resilience import EngineCrash, RequestOutcome  # noqa: F401
 from .scheduler import (MIN_PREFILL_SUFFIX_ROWS,  # noqa: F401
                         PagedRequest, PagedServingEngine, chunked_prefill)
@@ -19,4 +19,5 @@ __all__ = ["BlockAllocator", "BlockOOM", "ContinuousBatchingEngine",
            "ParallelStats", "PrefillStats", "PrefixCacheStats",
            "RequestOutcome", "ResilienceStats", "SpecDecodeStats",
            "SpeculativeEngine", "StatsBase", "TenantStats",
-           "TokenServingModel", "chunked_prefill"]
+           "TokenServingModel", "chain_block_hashes", "chain_hash",
+           "chunked_prefill"]

@@ -17,18 +17,39 @@ step's K/V through the block table and returns the attention — the
 ragged paged-attention kernel for CUDA pools, its plain version for CPU
 pools (ops/hopper/paged_attention.py).
 
-Port notes. The control plane (allocator, tables, refcounts, COW,
-audits) is host numpy and follows the JAX class exactly. Pool writes are
-IN PLACE (``pool[blk, 0, :, off, :] = k``): the JAX class rebinds a new
-pool array per append, here the one pool tensor per layer is updated,
-which is what keeps peak KV memory equal to the pool. The prefix-cache
-index, snapshot/restore, export/import of slices, tenants' charges,
-quarantine and int8 pages come in later slices; their arguments raise
-NotImplementedError.
+Cross-request PREFIX CACHING (``prefix_cache=True``) layers a content
+index over the pool: every full prompt block gets a chained hash
+``h_i = H(h_{i-1}, rows of block i)``, so a match on h_i proves the whole
+prefix up to block i is identical. A new request's prompt is matched
+block by block (``match_prefix``/``adopt_prefix``) and shares the hit
+pages by refcount; copy-on-write handles later divergence. Freed blocks
+whose hash is still indexed park in the allocator's CACHED-FREE tier,
+resurrectable on a later hit and reclaimed least-recently-used only when
+the free list runs dry: free -> active -> cached-free -> (resurrect ->
+active | reclaim -> free).
+
+QUANTIZED PAGES (``dtype="int8"``): pages hold int8 payload and every
+page carries one float32 scale per (K|V, head, position) in ``scales``
+``[num_blocks, 2, H, block_size]`` per layer. Rows are quantized when
+they are written (``_quant_rows``, in every append) and dequantized on
+every read (in registers by the int8 ragged kernel, in ``gather_pages``
+by its plain version). A position's bytes depend only on that token's
+K/V, so chunking cannot change them and prefix adoption of an int8 page
+is exact; scales move with their page through COW copies, and the deep
+audit fingerprints payload and scales.
+
+Port notes. The control plane (allocator, tables, refcounts, COW, hash
+index, audits) is host numpy and follows the JAX class exactly. Pool
+writes are IN PLACE (``pool[blk, 0, :, off, :] = k``): the JAX class
+rebinds a new pool array per append, here the one pool tensor per layer
+is updated, which is what keeps peak KV memory equal to the pool.
+Snapshot/restore, export/import of slices, tenants' charges and
+quarantine come in later slices.
 """
 from __future__ import annotations
 
 import hashlib
+from collections import OrderedDict
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -38,9 +59,31 @@ from ..device import resolve_device
 from ..ops.hopper.paged_attention import RaggedPlan, paged_attention_ragged
 
 __all__ = ["BlockOOM", "BlockAllocator", "PagedKVCache",
-           "PagedLayerCache", "PagedPrefillView", "PagedRaggedView"]
+           "PagedLayerCache", "PagedPrefillView", "PagedRaggedView",
+           "chain_hash", "chain_block_hashes", "KV_QMAX"]
 
-_LATER = "comes in a later slice of the PyTorch port"
+
+def chain_hash(parent: bytes, block_tokens) -> bytes:
+    """One link of the block-identity chain: hash of the parent block's
+    chained hash + this block's content (prompt rows are embeddings, so
+    content identity is float32 byte identity)."""
+    arr = np.ascontiguousarray(np.asarray(block_tokens, np.float32))
+    return hashlib.blake2b(parent + arr.tobytes(),
+                           digest_size=16).digest()
+
+
+def chain_block_hashes(tokens, block_size: int,
+                       parent: bytes = b"") -> List[bytes]:
+    """Chained hashes for every FULL block of ``tokens`` ([T, ...]).
+    Partial trailing blocks are never indexed: their owner keeps
+    appending into them."""
+    arr = np.asarray(tokens)
+    out: List[bytes] = []
+    h = parent
+    for i in range(arr.shape[0] // block_size):
+        h = chain_hash(h, arr[i * block_size:(i + 1) * block_size])
+        out.append(h)
+    return out
 
 
 class BlockOOM(RuntimeError):
@@ -56,16 +99,26 @@ class BlockOOM(RuntimeError):
 class BlockAllocator:
     """Free-list allocator over pool rows 1..num_blocks-1 with
     refcounts (row 0 is the reserved trash block). Shared blocks hold
-    refcount > 1 and are split copy-on-write by the cache. (The JAX
-    allocator's cached-free tier belongs to the prefix cache, a later
-    slice.)"""
+    refcount > 1 and are split copy-on-write by the cache.
 
-    def __init__(self, num_blocks: int):
+    With prefix caching the allocator has a SECOND-CHANCE tier:
+    refcount-0 blocks whose content is still hash-indexed park in
+    ``_cached`` (cached-free) instead of the free list. They count as
+    free: ``alloc`` drains the free list first, then reclaims cached-free
+    blocks least-recently-released, announcing each through
+    ``on_reclaim`` so the owner drops its index entry."""
+
+    def __init__(self, num_blocks: int, on_reclaim=None):
         if num_blocks < 2:
             raise ValueError("need >= 2 blocks (block 0 is reserved)")
         self.num_blocks = int(num_blocks)
         # pop() from the end -> lowest ids first (stable tests)
         self._free = list(range(self.num_blocks - 1, 0, -1))
+        # insertion order == release order: popitem(last=False) evicts
+        # the least-recently-released block
+        self._cached: "OrderedDict[int, bool]" = OrderedDict()
+        self.on_reclaim = on_reclaim
+        self.reclaimed = 0
         self.refcount = np.zeros(self.num_blocks, np.int32)
         self.refcount[0] = 1  # trash block: never allocated, never freed
         # diagnostics wired by the owning cache: context() -> str and
@@ -82,12 +135,18 @@ class BlockAllocator:
 
     @property
     def num_free(self) -> int:
-        return len(self._free)
+        return len(self._free) + len(self._cached)
+
+    @property
+    def num_cached(self) -> int:
+        return len(self._cached)
 
     def alloc(self, n: int = 1) -> List[int]:
         if n > self.num_free:
             raise BlockOOM(
-                f"need {n} block(s), {self.num_free} free"
+                f"need {n} block(s), {self.num_free} free "
+                f"({len(self._free)} free-list + {len(self._cached)} "
+                f"cached-free reclaimable)"
                 + (self.context() if self.context is not None else ""),
                 details=dict(
                     self.context_data()
@@ -96,7 +155,13 @@ class BlockAllocator:
                     blocks_free=int(self.num_free)))
         blocks = []
         for _ in range(n):
-            b = self._free.pop()
+            if self._free:
+                b = self._free.pop()
+            else:
+                b, _ = self._cached.popitem(last=False)
+                self.reclaimed += 1
+                if self.on_reclaim is not None:
+                    self.on_reclaim(b)
             self.refcount[b] = 1
             blocks.append(b)
         return blocks
@@ -109,9 +174,9 @@ class BlockAllocator:
                                  + self._blurb(b))
             self.refcount[b] += 1
 
-    def free(self, blocks) -> None:
-        """Drop one owner per block; a block reaching refcount 0 returns
-        to the free list."""
+    def free(self, blocks, to_cache: bool = False) -> None:
+        """Drop one owner per block. A block reaching refcount 0 goes to
+        the free list, or with ``to_cache`` to the cached-free tier."""
         for b in blocks:
             if b == 0:
                 raise ValueError("block 0 is reserved")
@@ -120,7 +185,35 @@ class BlockAllocator:
                                  + self._blurb(b))
             self.refcount[b] -= 1
             if self.refcount[b] == 0:
-                self._free.append(int(b))
+                if to_cache:
+                    self._cached[int(b)] = True
+                else:
+                    self._free.append(int(b))
+
+    def resurrect(self, block: int) -> None:
+        """cached-free -> active again (a prefix hit adopted it)."""
+        if block not in self._cached:
+            raise ValueError(f"block {block} is not cached-free")
+        del self._cached[block]
+        self.refcount[block] = 1
+
+
+# --- int8 KV pages --------------------------------------------------------
+# Symmetric per-(position, head) scales: each written K/V row quantizes
+# over its head_dim with its own scale amax / 127. Appends never
+# re-quantize earlier positions, and a position's bytes depend only on
+# that token's K/V, which is what keeps prefix adoption exact. All-zero
+# rows quantize to zeros with scale 0, which dequantizes to exact zeros.
+KV_QMAX = 127.0
+
+
+def _quant_rows(x):
+    """x [..., D] float -> (int8 payload [..., D], float32 scale [...])."""
+    x = x.float()
+    scale = x.abs().amax(dim=-1) / KV_QMAX
+    q = torch.clamp(torch.round(x / torch.clamp_min(scale, 1e-30)[..., None]),
+                    -KV_QMAX, KV_QMAX).to(torch.int8)
+    return q, scale
 
 
 class _Route:
@@ -139,33 +232,60 @@ class _Route:
         self.plan = RaggedPlan(q_lens)
 
 
-def _append(pool, route: _Route, k, v) -> None:
+def _append(cache: "PagedKVCache", layer: int, route: _Route, k, v) -> None:
     """Packed in-place append: row r of k/v [N, H, D] lands at
-    pool[blk[r], :, :, off[r], :]. Rows routed to the trash block may
-    collide there; nothing reads it unmasked."""
+    pool[blk[r], :, :, off[r], :] — quantized, with its scales, on an
+    int8 pool. Rows routed to the trash block may collide there; nothing
+    reads it unmasked."""
+    pool = cache.pools[layer]
+    if cache.quantized:
+        kq, ks = _quant_rows(k)
+        vq, vs = _quant_rows(v)
+        sc = cache.scales[layer]
+        pool[route.blk, 0, :, route.off, :] = kq
+        pool[route.blk, 1, :, route.off, :] = vq
+        sc[route.blk, 0, :, route.off] = ks
+        sc[route.blk, 1, :, route.off] = vs
+        return
     pool[route.blk, 0, :, route.off, :] = k.to(pool.dtype)
     pool[route.blk, 1, :, route.off, :] = v.to(pool.dtype)
 
 
-class PagedLayerCache:
-    """One layer's view of the paged cache for the fused batch step —
-    the object that rides in ``caches=``. ``decode(q, k, v, t)`` appends
-    L tokens per row at positions t[b] .. t[b]+L-1 through the (decode-
-    masked) batch table and returns the attention [B, L, nh, hd]."""
+class _View:
+    """What every layer view shares: its pool, its scale pages (int8
+    pools) and its shape."""
 
     is_paged = True
-
-    def __init__(self, cache: "PagedKVCache", layer: int):
-        self._cache = cache
-        self._layer = layer
 
     @property
     def pool(self) -> torch.Tensor:
         return self._cache.pools[self._layer]
 
     @property
+    def kv_scales(self) -> Optional[torch.Tensor]:
+        """Per-page dequantization scales (int8 pools), else None."""
+        c = self._cache
+        return c.scales[self._layer] if c.quantized else None
+
+    @property
     def shape(self):
         return self.pool.shape
+
+    def _attend(self, q, route: _Route, q_lens):
+        return paged_attention_ragged(q, self.pool, route.bt, q_lens,
+                                      route.kv_lens, plan=route.plan,
+                                      kv_scales=self.kv_scales)
+
+
+class PagedLayerCache(_View):
+    """One layer's view of the paged cache for the fused batch step —
+    the object that rides in ``caches=``. ``decode(q, k, v, t)`` appends
+    L tokens per row at positions t[b] .. t[b]+L-1 through the (decode-
+    masked) batch table and returns the attention [B, L, nh, hd]."""
+
+    def __init__(self, cache: "PagedKVCache", layer: int):
+        self._cache = cache
+        self._layer = layer
 
     def decode(self, q, k, v, t):
         """q/k/v: [B, L, H, D]; t: int [B] per-row START positions
@@ -178,34 +298,27 @@ class PagedLayerCache:
         tv = _host_rows(t, B)
         route = c._decode_route(tv, L, check=self._layer == 0)
         H, D = q.shape[2], q.shape[3]
-        _append(self.pool, route, k.reshape(B * L, H, D),
+        _append(c, self._layer, route, k.reshape(B * L, H, D),
                 v.reshape(B * L, H, D))
-        out = paged_attention_ragged(
-            q.reshape(B * L, H, D), self.pool, route.bt, (L,) * B,
-            route.kv_lens, plan=route.plan)
+        out = self._attend(q.reshape(B * L, H, D), route, (L,) * B)
         return out.reshape(B, L, H, D)
 
 
-class PagedPrefillView:
+class PagedPrefillView(_View):
     """One layer's CHUNKED-PREFILL view of a single slot (the ``caches=``
     list of a batch-1 chunk call, ``PagedKVCache.prefill_views``): the
     chunk's C rows append straight into the slot's pages and attend
-    causally at absolute positions t[0] + i."""
+    causally at absolute positions t[0] + i. Positions below
+    ``write_start`` are an adopted (possibly shared) prefix whose pages
+    already hold these exact K/V: their rows attend but route their
+    writes to the trash block."""
 
-    is_paged = True
-
-    def __init__(self, cache: "PagedKVCache", layer: int, slot: int):
+    def __init__(self, cache: "PagedKVCache", layer: int, slot: int,
+                 write_start: int = 0):
         self._cache = cache
         self._layer = layer
         self._slot = slot
-
-    @property
-    def pool(self) -> torch.Tensor:
-        return self._cache.pools[self._layer]
-
-    @property
-    def shape(self):
-        return self.pool.shape
+        self._write_start = int(write_start)
 
     def decode(self, q, k, v, t):
         """q/k/v: [1, C, H, D], one chunk starting at position t[0].
@@ -216,11 +329,10 @@ class PagedPrefillView:
             raise ValueError(
                 f"chunk prefill is a batch-1 call, got batch {B}")
         start = int(_host_rows(t, 1)[0])
-        route = c._prefill_route(self._slot, start, C,
+        route = c._prefill_route(self._slot, start, C, self._write_start,
                                  check=self._layer == 0)
-        _append(self.pool, route, k[0], v[0])
-        return paged_attention_ragged(q[0], self.pool, route.bt, (C,),
-                                      route.kv_lens, plan=route.plan)[None]
+        _append(c, self._layer, route, k[0], v[0])
+        return self._attend(q[0], route, (C,))[None]
 
 
 class _RaggedLayout:
@@ -248,9 +360,12 @@ class _RaggedLayout:
         for seg in segments:
             kind = seg[0]
             if kind == "prefill":
-                _, slot, start, length = seg
+                _, slot, start, length, write_start = seg
                 pos = np.arange(start, start + length)
-                blk.append(tbl[slot][pos // bs])
+                # adopted shared-prefix positions route to trash: their
+                # pages already hold these exact values and may be shared
+                blk.append(np.where(pos >= write_start,
+                                    tbl[slot][pos // bs], 0))
                 off.append(pos % bs)
                 q_lens.append(int(length))
                 kv_lens.append(int(start) + int(length))
@@ -286,7 +401,7 @@ class _RaggedLayout:
                             kv_lens, bt, self.q_lens, cache.device)
 
 
-class PagedRaggedView:
+class PagedRaggedView(_View):
     """One layer's MIXED-BATCH view — the ``caches=`` entry of the
     scheduler's ragged step: prefill chunks of several slots AND the
     fused decode rows packed into one [1, total_rows, d] model call.
@@ -294,21 +409,11 @@ class PagedRaggedView:
     routing, and the attention is ONE ``paged_attention_ragged`` launch
     per layer (the kernel on CUDA, its plain version on the CPU)."""
 
-    is_paged = True
-
     def __init__(self, cache: "PagedKVCache", layer: int,
                  layout: _RaggedLayout):
         self._cache = cache
         self._layer = layer
         self._layout = layout
-
-    @property
-    def pool(self) -> torch.Tensor:
-        return self._cache.pools[self._layer]
-
-    @property
-    def shape(self):
-        return self.pool.shape
 
     def decode(self, q, k, v, t=None):
         """q/k/v: [1, R, H, D] — the packed mixed batch. ``t`` is
@@ -318,10 +423,8 @@ class PagedRaggedView:
             raise ValueError(
                 f"ragged call expects [1, {lay.total_rows}, H, D], "
                 f"got {tuple(q.shape)}")
-        r = lay.route
-        _append(self.pool, r, k[0], v[0])
-        return paged_attention_ragged(q[0], self.pool, r.bt, lay.q_lens,
-                                      r.kv_lens, plan=r.plan)[None]
+        _append(self._cache, self._layer, lay.route, k[0], v[0])
+        return self._attend(q[0], lay.route, lay.q_lens)[None]
 
 
 def _host_rows(t, n: int) -> np.ndarray:
@@ -337,17 +440,14 @@ class PagedKVCache:
     """Per-layer block pools + one block allocator + per-sequence block
     tables. ``views`` is the list consumed as ``caches=`` by the fused
     decoder; allocation/free/fork are host-side, the pool writes are
-    in-place tensor scatters on ``device``."""
+    in-place tensor scatters on ``device``. ``dtype`` is a torch dtype
+    or its name ("float32", "bfloat16", "int8")."""
 
     def __init__(self, num_layers: int, num_heads: int, head_dim: int,
                  block_size: int, num_blocks: int, max_seqs: int,
                  max_blocks_per_seq: Optional[int] = None,
-                 dtype=torch.float32, prefix_cache: bool = False,
+                 dtype="float32", prefix_cache: bool = False,
                  device=None):
-        if prefix_cache:
-            raise NotImplementedError(f"prefix_cache {_LATER}")
-        if str(dtype) in ("int8", "torch.int8"):
-            raise NotImplementedError(f"int8 KV pages {_LATER}")
         if isinstance(dtype, str):
             dtype = getattr(torch, dtype)
         self.device = resolve_device(device)
@@ -361,19 +461,33 @@ class PagedKVCache:
             max_blocks_per_seq = self.num_blocks - 1
         self.max_blocks_per_seq = int(max_blocks_per_seq)
         self.dtype = dtype
-        self.prefix_cache = False
-        self.allocator = BlockAllocator(self.num_blocks)
+        self.quantized = dtype == torch.int8
+        self.prefix_cache = bool(prefix_cache)
+        # chained-hash block index: a block is indexed iff
+        # _hash_to_block[h] == b and _block_hash[b] == h
+        self._hash_to_block: Dict[bytes, int] = {}
+        self._block_hash: Dict[int, bytes] = {}
+        self.allocator = BlockAllocator(self.num_blocks,
+                                        on_reclaim=self._on_reclaim)
         self.allocator.context = self._pool_context
         self.allocator.context_data = self.pool_occupancy
         self.allocator.describe = self._describe_block
         # content fingerprints for the "never written in place" audit of
-        # shared (refcount >= 2) blocks; fork re-shares drop the entry
+        # shared, hash-indexed and cached-free blocks; re-shares drop
+        # the entry
         self._audit_fp: Dict[int, bytes] = {}
         self.pools: List[torch.Tensor] = [
             torch.zeros((self.num_blocks, 2, self.num_heads,
                          self.block_size, self.head_dim), dtype=dtype,
                         device=self.device)
             for _ in range(self.num_layers)]
+        # int8 pools: [num_blocks, 2, H, block_size] float32 scales per
+        # layer; zeros dequantize to exact zeros, like a zeroed pool
+        self.scales: Optional[List[torch.Tensor]] = [
+            torch.zeros((self.num_blocks, 2, self.num_heads,
+                         self.block_size), dtype=torch.float32,
+                        device=self.device)
+            for _ in range(self.num_layers)] if self.quantized else None
         # all entries at the trash block until allocated
         self.block_tables = np.zeros(
             (self.max_seqs, self.max_blocks_per_seq), np.int32)
@@ -393,7 +507,7 @@ class PagedKVCache:
     # -- construction -------------------------------------------------
     @classmethod
     def for_model(cls, model, block_size, num_blocks, max_seqs,
-                  max_blocks_per_seq=None, dtype=torch.float32,
+                  max_blocks_per_seq=None, dtype="float32",
                   prefix_cache=False):
         """A pool matching ``model``'s geometry and device."""
         return cls(model.num_layers, model.num_heads, model.head_dim,
@@ -413,6 +527,23 @@ class PagedKVCache:
     def blocks_in_use(self) -> int:
         return self.num_blocks - 1 - self.allocator.num_free
 
+    def pool_bytes(self) -> int:
+        """Device bytes of the pool: payload, plus the scale pages of an
+        int8 pool."""
+        n = sum(p.numel() * p.element_size() for p in self.pools)
+        if self.quantized:
+            n += sum(s.numel() * s.element_size() for s in self.scales)
+        return n
+
+    def kv_bytes_per_token(self) -> int:
+        """Device bytes one token's K/V occupies across every layer:
+        2 x heads x (head_dim x payload itemsize + scale bytes) x
+        layers."""
+        per_head = self.head_dim * self.pools[0].element_size()
+        if self.quantized:
+            per_head += self.scales[0].element_size()
+        return int(2 * self.num_heads * per_head * self.num_layers)
+
     # -- diagnostics ---------------------------------------------------
     def owners_of(self, block: int) -> List[int]:
         return [s for s in range(self.max_seqs)
@@ -424,7 +555,8 @@ class PagedKVCache:
         a = self.allocator
         out = {
             "active": self.num_blocks - 1 - a.num_free,
-            "free": a.num_free,
+            "cached_free": a.num_cached,
+            "free": len(a._free),
             "usable": self.num_blocks - 1,
         }
         if not tiers_only:
@@ -434,14 +566,18 @@ class PagedKVCache:
 
     def _pool_context(self) -> str:
         occ = self.pool_occupancy()
-        return (f"; pool: {occ['active']} active / {occ['free']} free "
-                f"of {occ['usable']} usable; blocks per slot: "
+        return (f"; pool: {occ['active']} active / {occ['cached_free']} "
+                f"cached-free / {occ['free']} free of {occ['usable']} "
+                f"usable; blocks per slot: "
                 f"{occ['blocks_per_slot'] or '{}'}")
 
     def _describe_block(self, block: int) -> str:
         owners = self.owners_of(block)
+        state = ("cached-free" if block in self.allocator._cached
+                 else f"refcount {int(self.allocator.refcount[block])}")
+        tail = ", hash-indexed" if block in self._block_hash else ""
         own = f"owned by slot(s) {owners}" if owners else "no owner"
-        return f"refcount {int(self.allocator.refcount[block])}, {own}"
+        return f"{state}, {own}{tail}"
 
     def _fingerprint(self, block: int, pool_arrs) -> bytes:
         h = hashlib.blake2b(digest_size=16)
@@ -456,16 +592,20 @@ class PagedKVCache:
 
           1. every usable block's refcount equals the number of slot
              tables holding it (at most once per table);
-          2. the free list and the active set partition the usable
-             blocks;
-          3. trash block 0 keeps refcount 1 and is in no table or the
-             free list;
+          2. the free list, the cached-free tier and the active set
+             partition the usable blocks;
+          3. trash block 0 keeps refcount 1 and is in no table, free
+             tier or hash index;
           4. block_tables[slot] is seq_blocks[slot] then trash;
-          5. with ``lens``/``active``: every active slot's table covers
+          5. the hash index maps are inverse, and every indexed block is
+             live or cached-free; cached-free blocks are refcount 0 and
+             indexed;
+          6. with ``lens``/``active``: every active slot's table covers
              blocks_needed(lens[slot]);
-          6. ``deep``: shared (refcount >= 2) blocks are fingerprinted
-             and re-verified while they stay shared — an in-place write
-             to a shared page trips it.
+          7. ``deep``: shared (refcount >= 2), hash-indexed and
+             cached-free blocks are fingerprinted (payload and, on int8
+             pools, scales) and re-verified while they stay so — an
+             in-place write to such a page trips it.
         """
         a = self.allocator
         counts: Dict[int, int] = {}
@@ -483,20 +623,37 @@ class PagedKVCache:
             assert list(row[:len(blocks)]) == [int(b) for b in blocks] \
                 and not row[len(blocks):].any(), \
                 f"slot {slot} device table diverges from seq_blocks"
-        free_set = set(a._free)
+        free_set, cached_set = set(a._free), set(a._cached)
         active_set = {b for b in range(1, self.num_blocks)
                       if a.refcount[b] > 0}
         assert len(free_set) == len(a._free), "free list holds duplicates"
-        assert a.refcount[0] == 1 and 0 not in free_set, \
+        assert a.refcount[0] == 1 and 0 not in free_set \
+            and 0 not in cached_set and 0 not in self._block_hash, \
             "trash block 0 left its reserved state"
         for b in range(1, self.num_blocks):
             assert int(a.refcount[b]) == counts.get(b, 0), \
                 (f"block {b} refcount {int(a.refcount[b])} != "
                  f"{counts.get(b, 0)} table reference(s) "
                  f"(slots {self.owners_of(b)})")
-        assert not (free_set & active_set), "free / active sets overlap"
-        assert free_set | active_set == set(range(1, self.num_blocks)), \
-            "free / active sets do not cover the pool"
+        assert not (free_set & cached_set) \
+            and not (free_set & active_set) \
+            and not (cached_set & active_set), \
+            "free / cached-free / active sets overlap"
+        assert free_set | cached_set | active_set \
+            == set(range(1, self.num_blocks)), \
+            "free / cached-free / active sets do not cover the pool"
+        for h, b in self._hash_to_block.items():
+            assert self._block_hash.get(b) == h, \
+                f"hash index asymmetry at block {b}"
+            assert b in active_set or b in cached_set, \
+                f"hash index points at free-list block {b}"
+        for b, h in self._block_hash.items():
+            assert self._hash_to_block.get(h) == b, \
+                f"block-hash asymmetry at block {b}"
+        for b in cached_set:
+            assert a.refcount[b] == 0, f"cached-free block {b} has owners"
+            assert b in self._block_hash, \
+                f"cached-free block {b} is not hash-indexed"
         if lens is not None and active is not None:
             lens = np.asarray(lens)
             for slot in np.flatnonzero(np.asarray(active)):
@@ -507,18 +664,21 @@ class PagedKVCache:
                      f"{len(self.seq_blocks[int(slot)])} block(s)")
         if deep:
             frozen = {b for b in range(1, self.num_blocks)
-                      if a.refcount[b] >= 2}
+                      if a.refcount[b] >= 2 or b in self._block_hash
+                      or b in cached_set}
             for b in list(self._audit_fp):
                 if b not in frozen:
                     del self._audit_fp[b]
             if frozen:
                 ids = torch.tensor(sorted(frozen), device=self.device)
                 arrs = [p[ids].cpu().numpy() for p in self.pools]
+                if self.quantized:
+                    arrs += [s[ids].cpu().numpy() for s in self.scales]
                 for i, b in enumerate(sorted(frozen)):
                     fp = self._fingerprint(i, arrs)
                     old = self._audit_fp.get(b)
                     assert old is None or old == fp, \
-                        (f"shared block {b} was written in place "
+                        (f"immutable block {b} was written in place "
                          f"({self._describe_block(b)})")
                     self._audit_fp[b] = fp
         return True
@@ -601,7 +761,7 @@ class PagedKVCache:
         return self._memo(("decode", t.tobytes(), L), build)
 
     def _prefill_route(self, slot: int, start: int, C: int,
-                       check: bool) -> _Route:
+                       write_start: int, check: bool) -> _Route:
         have = len(self.seq_blocks[slot])
         if check and self.blocks_needed(start + C) > have:
             raise ValueError(
@@ -611,20 +771,23 @@ class PagedKVCache:
 
         def build():
             pos = np.arange(start, start + C)
-            return _Route(self.block_tables[slot][pos // self.block_size],
+            blk = self.block_tables[slot][pos // self.block_size]
+            # adopted-prefix positions write the trash block
+            return _Route(np.where(pos >= write_start, blk, 0),
                           pos % self.block_size, [start + C],
                           self.bt_row_tensor(slot), (C,), self.device)
-        return self._memo(("prefill", slot, start, C), build)
+        return self._memo(("prefill", slot, start, C, write_start), build)
 
     # -- allocation ---------------------------------------------------
-    def ensure(self, slot: int, length: int,
+    def ensure(self, slot: int, length: int, start_block: int = 0,
                write_from: Optional[int] = None) -> None:
         """Grow slot's table to cover ``length`` tokens (allocate-on-
         write) and copy-on-write split every shared block the coming
         write range [write_from, length) touches (``write_from``
-        defaults to length - 1). Raises BlockOOM when the pool is
-        exhausted (callers preempt) and ValueError past the per-seq
-        table capacity."""
+        defaults to length - 1). Table positions below ``start_block``
+        are adopted prefix pages the caller never writes: no split
+        there. Raises BlockOOM when the pool is exhausted (callers
+        preempt) and ValueError past the per-seq table capacity."""
         if length <= 0:
             return
         need = self.blocks_needed(length)
@@ -643,28 +806,29 @@ class PagedKVCache:
             write_from = int(length) - 1
         lo = max(int(write_from), 0) // self.block_size
         hi = (int(length) - 1) // self.block_size
-        for bpos in range(lo, hi + 1):
+        for bpos in range(max(lo, start_block), hi + 1):
             if self.allocator.refcount[have[bpos]] > 1:
                 self._copy_block(slot, bpos)
 
     def truncate(self, slot: int, length: int) -> None:
         """Roll the slot back to ``length`` tokens: every block past
         blocks_needed(length) leaves the table, tail first (a shared
-        page just drops one owner)."""
+        page just drops one owner; a hash-indexed page reaching
+        refcount 0 parks cached-free)."""
         if length < 0:
             raise ValueError(f"negative truncate length {length}")
         have = self.seq_blocks[slot]
         keep = self.blocks_needed(length)
         if keep >= len(have):
             return
-        self.allocator.free(have[keep:])
+        self.release_to_cache(have[keep:])
         del have[keep:]
         self.block_tables[slot, keep:] = 0
         self._tables_dirty()
 
     def free_seq(self, slot: int) -> None:
         if self.seq_blocks[slot]:
-            self.allocator.free(self.seq_blocks[slot])
+            self.release_to_cache(self.seq_blocks[slot])
             self.seq_blocks[slot] = []
             self.block_tables[slot, :] = 0
             self._tables_dirty()
@@ -690,16 +854,84 @@ class PagedKVCache:
         new = self.allocator.alloc(1)[0]
         for pool in self.pools:
             pool[new] = pool[old]
-        self.allocator.free([old])
+        if self.quantized:
+            # the scales are part of the page's content
+            for sc in self.scales:
+                sc[new] = sc[old]
+        self.release_to_cache([old])
         self.seq_blocks[slot][bpos] = new
         self.block_tables[slot, bpos] = new
         self._tables_dirty()
 
+    # -- prefix caching -----------------------------------------------
+    def _on_reclaim(self, block: int) -> None:
+        """The allocator reclaimed a cached-free block: its content is
+        about to be overwritten, so its index entry goes."""
+        h = self._block_hash.pop(block, None)
+        if h is not None and self._hash_to_block.get(h) == block:
+            del self._hash_to_block[h]
+        self._audit_fp.pop(block, None)
+
+    def release_to_cache(self, blocks) -> None:
+        """Drop ownership of ``blocks``; indexed blocks reaching
+        refcount 0 park in the cached-free tier, others free normally."""
+        for b in blocks:
+            self.allocator.free([b], to_cache=b in self._block_hash)
+
+    def match_prefix(self, hashes) -> List[int]:
+        """Longest indexed prefix of the hash chain -> pool block ids (a
+        pure lookup; ``adopt_prefix`` takes ownership)."""
+        out: List[int] = []
+        for h in hashes:
+            b = self._hash_to_block.get(h)
+            if b is None:
+                break
+            out.append(b)
+        return out
+
+    def adopt_prefix(self, slot, hashes) -> int:
+        """Take shared ownership of the longest indexed prefix for an
+        empty slot: active blocks gain an owner, cached-free blocks are
+        resurrected. Returns the number of blocks adopted."""
+        if not self.prefix_cache:
+            return 0
+        if self.seq_blocks[slot]:
+            raise ValueError(f"slot {slot} already allocated")
+        matched = self.match_prefix(hashes)
+        for b in matched:
+            if self.allocator.refcount[b] > 0:
+                self.allocator.ref([b])
+                # new sharer: fresh epoch for the content audit
+                self._audit_fp.pop(int(b), None)
+            else:
+                self.allocator.resurrect(b)
+        if matched:
+            self.seq_blocks[slot] = list(matched)
+            self.block_tables[slot, :len(matched)] = matched
+            self._tables_dirty()
+        return len(matched)
+
+    def register_prefix(self, slot, hashes, start: int = 0) -> None:
+        """Index the slot's blocks ``[start, len(hashes))`` under their
+        chain hashes (first writer wins: a hash already indexed keeps its
+        block)."""
+        if not self.prefix_cache:
+            return
+        blocks = self.seq_blocks[slot]
+        for i in range(start, min(len(hashes), len(blocks))):
+            h, b = hashes[i], int(blocks[i])
+            if h in self._hash_to_block or b in self._block_hash:
+                continue
+            self._hash_to_block[h] = b
+            self._block_hash[b] = h
+
     # -- views ----------------------------------------------------------
     def ragged_views(self, segments) -> List[PagedRaggedView]:
         """Per-layer views for ONE mixed ragged model call. ``segments``
-        is an ordered list of ("prefill", slot, start, length) chunks
-        and at most one ("decode", lens, L) segment
+        is an ordered list of ("prefill", slot, start, length,
+        write_start) chunks (positions below write_start, an adopted
+        prefix, write the trash block) and at most one ("decode", lens,
+        L) segment
         (L query rows per batch slot at lens[b] .. lens[b]+L-1 through
         the DECODE-MASKED batch table). The packed input is
         [1, sum(rows), d] in segment order. Build AFTER ensure()ing
@@ -708,8 +940,10 @@ class PagedKVCache:
         return [PagedRaggedView(self, i, layout)
                 for i in range(self.num_layers)]
 
-    def prefill_views(self, slot: int) -> List[PagedPrefillView]:
+    def prefill_views(self, slot: int,
+                      write_start: int = 0) -> List[PagedPrefillView]:
         """Per-layer chunked-prefill views of one slot (the ``caches=``
-        list of a batch-1 chunk call)."""
-        return [PagedPrefillView(self, i, slot)
+        list of a batch-1 chunk call); rows below ``write_start`` (an
+        adopted prefix) attend but do not rewrite their pages."""
+        return [PagedPrefillView(self, i, slot, write_start=write_start)
                 for i in range(self.num_layers)]

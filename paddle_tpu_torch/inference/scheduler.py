@@ -27,10 +27,18 @@ limit is the BLOCK BUDGET, not slots * max_len:
     CUDA alike, so the CPU tests run the same control flow as the card.
   * without a budget, admission prefills synchronously chunk by chunk
     (``chunked_prefill``) and each step is one fused decode call.
+  * prefix caching (``prefix_cache=True``): admission matches the
+    prompt's chained block hashes against the pool's index
+    (``PagedKVCache.adopt_prefix``), shares the hit pages and prefills
+    only the uncached suffix (at least MIN_PREFILL_SUFFIX_ROWS rows).
+    Completed prompt blocks are registered chunk by chunk, so a request
+    preempted mid-prefill re-adopts its own finished pages when it
+    returns. Accounting rides in ``prefix_stats``.
+  * ``dtype="int8"`` serves from int8 KV pages; the engine itself is
+    dtype-blind.
 
-Ported later: the prefix cache, tenants and weighted fair queuing,
-branch groups, deadlines, fault injection, telemetry collectors and
-snapshot/restore.
+Ported later: tenants and weighted fair queuing, branch groups,
+deadlines, fault injection, telemetry collectors and snapshot/restore.
 """
 from __future__ import annotations
 
@@ -40,19 +48,20 @@ from typing import Deque, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from .paged_cache import BlockOOM, PagedKVCache
+from .paged_cache import BlockOOM, PagedKVCache, chain_block_hashes
 from .resilience import RequestOutcome
-from .serving import PrefillStats, ResilienceStats
+from .serving import PrefillStats, PrefixCacheStats, ResilienceStats
 from .telemetry import MetricsRegistry
 
 __all__ = ["PagedRequest", "PagedServingEngine", "chunked_prefill",
            "MIN_PREFILL_SUFFIX_ROWS"]
 
-# Every prefill chunk keeps >= this many rows: the JAX package's CPU
-# bit-identity rule (a 1-row chunk lowers to a GEMV with a different
-# accumulation order than the same row inside a multi-row call). The
-# port keeps the same chunk boundaries so its schedules match the
-# reference step for step.
+# Every prefill chunk, and the recomputed suffix of a prefix-cache hit,
+# keeps >= this many rows: the JAX package's CPU bit-identity rule (a
+# 1-row chunk lowers to a GEMV with a different accumulation order than
+# the same row inside a multi-row call), and a fully cached prompt still
+# needs its last hidden for the admission event. The port keeps the same
+# boundaries so its schedules match the reference step for step.
 MIN_PREFILL_SUFFIX_ROWS = 2
 
 
@@ -72,19 +81,24 @@ def _chunk_len(total: int, pos: int, chunk_tokens: int,
 
 def chunked_prefill(model, cache: PagedKVCache, slot: int, rows,
                     *, pos: int = 0, target: Optional[int] = None,
-                    chunk_tokens: int = 64,
-                    stats: Optional[PrefillStats] = None):
+                    chunk_tokens: int = 64, start_block: int = 0,
+                    write_start: int = 0,
+                    stats: Optional[PrefillStats] = None, on_chunk=None):
     """Stream ``rows[pos:target]`` ([T, d_model] array) into ``slot``'s
     pages in causal chunks: each chunk is one batch-1 model call through
-    ``cache.prefill_views``. Ensures page coverage per chunk (BlockOOM
-    propagates). Returns ``(new_pos, last_hidden)`` — the final chunk's
-    trailing row [1, d_model], or None when no chunk ran."""
+    ``cache.prefill_views``. ``start_block``/``write_start``: adopted
+    prefix-cache pages, which the chunks attend over but never rewrite
+    or COW-split. Ensures page coverage per chunk (BlockOOM propagates);
+    ``on_chunk(new_pos)`` fires after every chunk lands. Returns
+    ``(new_pos, last_hidden)`` — the final chunk's trailing row
+    [1, d_model], or None when no chunk ran."""
     T = rows.shape[0] if target is None else int(target)
     out = None
-    views = cache.prefill_views(slot)
+    views = cache.prefill_views(slot, write_start=write_start)
     while pos < T:
         c = _chunk_len(T, pos, chunk_tokens)
-        cache.ensure(slot, pos + c, write_from=pos)
+        cache.ensure(slot, pos + c, start_block=start_block,
+                     write_from=pos)
         x = torch.from_numpy(np.ascontiguousarray(
             rows[pos:pos + c], np.float32)[None]).to(cache.device)
         with torch.no_grad():
@@ -96,6 +110,8 @@ def chunked_prefill(model, cache: PagedKVCache, slot: int, rows,
             stats.prefill_tokens += c
             stats.peak_blocks = max(stats.peak_blocks,
                                     cache.blocks_in_use)
+        if on_chunk is not None:
+            on_chunk(pos)
     return pos, (out[:, -1] if out is not None else None)
 
 
@@ -112,6 +128,9 @@ class PagedRequest:
             raise ValueError("history must be [T, d_model] rows")
         self._hist = arr
         self._len = arr.shape[0]
+        # chain hashes are append-only like the history: memoized and
+        # extended, never recomputed across re-admissions
+        self._hashes: List[bytes] = []
         self.slot: Optional[int] = None
         self.admit_seq = -1
         self.enqueue_seq = -1
@@ -132,6 +151,18 @@ class PagedRequest:
         self._hist[self._len] = row
         self._len += 1
 
+    def block_hashes(self, block_size: int) -> List[bytes]:
+        """Chained hashes of every FULL block of the history (the
+        identity the prefix cache indexes by)."""
+        n_full = self._len // block_size
+        have = len(self._hashes)
+        if have < n_full:
+            self._hashes.extend(chain_block_hashes(
+                self._hist[have * block_size:n_full * block_size],
+                block_size,
+                parent=self._hashes[-1] if self._hashes else b""))
+        return self._hashes[:n_full]
+
     def __len__(self):
         return self._len
 
@@ -139,7 +170,7 @@ class PagedRequest:
 class PagedServingEngine:
     def __init__(self, model, max_batch: int, block_size: int,
                  num_blocks: int, max_blocks_per_seq: Optional[int] = None,
-                 dtype=torch.float32, watermark_blocks: int = 0,
+                 dtype="float32", watermark_blocks: int = 0,
                  prefix_cache: bool = False,
                  chunk_tokens: Optional[int] = None,
                  prefill_token_budget: Optional[int] = None,
@@ -149,6 +180,8 @@ class PagedServingEngine:
         self.max_batch = int(max_batch)
         self.dtype = dtype
         self.watermark_blocks = int(watermark_blocks)
+        self.prefix_cache = bool(prefix_cache)
+        self.prefix_stats = PrefixCacheStats()
         self.prefill_stats = PrefillStats()
         self.max_preemptions = max_preemptions
         self.resilience_stats = ResilienceStats()
@@ -162,6 +195,7 @@ class PagedServingEngine:
         # the unified metric surface: live sources read at export time
         self.registry = MetricsRegistry()
         self.registry.attach("prefill", self.prefill_stats)
+        self.registry.attach("prefix_cache", self.prefix_stats)
         self.registry.attach("resilience", self.resilience_stats)
         self.registry.attach(
             "pool",
@@ -218,7 +252,12 @@ class PagedServingEngine:
 
     @property
     def free_blocks(self) -> int:
+        """Allocatable blocks: the free list plus the cached-free tier."""
         return self.cache.allocator.num_free
+
+    @property
+    def prefix_hit_rate(self) -> float:
+        return self.prefix_stats.hit_rate
 
     @property
     def queue(self) -> List[PagedRequest]:
@@ -289,7 +328,16 @@ class PagedServingEngine:
                 horizon = min(len(req) + 1, self.max_len)
             else:
                 horizon = min(len(req), self.chunk_tokens)
-            draw = self.cache.blocks_needed(horizon) + self.watermark_blocks
+            need = self.cache.blocks_needed(horizon)
+            if self.prefix_cache:
+                # actively shared prefix hits cost no pool draw;
+                # cached-free hits come out of free_blocks (a resurrect
+                # takes one free unit, like an alloc)
+                matched = self.cache.match_prefix(
+                    req.block_hashes(self.cache.block_size))
+                rc = self.cache.allocator.refcount
+                need -= sum(1 for b in matched if rc[b] > 0)
+            draw = max(need, 0) + self.watermark_blocks
             if draw > self.free_blocks:
                 return
             self._queue.popleft()
@@ -315,9 +363,24 @@ class PagedServingEngine:
                 return
 
     def _start_prefill(self, req: PagedRequest) -> int:
-        """Grant a slot and set up the chunked-prefill state."""
+        """Grant a slot and set up the chunked-prefill state: adopt any
+        cached prefix pages and compute the recompute start P (the
+        suffix keeps at least MIN_PREFILL_SUFFIX_ROWS rows)."""
         slot = int(np.flatnonzero(~self.active & ~self.prefilling)[0])
-        self._prefills[slot] = {"pos": 0}
+        T = len(req)
+        bs = self.cache.block_size
+        hashes: List[bytes] = []
+        n_cached = 0
+        if self.prefix_cache:
+            hashes = req.block_hashes(bs)
+            n_cached = self.cache.adopt_prefix(slot, hashes)
+            self.prefix_stats.lookups += 1
+            self.prefix_stats.lookup_blocks += len(hashes)
+            self.prefix_stats.hit_blocks += n_cached
+        P = max(0, min(n_cached * bs, T - MIN_PREFILL_SUFFIX_ROWS)) \
+            if n_cached else 0
+        self._prefills[slot] = {"pos": P, "start": P,
+                                "n_cached": n_cached, "hashes": hashes}
         self.prefilling[slot] = True
         self._requests[slot] = req
         req.slot = slot
@@ -327,23 +390,56 @@ class PagedServingEngine:
             self.resilience_stats.retried += 1
         return slot
 
+    def _register_prefill(self, slot: int, st: dict) -> None:
+        """Prompt fully in the pages: index its blocks and account the
+        prefill the cache saved."""
+        if self.prefix_cache:
+            T = len(self._requests[slot])
+            self.cache.register_prefix(slot, st["hashes"])
+            self.prefix_stats.tokens_computed += T - st["start"]
+            self.prefix_stats.tokens_skipped += st["start"]
+
     def _complete_prefill(self, slot: int, last_hidden) -> None:
         """Last chunk landed: the slot turns decodable and the admission
         event fires."""
-        self._prefills.pop(slot)
+        st = self._prefills.pop(slot)
         req = self._requests[slot]
+        self._register_prefill(slot, st)
         self.prefilling[slot] = False
         self.lens[slot] = len(req)
         self.active[slot] = True
         self.admitted.append((req.rid, slot, last_hidden))
 
+    def _chunk_registrar(self, slot: int, st: dict):
+        """``on_chunk`` hook: index every COMPLETED prompt block under
+        its chain hash as the stream advances, so a request preempted
+        mid-prefill re-adopts its finished pages on re-admission (they
+        park cached-free when its slot is dropped). Only full blocks
+        below the write frontier are registered: later chunks write
+        strictly past them."""
+        if not self.prefix_cache:
+            return None
+        last = [0]      # blocks this registrar has indexed so far
+
+        def register(pos: int) -> None:
+            done = pos // self.cache.block_size
+            if done > last[0]:
+                self.cache.register_prefix(slot, st["hashes"][:done],
+                                           start=last[0])
+                last[0] = done
+        return register
+
     def _prefill(self, req: PagedRequest) -> None:
         """Synchronous admission: stream every chunk now."""
         slot = self._start_prefill(req)
+        st = self._prefills[slot]
         _, h = chunked_prefill(
             self.model, self.cache, slot, req.history,
-            pos=0, target=len(req), chunk_tokens=self.chunk_tokens,
-            stats=self.prefill_stats)
+            pos=st["pos"], target=len(req), chunk_tokens=self.chunk_tokens,
+            start_block=st["n_cached"],
+            write_start=st["n_cached"] * self.cache.block_size,
+            stats=self.prefill_stats,
+            on_chunk=self._chunk_registrar(slot, st))
         self._complete_prefill(slot, h)
 
     def _plan_prefills(self) -> Tuple[bool, List[int]]:
@@ -375,15 +471,21 @@ class PagedServingEngine:
             T = len(req)
             c = _chunk_len(T, st["pos"], self.chunk_tokens, budget=budget)
             if not self._grow_or_shed(slot, req, st["pos"] + c,
+                                      start_block=st["n_cached"],
                                       write_from=st["pos"]):
                 continue  # the slot was evicted (or shed) growing
             seg = plan[-1] if plan and plan[-1]["slot"] == slot else None
             if seg is None:
                 seg = {"slot": slot, "req": req, "from": st["pos"],
-                       "to": st["pos"], "complete": False}
+                       "to": st["pos"],
+                       "ws": st["n_cached"] * self.cache.block_size,
+                       "bounds": [],
+                       "hook": self._chunk_registrar(slot, st),
+                       "complete": False}
                 plan.append(seg)
             st["pos"] += c
             seg["to"] = st["pos"]
+            seg["bounds"].append(st["pos"])
             self.prefill_stats.chunks += 1
             self.prefill_stats.prefill_tokens += c
             self.prefill_stats.peak_blocks = max(
@@ -413,7 +515,7 @@ class PagedServingEngine:
         if not segs and x is None:
             return None
         desc: List[tuple] = [("prefill", s["slot"], s["from"],
-                              s["to"] - s["from"]) for s in segs]
+                              s["to"] - s["from"], s["ws"]) for s in segs]
         if x is not None:
             desc.append(("decode", self.lens.copy(), L))
         views = self.cache.ragged_views(desc)
@@ -433,8 +535,14 @@ class PagedServingEngine:
         lo = 0
         for s in segs:
             n = s["to"] - s["from"]
+            # the pages exist now: per-chunk registration, then the
+            # completion (registration, admitted event)
+            if s["hook"] is not None:
+                for b in s["bounds"]:
+                    s["hook"](b)
             if s["complete"]:
-                self._prefills.pop(s["slot"])
+                st = self._prefills.pop(s["slot"])
+                self._register_prefill(s["slot"], st)
                 self.admitted.append((s["req"].rid, s["slot"],
                                       out[0, lo + n - 1:lo + n]))
             lo += n
@@ -544,14 +652,16 @@ class PagedServingEngine:
         return victim
 
     def _grow_or_shed(self, slot: int, req: PagedRequest, length: int,
-                      *, write_from: Optional[int] = None) -> bool:
+                      *, start_block: int = 0,
+                      write_from: Optional[int] = None) -> bool:
         """Cover ``length`` tokens for ``slot``, preempting the youngest
         request on pool pressure — possibly the grower itself (it then
         re-queues). With no victim but the grower left, the grower is
         SHED (FAILED_OOM). Returns True when the slot is still alive."""
         while self.active[slot] or self.prefilling[slot]:
             try:
-                self.cache.ensure(slot, length, write_from=write_from)
+                self.cache.ensure(slot, length, start_block=start_block,
+                                  write_from=write_from)
                 return True
             except BlockOOM as e:
                 cands = self._held_slots()

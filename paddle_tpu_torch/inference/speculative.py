@@ -31,9 +31,10 @@ class TokenServingModel:
     core: the embedding table [vocab, d_model] stays a host array (the
     engines take host prompt rows), the readout head [d_model, vocab]
     lives on the core's device — tied to the embedding transpose when
-    not given."""
+    not given, int8 with ``weight_dtype="int8"``."""
 
-    def __init__(self, model, embedding, lm_head=None):
+    def __init__(self, model, embedding, lm_head=None,
+                 weight_dtype: str = "float32"):
         self.core = model
         emb = np.asarray(embedding.cpu().numpy() if isinstance(
             embedding, torch.Tensor) else embedding, np.float32)
@@ -50,6 +51,33 @@ class TokenServingModel:
                              f"{head_shape}, got {tuple(head.shape)}")
         self.lm_head = head.to(device=model.device,
                                dtype=torch.float32).contiguous()
+        # weight_dtype="int8": the head is stored int8 with per-output-
+        # channel (per-vocab-column) symmetric scales, quantized exactly
+        # as the JAX class does (numpy float32, round(w * 127 / amax),
+        # clipped to +-127; the scale is the channel's amax, qmax folds
+        # in inside quantized_matmul), and logits run through the w8a16
+        # kernel
+        if weight_dtype not in ("float32", "int8"):
+            raise ValueError(f"unsupported weight_dtype "
+                             f"{weight_dtype!r} (float32 | int8)")
+        self.weight_dtype = weight_dtype
+        self._head_int8: Optional[torch.Tensor] = None
+        self._head_scale: Optional[torch.Tensor] = None
+        if weight_dtype == "int8":
+            w = self.lm_head.cpu().numpy().astype(np.float32)
+            amax = np.abs(w).max(axis=0)             # per out-channel
+            q = np.clip(np.round(w * (127.0 / np.maximum(amax, 1e-30))
+                                 [None]), -127, 127).astype(np.int8)
+            self._head_int8 = torch.from_numpy(q).to(model.device)
+            self._head_scale = torch.from_numpy(
+                amax.astype(np.float32)).to(model.device)
+
+    def weight_bytes(self) -> int:
+        """Device bytes of the readout head as served: int8 payload plus
+        per-channel scales when quantized, else the float32 head."""
+        if self._head_int8 is not None:
+            return self._head_int8.numel() + 4 * self._head_scale.numel()
+        return self.lm_head.numel() * 4
 
     @property
     def vocab_size(self) -> int:
@@ -67,8 +95,12 @@ class TokenServingModel:
         return self._embed_np[ids]
 
     def logits(self, hidden: torch.Tensor) -> torch.Tensor:
-        """hidden [..., d_model] -> logits [..., vocab] on the device."""
-        return torch.matmul(hidden, self.lm_head)
+        """hidden [..., d_model] -> logits [..., vocab] on the device
+        (the int8 head through ``quantized_matmul``)."""
+        if self._head_int8 is None:
+            return torch.matmul(hidden, self.lm_head)
+        from ..quantization.functional import quantized_matmul
+        return quantized_matmul(hidden, self._head_int8, self._head_scale)
 
     def probs(self, logits: torch.Tensor, temperature: float = 1.0,
               top_k: Optional[int] = None) -> torch.Tensor:
@@ -132,7 +164,8 @@ class SpeculativeEngine:
     ``k=0`` (the only depth this slice serves) every round consumes
     each active stream's pending token and emits one greedy or sampled
     token per stream; admission, chunked prefill, the token-budget mixed
-    step and preemption with re-prefill come from the wrapped
+    step, preemption with re-prefill, int8 KV pages (``kv_dtype="int8"``)
+    and the prefix cache (``prefix_cache=True``) come from the wrapped
     ``PagedServingEngine``. Capacity-finished requests land in
     ``finished`` as (rid, total_tokens); terminal outcomes in
     ``outcomes``."""
@@ -147,7 +180,7 @@ class SpeculativeEngine:
                  watermark_blocks: int = 0,
                  chunk_tokens: Optional[int] = None,
                  prefill_token_budget: Optional[int] = None,
-                 kv_dtype=torch.float32, seed: int = 0,
+                 kv_dtype="float32", seed: int = 0,
                  max_preemptions: Optional[int] = None):
         if k != 0 or draft is not None:
             raise NotImplementedError(
@@ -246,15 +279,25 @@ class SpeculativeEngine:
         eng.finished.clear()
         for rid, slot, h in eng.admitted:
             seq = self._by_rid.get(rid)
+            # an event is stale when its request was preempted in the
+            # same engine step after its prefill landed: the slot is
+            # then empty, another request's, or this request's again but
+            # still re-prefilling (its own admitted event comes later)
+            req = eng._requests[slot]
+            live = eng.active[slot] and req is not None and req.rid == rid
             if seq is None:
-                eng.release(slot)      # released while queued
+                if live:
+                    eng.release(slot)      # released while queued
                 continue
-            seq.slot = slot
-            self._seqs[slot] = seq
             if not seq.started:
+                # the prefill did land: its last hidden gives the first
+                # token even when the event is stale
                 tok, _ = self._sample(self.target.logits(h))
                 seq.toks.append(int(tok.reshape(-1)[0]))
                 seq.started = True
+            if live:
+                seq.slot = slot
+                self._seqs[slot] = seq
         eng.admitted.clear()
 
     # -- the round ----------------------------------------------------

@@ -12,9 +12,10 @@ phase entry points (``paged_attention``, ``paged_attention_multi``,
 ``paged_attention_prefill``) are thin wrappers over it.
 
 Dispatch: a CUDA tensor launches the hand-written kernel in
-``csrc/paged_attention.cu`` (or raises); a CPU tensor takes the plain
-PyTorch version ``paged_attention_ragged_reference``. The CUDA path never
-falls back.
+``csrc/paged_attention.cu`` — ``csrc/paged_attention_int8.cu`` for an int8
+pool with ``kv_scales`` — or raises; a CPU tensor takes the plain PyTorch
+version ``paged_attention_ragged_reference``. The CUDA path never falls
+back.
 
 Host descriptors: each sequence's rows are cut into tiles of ``tile_q``
 rows; a ``RaggedPlan`` holds, per tile, (sequence, query offset, real
@@ -24,8 +25,10 @@ every layer's launch reuses it (``PagedRaggedView`` in
 inference/paged_cache.py). The kernel writes straight into the packed
 output — the Pallas path's pad/unpad gathers do not exist here.
 
-Only float pools (float32, bfloat16) are in this slice; the int8
-``kv_scales`` path of the Pallas kernel waits for a later one.
+Int8 pools (``kv_scales=``, the JAX module's quantized path): the pool
+holds int8 payload and ``kv_scales`` ``[num_blocks, 2, nkv, block_size]``
+float32 holds one scale per (block, K|V, kv head, position); the kernel
+dequantizes in registers, the plain version in ``gather_pages``.
 """
 from __future__ import annotations
 
@@ -94,7 +97,8 @@ class RaggedPlan:
 def rows_vectorizable(t: torch.Tensor, strides) -> bool:
     """Whether the kernels may read ``t``'s head_dim vectors four
     elements at a time: head_dim a multiple of 4, the given strides too,
-    and the base aligned to four elements."""
+    and the base aligned to four elements (16 bytes for float32, 8 for
+    bfloat16, 4 for an int8 pool)."""
     align = 4 * t.element_size()
     return t.shape[-1] % 4 == 0 and t.data_ptr() % align == 0 and \
         all(s % 4 == 0 for s in strides)
@@ -109,7 +113,8 @@ def _as_int32(x, device) -> torch.Tensor:
 def paged_attention_ragged(q, kv_pool, block_tables, q_lens, kv_lens,
                            sm_scale: Optional[float] = None,
                            tile_q: Optional[int] = None,
-                           plan: Optional[RaggedPlan] = None):
+                           plan: Optional[RaggedPlan] = None,
+                           kv_scales: Optional[torch.Tensor] = None):
     """THE kernel: one launch scores a mixed prefill+decode+verify batch.
     q: [R, nh, hd] packed rows (R == sum(q_lens)); kv_pool:
     [num_blocks, 2, nkv, bs, hd]; block_tables: int32 [n_seq, MB]
@@ -117,7 +122,8 @@ def paged_attention_ragged(q, kv_pool, block_tables, q_lens, kv_lens,
     block 0); q_lens: static per-sequence row counts; kv_lens: int32
     [n_seq] valid lengths INCLUDING each sequence's new rows. ``plan``
     (a ``RaggedPlan`` of the same q_lens) lets callers share the tile
-    descriptors across launches. Returns [R, nh, hd]."""
+    descriptors across launches. ``kv_scales`` [num_blocks, 2, nkv, bs]
+    float32 comes with an int8 pool. Returns [R, nh, hd]."""
     q_lens = tuple(int(x) for x in q_lens)
     R, nh, hd = q.shape
     if R != sum(q_lens):
@@ -129,24 +135,38 @@ def paged_attention_ragged(q, kv_pool, block_tables, q_lens, kv_lens,
     if nh % nkv:
         raise ValueError(f"query heads {nh} are not a multiple of the "
                          f"pool's kv heads {nkv}")
+    quant = kv_pool.dtype == torch.int8
+    if quant != (kv_scales is not None):
+        raise ValueError("an int8 pool needs kv_scales, and kv_scales "
+                         "need an int8 pool")
+    if quant and tuple(kv_scales.shape) != tuple(kv_pool.shape[:4]):
+        raise ValueError(f"kv_scales must be {tuple(kv_pool.shape[:4])}, "
+                         f"got {tuple(kv_scales.shape)}")
     if not q.is_cuda:
         return paged_attention_ragged_reference(
-            q, kv_pool, block_tables, q_lens, kv_lens, sm_scale=sm_scale)
+            q, kv_pool, block_tables, q_lens, kv_lens, sm_scale=sm_scale,
+            kv_scales=kv_scales)
     g = nh // nkv
     dev = q.device
-    if kv_pool.device != dev:
-        raise ValueError("q and kv_pool must be on the same device")
-    if q.dtype not in _DTYPES or kv_pool.dtype != q.dtype:
-        raise TypeError(f"kernel takes float32/bfloat16 q and a pool of "
-                        f"the same dtype, got {q.dtype} / {kv_pool.dtype}")
+    if kv_pool.device != dev or (quant and kv_scales.device != dev):
+        raise ValueError("q, kv_pool and kv_scales must be on the same "
+                         "device")
+    if q.dtype not in _DTYPES or (not quant and kv_pool.dtype != q.dtype):
+        raise TypeError(f"kernel takes float32/bfloat16 q over a pool of "
+                        f"the same dtype or an int8 pool, got {q.dtype} / "
+                        f"{kv_pool.dtype}")
+    if quant and (kv_scales.dtype != torch.float32 or
+                  not kv_scales.is_contiguous()):
+        raise TypeError("kv_scales must be contiguous float32")
     if q.stride(2) != 1:
         raise ValueError("q's head_dim axis must be contiguous")
     if not kv_pool.is_contiguous():
         raise ValueError("kv_pool must be contiguous")
     from ._build import check, load
-    lib = load("paged_attention")
+    lib = load("paged_attention_int8" if quant else "paged_attention")
     # query rows (tile rows x group) one block holds in shared memory
-    max_rows = lib.pt_paged_attention_max_rows(hd)
+    max_rows = (lib.pt_paged_attention_int8_max_rows if quant
+                else lib.pt_paged_attention_max_rows)(hd)
     if max_rows < g:
         raise ValueError(f"head_dim {hd} with GQA group {g} does not fit "
                          f"one block (head_dim <= 256)")
@@ -165,15 +185,22 @@ def paged_attention_ragged(q, kv_pool, block_tables, q_lens, kv_lens,
         plan = RaggedPlan(q_lens)
     tiles, qlens_dev = plan.device_tables(tile_q, dev)
     out = torch.empty((R, nh, hd), dtype=q.dtype, device=dev)
-    fn = lib.pt_paged_attention_ragged
-    fn.restype = ctypes.c_int
     vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    fn.argtypes = [ci, vp, ll, ll, vp, vp, ci, vp, vp, vp, ci, vp, ci, ci,
-                   ci, ci, ci, ctypes.c_float, ci, vp]
+    pool_args = [kv_pool.data_ptr()]
+    pool_types = [vp]
+    if quant:
+        fn = lib.pt_paged_attention_ragged_int8
+        pool_args.append(kv_scales.data_ptr())
+        pool_types.append(vp)
+    else:
+        fn = lib.pt_paged_attention_ragged
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ci, vp, ll, ll, *pool_types, vp, ci, vp, vp, vp, ci, vp,
+                   ci, ci, ci, ci, ci, ctypes.c_float, ci, vp]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         err = fn(_DTYPES[q.dtype], q.data_ptr(), q.stride(0), q.stride(1),
-                 kv_pool.data_ptr(), bt.data_ptr(), bt.shape[1],
+                 *pool_args, bt.data_ptr(), bt.shape[1],
                  qlens_dev.data_ptr(), lens.data_ptr(), tiles.data_ptr(),
                  tiles.shape[0], out.data_ptr(), nh, nkv, hd, bs,
                  tile_q * g, float(scale),
@@ -185,26 +212,29 @@ def paged_attention_ragged(q, kv_pool, block_tables, q_lens, kv_lens,
 
 # --- the three phase entry points: thin wrappers over the ragged path -
 
-def paged_attention(q, kv_pool, block_tables, seq_lens, sm_scale=None):
+def paged_attention(q, kv_pool, block_tables, seq_lens, sm_scale=None,
+                    kv_scales=None):
     """Decode: q [B, nh, hd], one query per sequence at seq_lens - 1."""
     return paged_attention_ragged(q, kv_pool, block_tables,
                                   (1,) * q.shape[0], seq_lens,
-                                  sm_scale=sm_scale, tile_q=1)
+                                  sm_scale=sm_scale, tile_q=1,
+                                  kv_scales=kv_scales)
 
 
 def paged_attention_multi(q, kv_pool, block_tables, seq_lens,
-                          sm_scale=None):
+                          sm_scale=None, kv_scales=None):
     """Multi-query verify: q [B, n_q, nh, hd], query i of row b at
     seq_lens[b] - n_q + i (seq_lens include the n_q new tokens)."""
     B, n_q, nh, hd = q.shape
     out = paged_attention_ragged(q.reshape(B * n_q, nh, hd), kv_pool,
                                  block_tables, (n_q,) * B, seq_lens,
-                                 sm_scale=sm_scale, tile_q=n_q)
+                                 sm_scale=sm_scale, tile_q=n_q,
+                                 kv_scales=kv_scales)
     return out.reshape(B, n_q, nh, hd)
 
 
 def paged_attention_prefill(q, kv_pool, block_tables, start_pos,
-                            sm_scale=None, tile_q=None):
+                            sm_scale=None, tile_q=None, kv_scales=None):
     """Chunked prefill: q [B, C, nh, hd], query i of row b at
     start_pos[b] + i; tiles of min(C, DEFAULT_TILE_Q_CAP) rows by
     default."""
@@ -214,18 +244,23 @@ def paged_attention_prefill(q, kv_pool, block_tables, start_pos,
     lens = _as_int32(start_pos, q.device).reshape(-1) + C
     out = paged_attention_ragged(q.reshape(B * C, nh, hd), kv_pool,
                                  block_tables, (C,) * B, lens,
-                                 sm_scale=sm_scale, tile_q=tile_q)
+                                 sm_scale=sm_scale, tile_q=tile_q,
+                                 kv_scales=kv_scales)
     return out.reshape(B, C, nh, hd)
 
 
 # --- the plain version -------------------------------------------------
 
-def gather_pages(kv_pool, block_tables):
+def gather_pages(kv_pool, block_tables, kv_scales=None):
     """Materialize the block-table indirection as dense K/V: returns
     (k, v) each [B, MB * bs, nkv, hd] (the decode_attention layout).
-    Positions past a sequence's length hold whatever its pages hold."""
+    Positions past a sequence's length hold whatever its pages hold.
+    ``kv_scales`` (int8 pools) dequantizes the gathered pages to
+    float32."""
     bt = torch.as_tensor(block_tables, device=kv_pool.device).long()
     pages = kv_pool[bt]                    # [B, MB, 2, nkv, bs, hd]
+    if kv_scales is not None:
+        pages = pages.float() * kv_scales[bt][..., None]
     k = pages[:, :, 0].transpose(2, 3)     # [B, MB, bs, nkv, hd]
     v = pages[:, :, 1].transpose(2, 3)
     B, MB, bs, nkv, hd = k.shape
@@ -233,11 +268,13 @@ def gather_pages(kv_pool, block_tables):
 
 
 def paged_attention_ragged_reference(q, kv_pool, block_tables, q_lens,
-                                     kv_lens, sm_scale=None):
+                                     kv_lens, sm_scale=None,
+                                     kv_scales=None):
     """Plain PyTorch ragged attention (the Pallas module's
-    ``paged_attention_ragged_reference``): gather pages dense, then a
-    masked fp32 softmax per sequence with query i at
-    kv_lens[s] - q_lens[s] + i. Rows with no valid key give zeros."""
+    ``paged_attention_ragged_reference``): gather pages dense
+    (dequantizing int8 pages through ``kv_scales``), then a masked fp32
+    softmax per sequence with query i at kv_lens[s] - q_lens[s] + i.
+    Rows with no valid key give zeros."""
     q_lens = tuple(int(x) for x in q_lens)
     R, nh, hd = q.shape
     if R == 0:
@@ -245,7 +282,8 @@ def paged_attention_ragged_reference(q, kv_pool, block_tables, q_lens,
     nkv = kv_pool.shape[2]
     g = nh // nkv
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(hd)
-    k, v = gather_pages(kv_pool, block_tables)   # [n_seq, S, nkv, hd]
+    k, v = gather_pages(kv_pool, block_tables,
+                        kv_scales=kv_scales)     # [n_seq, S, nkv, hd]
     S = k.shape[1]
     k = k.repeat_interleave(g, dim=2).float()
     v = v.repeat_interleave(g, dim=2).float()

@@ -10,9 +10,12 @@ import numpy as np
 import pytest
 import torch
 
-from paddle_tpu_torch.incubate.nn import FusedMultiTransformer
+from paddle_tpu_torch.incubate.nn import (FusedMultiTransformer,
+                                          FusedMultiTransformerInt8)
 from paddle_tpu_torch.inference import SpeculativeEngine, TokenServingModel
+from paddle_tpu_torch.inference.paged_cache import _quant_rows
 from paddle_tpu_torch.ops.hopper import decode_attention as tda
+from paddle_tpu_torch.ops.hopper import int8_matmul as tim
 from paddle_tpu_torch.ops.hopper import paged_attention as tpa
 
 pytestmark = pytest.mark.cuda
@@ -169,3 +172,132 @@ def test_slice_on_cuda_matches_cpu_and_launches_once_per_layer():
     tpa.reset_launch_count()
     assert serve(gpu) == ref
     assert tpa.launch_count() == LAYERS * len(calls) > 0
+
+
+@pytest.mark.parametrize("qdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", ["decode", "prefill_chunk",
+                                  "mixed_zero_len_and_trash", "gqa",
+                                  "scalar_loads"])
+def test_int8_ragged_kernel_matches_plain_version(name, qdtype):
+    """Int8 pages written by _quant_rows (block 0, the trash block, keeps
+    zero scales): both sides dequantize the same bytes, so float32 q
+    agrees to summation order; bfloat16 q within its rounding."""
+    _need_cuda()
+    nh, nkv, hd, bs, q_lens, kv_lens, MB, trash, tile_q = RAGGED[name]
+    q, pool, bt, lens = _ragged(9, nh, nkv, hd, bs, q_lens, kv_lens, MB,
+                                trash)
+    qp, sc = _quant_rows(pool)
+    qp[0], sc[0] = 0, 0.0
+    q = q.to(getattr(torch, qdtype))
+    before = tpa.launch_count()
+    got = tpa.paged_attention_ragged(q, qp, bt, q_lens, lens,
+                                     tile_q=tile_q, kv_scales=sc)
+    assert tpa.launch_count() == before + 1
+    ref = tpa.paged_attention_ragged_reference(q.float(), qp, bt, q_lens,
+                                               lens, kv_scales=sc)
+    assert torch.isfinite(got).all()
+    tol = TOL if qdtype == "float32" else dict(atol=1e-2, rtol=1e-2)
+    torch.testing.assert_close(got.float(), ref, **tol)
+
+
+W8A16 = {
+    # name: (M, K, N, x dtype, x row stride padding)
+    "decode_qkv": (8, 1024, 3072, "float32", 0),
+    "single_row": (1, 1024, 1024, "float32", 0),
+    "chunk_ffn2": (256, 4096, 1024, "float32", 0),
+    "odd_widths": (5, 300, 77, "float32", 0),      # 1-byte weight loads
+    "strided_x": (8, 512, 256, "float32", 64),
+    "bfloat16_x": (8, 1024, 512, "bfloat16", 0),
+}
+
+
+@pytest.mark.parametrize("name", sorted(W8A16))
+def test_w8a16_kernel_matches_plain_version(name):
+    _need_cuda()
+    M, K, N, dt, pad = W8A16[name]
+    rng = np.random.RandomState(M + K + N)
+    x = torch.from_numpy(rng.randn(M, K + pad).astype(np.float32)).cuda()
+    x = x[:, :K].to(getattr(torch, dt))
+    w = torch.from_numpy(rng.randint(-128, 128, (K, N)).astype(
+        np.int8)).cuda()
+    before = tim.launch_count()
+    got = tim.w8a16_matmul(x, w)
+    assert tim.launch_count() == before + 1
+    ref = tim.w8a16_matmul_reference(x, w)
+    tol = 1e-4 * float(ref.abs().max())
+    torch.testing.assert_close(got, ref, atol=tol, rtol=1e-5)
+    # fixed summation order: the same bits from run to run
+    assert torch.equal(tim.w8a16_matmul(x, w), got)
+
+
+def test_w8a16_kernel_gradient_and_refusals():
+    _need_cuda()
+    x = torch.randn(4, 64, device="cuda", requires_grad=True)
+    w = torch.randint(-128, 128, (64, 32), device="cuda",
+                      dtype=torch.int8)
+    tim.w8a16_matmul(x, w).sum().backward()
+    torch.testing.assert_close(x.grad, torch.ones(4, 32, device="cuda")
+                               @ w.float().T)
+    with pytest.raises(TypeError):
+        tim.w8a16_matmul(x.detach().double(), w)
+    with pytest.raises(ValueError):
+        tim.w8a16_matmul(x.detach().t().contiguous().t(), w)
+    with pytest.raises(ValueError):
+        tim.w8a16_matmul(x.detach(), w.t())
+
+
+def test_quantized_slice_on_cuda_matches_cpu():
+    """Int8 weights, int8 KV pages and the prefix cache on CUDA against
+    the same engine on the CPU: equal greedy streams and prefix hits,
+    the int8 ragged kernel once per layer per model call, and the w8a16
+    kernel for every projection of a call of <= 256 rows and every head
+    call."""
+    _need_cuda()
+    D, H, FFN, LAYERS, V = 64, 4, 128, 2, 128
+    rng = np.random.RandomState(8)
+    emb = rng.randn(V, D).astype(np.float32)
+    system = list(rng.randint(0, V, 8))
+    prompts = [system + list(rng.randint(0, V, n)) for n in (3, 9, 6, 13)]
+    pool = dict(max_batch=2, block_size=4, num_blocks=8, chunk_tokens=8,
+                prefill_token_budget=12, prefix_cache=True,
+                kv_dtype="int8")
+    fcpu = FusedMultiTransformer(D, H, FFN, num_layers=LAYERS, device="cpu",
+                                 generator=torch.Generator().manual_seed(0))
+    cpu = FusedMultiTransformerInt8.from_float(fcpu)
+    gpu = FusedMultiTransformerInt8(D, H, FFN, num_layers=LAYERS,
+                                    device="cuda").quantize_weights()
+    gpu.load_state_dict(cpu.state_dict())
+    calls, small = [], []
+
+    def pre(m, a):
+        calls.append(1)
+        small.append(a[0].shape[0] * a[0].shape[1] <= 256)
+    gpu.register_forward_pre_hook(pre)
+
+    def serve(core):
+        tsm = TokenServingModel(core, emb, weight_dtype="int8")
+        eng = SpeculativeEngine(tsm, None, k=0, **pool)
+        heads = []
+        logits = tsm.logits
+        tsm.logits = lambda h: (heads.append(1), logits(h))[1]
+        rids = [eng.submit(p) for p in prompts]
+        done = {}
+        for _ in range(200):
+            eng.step()
+            for r in rids:
+                if r not in done and r in eng._by_rid and \
+                        len(eng.generated(r)) >= 6:
+                    done[r] = eng.generated(r)[:6]
+                    eng.release(r)
+            if len(done) == len(rids):
+                break
+        return [done[r] for r in rids], \
+            eng.engine.prefix_stats.hit_blocks, len(heads)
+
+    ref, ref_hits, _ = serve(cpu)
+    tpa.reset_launch_count()
+    tim.reset_launch_count()
+    got, hits, n_heads = serve(gpu)
+    assert got == ref and hits == ref_hits > 0
+    assert tpa.launch_count() == LAYERS * len(calls) > 0
+    assert tim.launch_count() == 4 * LAYERS * sum(small) + n_heads
