@@ -38,7 +38,28 @@ fails the run:
    relative), the int8 head (logits within 2%);
 7. prefix adoption on the fp32 pool: the shared-prompt requests with the
    prefix cache and without agree within 1e-5 x max|h|;
-8. print the kernels line, the card line and, last, the contract line.
+8. the grouped GEMM (gmm) against its plain version at the MoE slice's
+   shapes — decode (8 experts x capacity 8 rows) and a 520-row mixed
+   call (8 x 168 rows), for the expert ffn1 and ffn2 — within 1e-4 x
+   max|ref| and bitwise equal from run to run, then timed beside its
+   bound, the plain version and torch.bmm over the equal-capacity
+   layout;
+9. MoE serving: an 8-expert top-2 MoeServingCore at the same widths
+   (expert FFN 4096, capacity factor 1.25, block_m 8) serves phase 3's
+   12 prompts through SpeculativeEngine(k=0) with phase 3's pool and
+   budget; the scheduling counts must equal phase 3's, gmm must launch
+   2 x 24 x model calls, and moe.* must be in the registry after every
+   round;
+10. per layer, on the same rows (a decode batch with inactive zero rows
+   and 512 rows), the gmm path and the per-expert fold route alike and
+   agree within 1e-5 x max|out|; shard_experts(2) is bitwise equal to the
+   unsharded fold over one whole forward; a decode-sized call of each
+   model is profiled (host wall, device busy, costliest kernels);
+11. speculative decoding: the dense model with a 6-layer truncated draft
+   at k=4 emits phase 4's greedy tokens up to the first near-tie; the
+   MoE model with its 6-layer MoE draft at k=2 serves the same 4 prompts
+   with both pools' invariants held;
+12. print the kernels line, the card line and, last, the contract line.
 Every number printed carries the card's name and power limit.
 """
 import argparse
@@ -53,6 +74,7 @@ import numpy as np
 # float32 everywhere; the matmuls and convolutions in full float32
 TOL_KERNEL = 1e-4          # kernel vs plain version, max abs error
 TOL_W8A16 = 1e-4           # w8a16 vs plain version, relative to max|ref|
+TOL_GMM = 1e-4             # gmm vs plain version, relative to max|ref|
 TOL_REL = 1e-5             # paged vs dense: hidden / logits, rel. to max
 # the JAX package's documented bounds of quantized against float serving
 BOUND_KV8 = 0.05           # int8 KV pages: hidden, rel. to max|h_fp|
@@ -67,7 +89,10 @@ FULL = dict(vocab=50304, d=1024, layers=24, heads=16, ffn=4096,
             num_blocks=260, kernel_pool_blocks=640, timing_iters=20,
             # quantized serving: a shared system prompt + unique suffixes
             system_prompt=256, min_suffix=32, max_suffix=704,
-            q_num_blocks=310)
+            q_num_blocks=310,
+            # MoE serving (Mixtral-8x7B's routing) and speculation
+            experts=8, top_k=2, capacity_factor=1.25, block_m=8,
+            draft_layers=6, spec_k=4, moe_spec_k=2, spec_requests=4)
 
 
 class SmokeFailure(RuntimeError):
@@ -402,12 +427,14 @@ def build_model(torch, device, cfg, seed):
 
 
 def phase_serve(torch, device, cfg, tsm, prompts, tag, say, label,
-                num_blocks, **engine_kw):
+                num_blocks, each_round=None, **engine_kw):
     """12 greedy requests through SpeculativeEngine(k=0) with mixed
-    steps and preemption. Returns a dict: launches (per kernel), streams,
-    the engine, the rows of every model call and the head calls."""
+    steps and preemption; ``each_round(engine)`` runs after every round.
+    Returns a dict: launches (per kernel), streams, the engine, the rows
+    of every model call, the head calls and the scheduling counts."""
     from paddle_tpu_torch.inference import SpeculativeEngine
     from paddle_tpu_torch.ops.hopper import decode_attention as da
+    from paddle_tpu_torch.ops.hopper import grouped_gemm as gg
     from paddle_tpu_torch.ops.hopper import int8_matmul as im
     from paddle_tpu_torch.ops.hopper import paged_attention as pa
     rows, heads = [], []
@@ -424,7 +451,7 @@ def phase_serve(torch, device, cfg, tsm, prompts, tag, say, label,
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
     n_new = cfg["new_tokens"]
-    for mod in (pa, da, im):
+    for mod in (pa, da, im, gg):
         mod.reset_launch_count()
     t0 = time.perf_counter()
     rids = [eng.submit(p) for p in prompts]
@@ -433,6 +460,8 @@ def phase_serve(torch, device, cfg, tsm, prompts, tag, say, label,
         rounds += 1
         require(rounds < 50 * len(rids), "serving did not converge")
         eng.step()
+        if each_round is not None:
+            each_round(eng)
         for r in rids:
             if r not in done and r in eng._by_rid and \
                     len(eng.generated(r)) >= n_new:
@@ -443,7 +472,8 @@ def phase_serve(torch, device, cfg, tsm, prompts, tag, say, label,
     secs = time.perf_counter() - t0
     launches = {"paged_attention_ragged": pa.launch_count(),
                 "decode_attention": da.launch_count(),
-                "w8a16_matmul": im.launch_count()}
+                "w8a16_matmul": im.launch_count(),
+                "gmm": gg.launch_count()}
     hook.remove()
     del tsm.logits
     peak = torch.cuda.max_memory_allocated() if device.type == "cuda" \
@@ -472,7 +502,10 @@ def phase_serve(torch, device, cfg, tsm, prompts, tag, say, label,
                 cfg["layers"] * len(rows) > 0,
                 f"ragged launches {launches} != layers x model calls")
     return dict(launches=launches, streams=streams, engine=eng, rows=rows,
-                heads=len(heads))
+                heads=len(heads), secs=secs, peak=peak,
+                counts=dict(rounds=rounds, model_calls=len(rows),
+                            mixed_steps=st.mixed_steps,
+                            preemptions=preempt))
 
 
 def phase_quant_serve(torch, device, cfg, tsm8, prompts, tag, say):
@@ -631,7 +664,7 @@ def phase_paged_vs_dense(torch, device, cfg, tsm, prompts, tag, say):
         f"{launches['decode_attention']}")
     require(err_h <= tol_h and err_l <= tol_l,
             "paged and dense hidden rows disagree")
-    return launches, toks, pH
+    return launches, toks, pH, first_small
 
 
 def phase_quant_vs_float(torch, device, cfg, tsm, tsm8, prompts, toks, pH,
@@ -690,6 +723,293 @@ def phase_prefix(torch, device, cfg, tsm, prompts, toks, tag, say):
     require(diff <= tol, "prefix adoption changed the hidden rows")
 
 
+def _moe_cap_pad(cfg, rows):
+    from paddle_tpu_torch.inference import moe_capacity
+    cap = moe_capacity(cfg["capacity_factor"], rows, cfg["top_k"],
+                       cfg["experts"])
+    return -(-cap // cfg["block_m"]) * cfg["block_m"]
+
+
+def phase_gmm(torch, device, cfg, tag, say):
+    """gmm against its plain version at the MoE serving shapes: a decode
+    call (max_batch rows) and a mixed call (budget + max_batch rows),
+    each for ffn1 and ffn2; each timed beside its bound, the plain
+    version and torch.bmm over the equal-capacity layout [E, cap_pad,
+    K] x [E, K, N] (the same function for that layout). The kernels-line
+    row sums one layer's two decode calls."""
+    from paddle_tpu_torch.ops.hopper import grouped_gemm as gg
+    E, bm, d, ffn = cfg["experts"], cfg["block_m"], cfg["d"], cfg["ffn"]
+    iters = cfg["timing_iters"]
+    layer = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
+                 max_abs_err=0.0, by=set())
+    for call, rows in (("decode", cfg["max_batch"]),
+                       ("mixed", cfg["budget"] + cfg["max_batch"])):
+        cap_pad = _moe_cap_pad(cfg, rows)
+        M = E * cap_pad
+        be = torch.arange(E, dtype=torch.int32, device=device
+                          ).repeat_interleave(cap_pad // bm)
+        for name, (K, N) in (("ffn1", (d, ffn)), ("ffn2", (ffn, d))):
+            gen = torch.Generator().manual_seed(M + K)
+            lhs = torch.randn((M, K), generator=gen).to(device)
+            rhs = (torch.randn((E, K, N), generator=gen) /
+                   np.sqrt(K)).to(device)
+            got = gg.gmm(lhs, rhs, be, block_m=bm)
+            ref = gg.gmm_reference(lhs, rhs, be, block_m=bm)
+            err = float((got - ref).abs().max())
+            scale = float(ref.abs().max())
+            again = gg.gmm(lhs, rhs, be, block_m=bm)
+            same = bool(torch.equal(again, got))
+            require(bool(torch.isfinite(got).all()), f"gmm {call} {name}: "
+                    f"non-finite")
+            require(err <= TOL_GMM * scale, f"gmm {call} {name} disagrees: "
+                    f"{err} vs max|ref| {scale}")
+            require(same, f"gmm {call} {name}: two launches differ")
+            del again, ref
+            l3, r3 = lhs.reshape(E, cap_pad, K), rhs
+            t_k = _time_ms(torch, lambda: gg.gmm(lhs, rhs, be, block_m=bm),
+                           device, iters)
+            t_p = _time_ms(torch, lambda: gg.gmm_reference(
+                lhs, rhs, be, block_m=bm), device, iters)
+            t_l = _time_ms(torch, lambda: torch.bmm(l3, r3), device, iters)
+            ms, plain_ms, lib_ms = _device(t_k, t_p, t_l)
+            # every expert owns rows, so each weight is read once
+            nbytes = (M * K + E * K * N + M * N) * 4
+            b_ms, b_by = _bound(nbytes, 2 * M * K * N)
+            say(f"{tag} gmm {call} {name} M {M} (E {E} x cap_pad "
+                f"{cap_pad}) K {K} N {N}: max_abs_err {err:.3e} (tol "
+                f"{TOL_GMM * scale:.3e}), run to run bitwise {same}; "
+                f"device time kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                f"torch.bmm {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
+                f"{nbytes} B, {2 * M * K * N} flop); wall kernel "
+                f"{t_k[1]:.4f} ms")
+            if call == "decode":
+                for key, val in (("ms", ms), ("plain_ms", plain_ms),
+                                 ("library_ms", lib_ms),
+                                 ("bound_ms", b_ms)):
+                    layer[key] += val
+                layer["max_abs_err"] = max(layer["max_abs_err"], err)
+                layer["by"].add(b_by)
+            del lhs, rhs, got, l3, r3
+    say(f"{tag} gmm one layer's ffn1 + ffn2 at decode: kernel "
+        f"{layer['ms']:.4f} ms, plain {layer['plain_ms']:.4f} ms, bmm "
+        f"{layer['library_ms']:.4f} ms, bound {layer['bound_ms']:.4f} ms")
+    return dict(
+        name="gmm", route="cuda",
+        source="paddle_tpu_torch/csrc/grouped_gemm.cu",
+        replaces="paddle_tpu/ops/pallas/grouped_gemm.py:65",
+        max_abs_err=layer["max_abs_err"], ms=layer["ms"],
+        plain_ms=layer["plain_ms"], bound_ms=layer["bound_ms"],
+        bound_by="bytes" if layer["by"] == {"bytes"} else "operations",
+        library_ms=layer["library_ms"])
+
+
+def build_moe_model(torch, device, cfg, seed, emb):
+    from paddle_tpu_torch.inference import MoeServingCore, TokenServingModel
+    gen = torch.Generator(device=device).manual_seed(seed + 7)
+    core = MoeServingCore(cfg["d"], cfg["heads"], cfg["ffn"],
+                          num_experts=cfg["experts"], top_k=cfg["top_k"],
+                          capacity_factor=cfg["capacity_factor"],
+                          block_m=cfg["block_m"], num_layers=cfg["layers"],
+                          device=device, generator=gen)
+    return TokenServingModel(core, emb)          # tied head
+
+
+def phase_moe_serve(torch, device, cfg, tsm_moe, prompts, counts, tag, say):
+    """Phase 3's traffic through the MoE model: the same scheduling
+    counts, 2 gmm launches per layer per model call, moe.* in the
+    registry after every round."""
+    seen = []
+
+    def check(eng):
+        reg = eng.engine.registry.as_dict()
+        seen.append(reg.get("moe.routed_tokens", 0))
+        require("moe.overflow_rate" in reg and seen[-1] > 0,
+                "moe.* missing from the registry after a round")
+    r = phase_serve(torch, device, cfg, tsm_moe, prompts, tag, say,
+                    "MoE serving (8 experts, top-2)", cfg["num_blocks"],
+                    each_round=check)
+    m = tsm_moe.core.moe_metrics()
+    g = r["launches"]["gmm"]
+    say(f"{tag} MoE serving: scheduling counts {r['counts']} (dense "
+        f"phase 3: {counts}); gmm launches {g} (= 2 x {cfg['layers']} x "
+        f"{len(r['rows'])} model calls); routed_tokens "
+        f"{m['routed_tokens']}, dropped_tokens {m['dropped_tokens']}, "
+        f"overflow rate {m['overflow_rate']:.4f}; per-expert load "
+        f"{m['load']}; per-expert overflow {m['overflow']}")
+    require(r["counts"] == counts, "MoE scheduling counts differ from "
+            "phase 3's")
+    require(len(seen) == r["counts"]["rounds"], "a round without moe.*")
+    if device.type == "cuda":
+        require(g == 2 * cfg["layers"] * len(r["rows"]) > 0,
+                f"gmm launches {g} != 2 x layers x model calls")
+    return r
+
+
+def phase_moe_vs_fold(torch, device, cfg, tsm_moe, tag, say):
+    """Per layer, the gmm path against the per-expert fold on the same
+    rows; one whole forward of shard_experts(2) against the unsharded
+    fold, bitwise."""
+    core = tsm_moe.core
+    gen = torch.Generator().manual_seed(5)
+    B = cfg["max_batch"]
+    dec = torch.randn((B, cfg["d"]), generator=gen)
+    dec[B - 3:] = 0.0                    # inactive slots feed zero rows
+    inputs = {"decode": dec.to(device),
+              "512 rows": torch.randn((512, cfg["d"]),
+                                      generator=gen).to(device)}
+    worst = {}
+    with torch.no_grad():
+        for what, x in inputs.items():
+            worst[what] = 0.0
+            for i, blk in enumerate(core.layers):
+                h = blk.ffn_ln(x)
+                outs, counts = [], []
+                for uk in (True, False):
+                    core._use_kernel = uk
+                    l0 = core._load[i].clone()
+                    d0 = core._dropped[i].clone()
+                    outs.append(core._moe_ffn(i, blk, h))
+                    counts.append(((core._load[i] - l0).tolist(),
+                                   (core._dropped[i] - d0).tolist()))
+                require(counts[0] == counts[1], f"layer {i} {what}: "
+                        f"routing differs between the paths")
+                err = float((outs[0] - outs[1]).abs().max())
+                rel = err / max(float(outs[1].abs().max()), 1e-30)
+                worst[what] = max(worst[what], rel)
+                require(rel <= TOL_REL, f"layer {i} {what}: gmm path vs "
+                        f"fold {rel:.3e} x max|out|")
+        core._use_kernel = False
+        twin = core.truncated(core.num_layers).shard_experts(2)
+        x = torch.randn((2, 16, cfg["d"]), generator=gen).to(device)
+        causal = torch.full((16, 16), -1e30, device=device).triu(1)
+        same = bool(torch.equal(twin(x, attn_mask=causal),
+                                core(x, attn_mask=causal)))
+        core._use_kernel = None
+    say(f"{tag} gmm path vs per-expert fold, worst layer: "
+        + ", ".join(f"{k} {v:.3e} x max|out|" for k, v in worst.items())
+        + f" (tol {TOL_REL}); routing equal in all {core.num_layers} "
+        f"layers; shard_experts(2) forward bitwise equal to the fold: "
+        f"{same}")
+    require(same, "shard_experts(2) differs from the unsharded fold")
+
+
+def phase_spec(torch, device, cfg, tsm, tsm_moe, prompts, toks, first_small,
+               tag, say):
+    """Dense k=4 with a truncated draft, and with the target as its own
+    draft (which accepts most proposals: the accept path at work),
+    against phase 4's greedy tokens; MoE k=2 with the MoE draft. Returns
+    the launches per run."""
+    from paddle_tpu_torch.inference import SpeculativeEngine
+    from paddle_tpu_torch.ops.hopper import grouped_gemm as gg
+    from paddle_tpu_torch.ops.hopper import paged_attention as pa
+    n = cfg["spec_requests"]
+    prompts, n_new = prompts[:n], cfg["new_tokens"]
+    nd = cfg["draft_layers"]
+    out = {}
+    for label, model, draft, k in (
+            (f"dense, {nd}-layer truncated draft", tsm,
+             tsm.truncated_draft(nd), cfg["spec_k"]),
+            ("dense, self-draft", tsm, None, cfg["spec_k"]),
+            (f"MoE, {nd}-layer truncated MoE draft", tsm_moe,
+             tsm_moe.truncated_draft(nd), cfg["moe_spec_k"])):
+        eng = SpeculativeEngine(
+            model, draft, k=k,
+            max_batch=cfg["max_batch"], block_size=cfg["block_size"],
+            num_blocks=cfg["num_blocks"], chunk_tokens=cfg["chunk_tokens"],
+            prefill_token_budget=cfg["budget"])
+        pa.reset_launch_count()
+        gg.reset_launch_count()
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rids = [eng.submit(p) for p in prompts]
+        done, rounds = {}, 0
+        while len(done) < len(rids):
+            rounds += 1
+            require(rounds < 50 * n_new, "speculative serving did not "
+                    "converge")
+            eng.step()
+            for r in rids:
+                if r not in done and r in eng._by_rid and \
+                        len(eng.generated(r)) >= n_new:
+                    done[r] = eng.generated(r)[:n_new]
+                    eng.release(r)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        eng.check_invariants()
+        st = eng.stats
+        streams = [done[r] for r in rids]
+        out[label] = dict(ragged=pa.launch_count(), gmm=gg.launch_count())
+        say(f"{tag} speculative {label}, k {k}: {n} requests x {n_new} "
+            f"tokens in "
+            f"{secs:.3f} s = {n * n_new / secs:.2f} tokens/s; {rounds} "
+            f"rounds; acceptance rate {st.acceptance_rate:.4f}, tokens per "
+            f"target step {st.tokens_per_target_step:.4f}, proposed "
+            f"{st.proposed}, accepted {st.accepted}, draft-pool OOM rolls "
+            f"{st.draft_oom_rolls}; ragged launches {out[label]['ragged']}"
+            f", gmm launches {out[label]['gmm']}")
+        require(all(len(s) == n_new and 0 <= min(s) and
+                    max(s) < model.vocab_size for s in streams),
+                "malformed speculative token stream")
+        if model is tsm:
+            agree = [sum(a == b for a, b in zip(s, t))
+                     for s, t in zip(streams, toks)]
+            ok = all(s[:u] == t[:u] for s, t, u in
+                     zip(streams, toks, first_small))
+            say(f"{tag} speculative {label} vs k=0 greedy tokens: agree "
+                f"{agree} of {n_new} per request; first near-tie step "
+                f"{first_small}")
+            require(ok, "speculative tokens differ from the k=0 tokens "
+                    "before the first near-tie")
+            if draft is None:
+                require(st.accepted > 0, "the self-draft accepted nothing")
+        elif device.type == "cuda":
+            require(out[label]["gmm"] > 0, "MoE speculation launched no "
+                    "gmm")
+    return out
+
+
+def phase_profile(torch, device, cfg, tsm, tsm_moe, tag, say):
+    """Where a decode-sized model call spends its time: one forward of
+    max_batch rows (causal, no cache) through the dense and the MoE
+    core, host wall per call against the device time torch.profiler
+    sums over its kernels, and the MoE call's costliest kernels."""
+    B, iters = cfg["max_batch"], cfg["timing_iters"]
+    x = torch.randn((1, B, cfg["d"]), generator=torch.Generator(
+        ).manual_seed(9)).to(device)
+    causal = torch.full((B, B), -1e30, device=device).triu(1)
+    for label, core in (("dense", tsm.core), ("MoE", tsm_moe.core)):
+        with torch.no_grad():
+            fn = lambda: core(x, attn_mask=causal)  # noqa: E731
+            for _ in range(3):
+                fn()
+            if device.type != "cuda":
+                continue
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / iters
+            from torch.profiler import ProfilerActivity, profile
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                fn()
+                torch.cuda.synchronize()
+        ev = [(getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0)), e.count,
+               e.key) for e in prof.key_averages()]
+        ev = [e for e in ev if e[0] > 0]
+        dev = sum(e[0] for e in ev) / 1e3
+        top = sorted(ev, reverse=True)[:5]
+        say(f"{tag} profile, {label} decode-sized call ({B} rows, "
+            f"{cfg['layers']} layers): host wall {wall:.3f} ms per call, "
+            f"device busy {dev:.3f} ms ({100 * dev / wall:.1f}%), "
+            f"{sum(e[1] for e in ev)} kernel launches; costliest: "
+            + "; ".join(f"{k[:48]} x{c} {t / 1e3:.3f} ms"
+                        for t, c, k in top))
+
+
 def run(device, cfg, seed=0, say=print, card=None):
     """All phases on ``device``; returns the kernels line's rows."""
     import torch
@@ -710,6 +1030,7 @@ def run(device, cfg, seed=0, say=print, card=None):
                 if "registers" in line or "smem" in line:
                     say(f"{tag} {name}: {line.strip()}")
     rows = phase_kernels(torch, device, cfg, tag, say)
+    rows["gmm"] = phase_gmm(torch, device, cfg, tag, say)
     tsm = build_model(torch, device, cfg, seed)
     rng = np.random.RandomState(seed + 1)
     prompts = [list(rng.randint(0, cfg["vocab"], n)) for n in rng.randint(
@@ -721,7 +1042,7 @@ def run(device, cfg, seed=0, say=print, card=None):
     # memory of the next serving phase is read
     del serve["engine"]
     gc.collect()
-    dense_launches, toks, pH = phase_paged_vs_dense(
+    dense_launches, toks, pH, first_small = phase_paged_vs_dense(
         torch, device, cfg, tsm, prompts, tag, say)
     # the quantized model: the same float weights, int8 projections and
     # an int8 head
@@ -738,6 +1059,19 @@ def run(device, cfg, seed=0, say=print, card=None):
                          tag, say)
     phase_prefix(torch, device, cfg, tsm, qprompts, qserve["streams"], tag,
                  say)
+    del tsm8
+    gc.collect()
+    # the MoE slice: phase 3's traffic through an 8-expert model
+    tsm_moe = build_moe_model(torch, device, cfg, seed, tsm._embed_np)
+    mserve = phase_moe_serve(torch, device, cfg, tsm_moe, prompts,
+                             serve["counts"], tag, say)
+    del mserve["engine"]
+    gc.collect()
+    phase_moe_vs_fold(torch, device, cfg, tsm_moe, tag, say)
+    phase_profile(torch, device, cfg, tsm, tsm_moe, tag, say)
+    phase_spec(torch, device, cfg, tsm, tsm_moe, prompts, toks, first_small,
+               tag, say)
+    rows["gmm"]["launches"] = mserve["launches"]["gmm"]
     rows["paged_attention_ragged"]["launches"] = \
         serve["launches"]["paged_attention_ragged"]
     rows["paged_attention_ragged_int8"]["launches"] = \
@@ -747,7 +1081,7 @@ def run(device, cfg, seed=0, say=print, card=None):
     rows["w8a16_matmul"]["launches"] = qserve["launches"]["w8a16_matmul"]
     return [rows[k] for k in ("paged_attention_ragged",
                               "paged_attention_ragged_int8",
-                              "decode_attention", "w8a16_matmul")]
+                              "decode_attention", "w8a16_matmul", "gmm")]
 
 
 def main(argv=None):

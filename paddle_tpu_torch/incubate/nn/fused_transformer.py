@@ -98,6 +98,25 @@ class FusedMultiTransformer(torch.nn.Module):
             max_blocks_per_seq=max_blocks_per_seq, dtype=dtype,
             prefix_cache=prefix_cache)
 
+    def truncated(self, num_layers):
+        """First-``num_layers`` twin sharing this stack's block modules,
+        and so its Parameters (no copy): the cheapest speculative
+        draft."""
+        if not (0 < num_layers <= self.num_layers):
+            raise ValueError(f"num_layers must be in [1, {self.num_layers}]")
+        twin = self._empty_twin()
+        twin.layers = torch.nn.ModuleList(self.layers[:num_layers])
+        twin.num_layers = int(num_layers)
+        return twin
+
+    def _empty_twin(self):
+        """A stack of this configuration with no layers (``truncated``
+        hands it this stack's blocks)."""
+        return FusedMultiTransformer(
+            self.embed_dim, self.num_heads, 0, activation=self._act_name,
+            normalize_before=self.normalize_before, num_layers=0,
+            device=self.device)
+
     def _proj(self, i, blk, name, x):
         """Linear-projection seam (FusedMultiTransformerInt8 overrides
         it)."""
@@ -238,6 +257,14 @@ class FusedMultiTransformerInt8(FusedMultiTransformer):
                 num_layers=model.num_layers, device=model.device)
         m.load_state_dict(model.state_dict())
         return m.quantize_weights(bits=bits)
+
+    def _empty_twin(self):
+        twin = FusedMultiTransformerInt8(
+            self.embed_dim, self.num_heads, 0, activation=self._act_name,
+            normalize_before=self.normalize_before, num_layers=0,
+            device=self.device)
+        twin._quantized, twin._bits = self._quantized, self._bits
+        return twin
 
     def _proj(self, i, blk, name, x):
         if not self._quantized:

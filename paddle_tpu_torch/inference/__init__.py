@@ -1,5 +1,6 @@
 """paddle.inference serving stack, PyTorch port (counterpart of
 paddle_tpu/inference): the names below are the ported parts."""
+from .moe_serving import MoeServingCore, moe_capacity  # noqa: F401
 from .paged_cache import (BlockAllocator, BlockOOM,  # noqa: F401
                           PagedKVCache, PagedLayerCache, PagedPrefillView,
                           PagedRaggedView, chain_block_hashes, chain_hash)
@@ -14,10 +15,11 @@ from .telemetry import MetricsRegistry, StatsBase  # noqa: F401
 
 __all__ = ["BlockAllocator", "BlockOOM", "ContinuousBatchingEngine",
            "EngineCrash", "MetricsRegistry", "MIN_PREFILL_SUFFIX_ROWS",
+           "MoeServingCore",
            "PagedKVCache", "PagedLayerCache", "PagedPrefillView",
            "PagedRaggedView", "PagedRequest", "PagedServingEngine",
            "ParallelStats", "PrefillStats", "PrefixCacheStats",
            "RequestOutcome", "ResilienceStats", "SpecDecodeStats",
            "SpeculativeEngine", "StatsBase", "TenantStats",
            "TokenServingModel", "chain_block_hashes", "chain_hash",
-           "chunked_prefill"]
+           "chunked_prefill", "moe_capacity"]

@@ -36,6 +36,10 @@ limit is the BLOCK BUDGET, not slots * max_len:
     returns. Accounting rides in ``prefix_stats``.
   * ``dtype="int8"`` serves from int8 KV pages; the engine itself is
     dtype-blind.
+  * speculative verify: ``step_multi`` appends and scores L = k+1 rows
+    per slot in one call (packed beside prefill chunks in token-budget
+    mode), and ``rollback`` trims a rejected tail from the history, then
+    from the pages.
 
 Ported later: tenants and weighted fair queuing, branch groups,
 deadlines, fault injection, telemetry collectors and snapshot/restore.
@@ -163,6 +167,17 @@ class PagedRequest:
                 parent=self._hashes[-1] if self._hashes else b""))
         return self._hashes[:n_full]
 
+    def truncate_history(self, length: int, block_size: int) -> None:
+        """Roll the recorded history back to ``length`` rows (speculative
+        rejection): rows past it were consumed speculatively and
+        rejected, so a re-prefill must not replay them. Memoized chain
+        hashes past the new last full block go with them."""
+        if length < 0 or length > self._len:
+            raise ValueError(
+                f"truncate to {length} outside [0, {self._len}]")
+        self._len = length
+        del self._hashes[length // block_size:]
+
     def __len__(self):
         return self._len
 
@@ -202,6 +217,10 @@ class PagedServingEngine:
             lambda: dict(self.cache.pool_occupancy(tiers_only=True),
                          peak=self.cache.peak_blocks_used))
         self.registry.attach("queue", self._queue_gauges)
+        # MoE cores export per-expert load / overflow / routing totals;
+        # dense models leave the namespace absent
+        if hasattr(model, "moe_metrics"):
+            self.registry.attach("moe", model.moe_metrics)
         # prompt chunk size: a multiple of the block size by default
         if chunk_tokens is None:
             chunk_tokens = 4 * self.cache.block_size
@@ -697,16 +716,41 @@ class PagedServingEngine:
         return self._run_step(x, 1, retire=True)
 
     def step_multi(self, x):
-        """The L-token step (x [max_batch, L, d_model]); this slice
-        serves L == 1, the speculative verify (L > 1) comes with
-        speculative decoding in a later slice. Unlike ``step``, slots at
-        capacity are not auto-released (the caller retires them)."""
-        L = int(x.shape[1])
-        if L != 1:
-            raise NotImplementedError(
-                "multi-token verify (L > 1) comes with speculative "
-                "decoding in a later slice of the PyTorch port")
-        return self._run_step(x, L, retire=False)
+        """One fused MULTI-TOKEN step for every active slot — the
+        speculative verify: row b's L tokens (x [max_batch, L, d_model])
+        are appended at positions lens[b] .. lens[b]+L-1 and scored
+        causally in ONE model call. The caller guarantees lens + L <=
+        capacity for every active slot (slots at capacity are not
+        auto-released here; the caller retires them). Page growth covers
+        all L positions, preempting as ``step`` does; ``rollback`` drops
+        a rejected tail. In token-budget mode the step first spends the
+        budget on pending prefill chunks, packed WITH the L verify rows
+        per slot into one ragged call; slots mid-prefill or completed in
+        this step sit the verify out. Returns hidden [max_batch, L,
+        d_model], or None while prompts stream with no verifiable
+        slot."""
+        return self._run_step(x, int(x.shape[1]), retire=False)
+
+    def rollback(self, slot: int, new_len: int) -> None:
+        """Roll an active slot back to ``new_len`` consumed tokens
+        (speculative rejection): the history is trimmed first, so a
+        later preempt -> re-prefill replays only ACCEPTED tokens, then
+        the pages past the boundary are released table-tail first
+        (``PagedKVCache.truncate``); the slot decodes on from
+        ``new_len``."""
+        if not self.active[slot]:
+            raise ValueError(f"slot {slot} not active")
+        new_len = int(new_len)
+        if new_len < 1 or new_len > int(self.lens[slot]):
+            raise ValueError(
+                f"rollback of slot {slot} to {new_len} outside "
+                f"[1, {int(self.lens[slot])}]")
+        # buffered inputs must reach the history BEFORE trimming it
+        self._flush_history()
+        self._requests[slot].truncate_history(new_len,
+                                              self.cache.block_size)
+        self.cache.truncate(slot, new_len)
+        self.lens[slot] = new_len
 
     def _run_step(self, x, L: int, retire: bool):
         self._step_count += 1

@@ -25,6 +25,8 @@ import time
 from pathlib import Path
 from typing import Dict, NamedTuple
 
+import torch
+
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -39,6 +41,7 @@ class Built(NamedTuple):
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
 _BUILT: Dict[str, Built] = {}
+_SMS: Dict[int, int] = {}
 
 
 def _nvcc() -> str:
@@ -104,6 +107,17 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(built[name].path))
         _LIBS[name] = lib
     return lib
+
+
+def sm_count(device: torch.device) -> int:
+    """Streaming multiprocessors of a CUDA device (cached): the split-K
+    policies size their grids by it."""
+    idx = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    if idx not in _SMS:
+        _SMS[idx] = torch.cuda.get_device_properties(
+            idx).multi_processor_count
+    return _SMS[idx]
 
 
 def check(err: int, what: str) -> None:

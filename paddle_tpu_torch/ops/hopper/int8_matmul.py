@@ -20,13 +20,10 @@ weight gets no gradient.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
 
 import torch
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# SMs per device index (the split-K policy sizes the grid by it)
-_SMS: Dict[int, int] = {}
 
 # launch count of the CUDA kernel (CPU calls run the plain version and
 # are not counted)
@@ -49,7 +46,7 @@ def w8a16_matmul_reference(x, w_int8):
 def _launch(x, w_int8):
     M, K = x.shape
     N = w_int8.shape[1]
-    from ._build import check, load
+    from ._build import check, load, sm_count
     lib = load("int8_matmul")
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
     if M == 0 or N == 0:
@@ -57,12 +54,7 @@ def _launch(x, w_int8):
     vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     lib.pt_w8a16_splits.restype = ci
     lib.pt_w8a16_splits.argtypes = [ci, ci, ci, ci]
-    idx = x.device.index if x.device.index is not None \
-        else torch.cuda.current_device()
-    if idx not in _SMS:
-        _SMS[idx] = torch.cuda.get_device_properties(
-            idx).multi_processor_count
-    splits = lib.pt_w8a16_splits(M, K, N, _SMS[idx])
+    splits = lib.pt_w8a16_splits(M, K, N, sm_count(x.device))
     # partial tiles of a K split (summed in split order by the library)
     ws = torch.empty((splits, M, N), dtype=torch.float32,
                      device=x.device) if splits > 1 else None

@@ -7,7 +7,11 @@ model.state_dict().items()}``) — or a FusedMultiTransformerInt8 from the
 state of a quantized JAX model, whose projections carry
 ``weight_int8``/``weight_scale`` buffers instead of ``weight``;
 ``token_serving_model`` wraps it with an embedding table (and an
-optional untied head, or the JAX model's own int8 head). Names and
+optional untied head, or the JAX model's own int8 head).
+``moe_serving_core`` builds the port's MoeServingCore from a JAX
+``MoeServingCore.state_dict()`` (router ``gate``, expert stacks
+``moe_w1 [E, d, f]``, ``moe_b1``, ``moe_w2 [E, f, d]``, ``moe_b2``,
+beside the attention and LayerNorm weights). Names and
 layouts are the same in both packages (Linear weights [in, out]), so the
 copy is by name and the int8 bytes are taken as they are, never
 re-quantized. This module never imports JAX: the caller hands it numpy.
@@ -21,9 +25,32 @@ import numpy as np
 import torch
 
 from .incubate.nn import FusedMultiTransformer, FusedMultiTransformerInt8
+from .inference.moe_serving import MoeServingCore
 from .inference.speculative import TokenServingModel
 
-__all__ = ["fused_multi_transformer", "token_serving_model"]
+__all__ = ["fused_multi_transformer", "moe_serving_core",
+           "token_serving_model"]
+
+
+def _layer_count(state, name: str) -> int:
+    layers = {int(m.group(1)) for k in state
+              if (m := re.match(rf"layers\.(\d+)\.{name}$", k))}
+    if not layers or layers != set(range(len(layers))):
+        raise ValueError(f"state holds no layers.{{i}}.{name} sequence"
+                         .replace("\\", ""))
+    return len(layers)
+
+
+def _load(model, state):
+    own = model.state_dict()
+    if set(own) != set(state):
+        raise ValueError(f"parameter names differ: missing "
+                         f"{sorted(set(own) - set(state))}, unexpected "
+                         f"{sorted(set(state) - set(own))}")
+    model.load_state_dict({k: torch.from_numpy(np.array(
+        v, np.int8 if k.endswith("weight_int8") else np.float32))
+        for k, v in state.items()})
+    return model
 
 
 def fused_multi_transformer(state: Dict[str, np.ndarray], num_heads: int,
@@ -37,28 +64,38 @@ def fused_multi_transformer(state: Dict[str, np.ndarray], num_heads: int,
     FusedMultiTransformerInt8 (``bits`` is the JAX model's bit width)."""
     quant = "layers.0.qkv.weight_int8" in state
     w = "weight_int8" if quant else "weight"
-    layers = {int(m.group(1)) for k in state
-              if (m := re.match(rf"layers\.(\d+)\.qkv\.{w}$", k))}
-    if not layers or layers != set(range(len(layers))):
-        raise ValueError(f"state holds no layers.{{i}}.qkv.{w} sequence")
+    n_layers = _layer_count(state, rf"qkv\.{w}")
     d = state[f"layers.0.qkv.{w}"].shape[0]
     ffn = state[f"layers.0.ffn1.{w}"].shape[1]
     cls = FusedMultiTransformerInt8 if quant else FusedMultiTransformer
     model = cls(d, num_heads, ffn, activation=activation,
                 normalize_before=normalize_before, epsilon=epsilon,
-                num_layers=len(layers), device=device)
+                num_layers=n_layers, device=device)
     if quant:
         # the buffers to load into: quantize the random initial weights
         model.quantize_weights(bits=bits)
-    own = model.state_dict()
-    if set(own) != set(state):
-        raise ValueError(f"parameter names differ: missing "
-                         f"{sorted(set(own) - set(state))}, unexpected "
-                         f"{sorted(set(state) - set(own))}")
-    model.load_state_dict({k: torch.from_numpy(np.array(
-        v, np.int8 if k.endswith("weight_int8") else np.float32))
-        for k, v in state.items()})
-    return model
+    return _load(model, state)
+
+
+def moe_serving_core(state: Dict[str, np.ndarray], num_heads: int, *,
+                     top_k: int = 2, capacity_factor: float = 1.25,
+                     block_m: int = 8, use_kernel=None,
+                     activation: str = "gelu",
+                     normalize_before: bool = True, epsilon: float = 1e-5,
+                     device=None) -> MoeServingCore:
+    """Port MoeServingCore holding ``state``'s parameters (experts,
+    widths and depth read off the shapes; the routing options are not in
+    a state dict and default to the JAX class's)."""
+    n_layers = _layer_count(state, "moe_w1")
+    E, d, ffn = state["layers.0.moe_w1"].shape
+    model = MoeServingCore(d, num_heads, ffn, num_experts=E, top_k=top_k,
+                           capacity_factor=capacity_factor,
+                           activation=activation,
+                           normalize_before=normalize_before,
+                           epsilon=epsilon, num_layers=n_layers,
+                           use_kernel=use_kernel, block_m=block_m,
+                           device=device)
+    return _load(model, state)
 
 
 def token_serving_model(state: Dict[str, np.ndarray], embedding,

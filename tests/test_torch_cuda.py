@@ -12,9 +12,12 @@ import torch
 
 from paddle_tpu_torch.incubate.nn import (FusedMultiTransformer,
                                           FusedMultiTransformerInt8)
-from paddle_tpu_torch.inference import SpeculativeEngine, TokenServingModel
+from paddle_tpu_torch.inference import (MoeServingCore, SpeculativeEngine,
+                                        TokenServingModel)
 from paddle_tpu_torch.inference.paged_cache import _quant_rows
+from paddle_tpu_torch.ops.hopper import _build
 from paddle_tpu_torch.ops.hopper import decode_attention as tda
+from paddle_tpu_torch.ops.hopper import grouped_gemm as tgg
 from paddle_tpu_torch.ops.hopper import int8_matmul as tim
 from paddle_tpu_torch.ops.hopper import paged_attention as tpa
 
@@ -301,3 +304,130 @@ def test_quantized_slice_on_cuda_matches_cpu():
     assert got == ref and hits == ref_hits > 0
     assert tpa.launch_count() == LAYERS * len(calls) > 0
     assert tim.launch_count() == 4 * LAYERS * sum(small) + n_heads
+
+
+GMM = {
+    # name: (block_expert, block_m, K, N)
+    # decode: 8 experts x cap_pad 8 (the rows kernel)
+    "decode_ffn1": (np.repeat(np.arange(8), 1), 8, 1024, 4096),
+    "decode_ffn2": (np.repeat(np.arange(8), 1), 8, 4096, 1024),
+    # a 520-row mixed call: 8 experts x cap_pad 168 (the tile kernel;
+    # expert runs end inside 64-row tiles)
+    "mixed_ffn1": (np.repeat(np.arange(8), 21), 8, 1024, 4096),
+    "mixed_ffn2": (np.repeat(np.arange(8), 21), 8, 4096, 1024),
+    # odd K and N: scalar weight loads, ragged column tiles
+    "odd_rows": (np.repeat(np.arange(3), 2), 8, 1000, 1001),
+    "odd_tile": (np.repeat(np.arange(3), 9), 8, 333, 130),
+    # non-contiguous expert ids: runs of one block, ids repeating
+    "scattered_rows": (np.array([2, 0, 2, 1, 1, 3, 0]), 8, 256, 512),
+    "scattered_tile": (np.repeat([2, 0, 2, 1], [5, 9, 1, 13]), 8, 256,
+                       200),
+    # uneven groups from make_group_metadata at block_m 16
+    "grouped_16": (tgg.make_group_metadata([37, 0, 130, 9], 16)[1], 16,
+                   512, 384),
+}
+
+
+@pytest.mark.parametrize("name", sorted(GMM))
+def test_gmm_kernel_matches_plain_version(name):
+    """Each shape against the plain version within 1e-4 x max|ref|
+    (float32, summation order only), and bitwise equal from run to run
+    (fixed K order, no atomics)."""
+    _need_cuda()
+    be, block_m, K, N = GMM[name]
+    M = len(be) * block_m
+    E = int(be.max()) + 1
+    rng = np.random.RandomState(M + K + N)
+    lhs = torch.from_numpy(rng.randn(M, K).astype(np.float32)).cuda()
+    rhs = torch.from_numpy(rng.randn(E, K, N).astype(np.float32)).cuda()
+    bed = torch.from_numpy(be.astype(np.int32)).cuda()
+    before = tgg.launch_count()
+    got = tgg.gmm(lhs, rhs, bed, block_m=block_m)
+    assert tgg.launch_count() == before + 1
+    ref = tgg.gmm_reference(lhs, rhs, bed, block_m=block_m)
+    tol = 1e-4 * float(ref.abs().max())
+    torch.testing.assert_close(got, ref, atol=tol, rtol=0)
+    assert torch.equal(tgg.gmm(lhs, rhs, bed, block_m=block_m), got)
+    # a host block_expert and a strided lhs give the same bits
+    wide = torch.cat([lhs, lhs], dim=1)[:, :K]
+    assert torch.equal(tgg.gmm(wide, rhs, be, block_m=block_m), got)
+
+
+def test_gmm_kernel_empty_and_refusals():
+    _need_cuda()
+    rhs = torch.randn(2, 64, 32, device="cuda")
+    before = tgg.launch_count()
+    out = tgg.gmm(torch.zeros(0, 64, device="cuda"), rhs,
+                  np.zeros(0, np.int32), block_m=8)
+    assert out.shape == (0, 32) and tgg.launch_count() == before
+    lhs = torch.randn(16, 64, device="cuda")
+    with pytest.raises(TypeError):
+        tgg.gmm(lhs.double(), rhs.double(), [0, 1], block_m=8)
+    with pytest.raises(ValueError):
+        tgg.gmm(lhs, rhs.transpose(1, 2), [0, 1], block_m=8)
+    with pytest.raises(ValueError):
+        tgg.gmm(lhs, rhs, [0, 1, 1], block_m=8)
+
+
+def test_gmm_without_its_build_raises(monkeypatch, tmp_path):
+    """No library and no source to build it from: the CUDA call raises,
+    it never falls back to the plain version."""
+    _need_cuda()
+    monkeypatch.setattr(_build, "CSRC", tmp_path)
+    monkeypatch.setattr(_build, "_LIBS", {})
+    monkeypatch.setattr(_build, "_BUILT", {})
+    lhs = torch.randn(8, 64, device="cuda")
+    rhs = torch.randn(1, 64, 32, device="cuda")
+    with pytest.raises(RuntimeError, match="grouped_gemm"):
+        tgg.gmm(lhs, rhs, [0], block_m=8)
+
+
+@pytest.mark.parametrize("k", [0, 2])
+def test_moe_engine_on_cuda_matches_cpu(k):
+    """A 2-layer, 4-expert MoE at narrow width on CUDA (the gmm kernel
+    path) against the same engine on the CPU (the fold): equal greedy
+    streams and moe.* counters; gmm launches twice per layer per target
+    and draft model call."""
+    _need_cuda()
+    D, H, FFN, LAYERS, V = 64, 4, 128, 2, 128
+    rng = np.random.RandomState(9)
+    emb = rng.randn(V, D).astype(np.float32)
+    prompts = [list(rng.randint(0, V, n)) for n in (5, 23, 9, 31)]
+    pool = dict(max_batch=3, block_size=4, num_blocks=24, chunk_tokens=8,
+                prefill_token_budget=12)
+    cpu = MoeServingCore(D, H, FFN, num_experts=4, num_layers=LAYERS,
+                         device="cpu",
+                         generator=torch.Generator().manual_seed(0))
+    gpu = MoeServingCore(D, H, FFN, num_experts=4, num_layers=LAYERS,
+                         device="cuda")
+    gpu.load_state_dict(cpu.state_dict())
+
+    def serve(core):
+        tsm = TokenServingModel(core, emb)
+        draft = tsm.truncated_draft(1) if k else None
+        eng = SpeculativeEngine(tsm, draft, k=k, **pool)
+        rids = [eng.submit(p) for p in prompts]
+        done = {}
+        for _ in range(200):
+            eng.step()
+            for r in rids:
+                if r not in done and r in eng._by_rid and \
+                        len(eng.generated(r)) >= 6:
+                    done[r] = eng.generated(r)[:6]
+                    eng.release(r)
+            if len(done) == len(rids):
+                break
+        eng.check_invariants()
+        moe = {key: v for key, v in eng.engine.registry.as_dict().items()
+               if key.startswith("moe.")}
+        draft_calls = draft.core._calls if draft is not None else 0
+        return [done[r] for r in rids], moe, draft_calls
+
+    ref, ref_moe, _ = serve(cpu)
+    tgg.reset_launch_count()
+    got, moe, draft_calls = serve(gpu)
+    assert got == ref and moe == ref_moe
+    # two gmm launches per MoE layer per model call: the target's 2
+    # layers, the 1-layer draft's
+    assert tgg.launch_count() == 2 * LAYERS * gpu._calls + \
+        2 * draft_calls > 0
