@@ -59,7 +59,29 @@ fails the run:
    at k=4 emits phase 4's greedy tokens up to the first near-tie; the
    MoE model with its 6-layer MoE draft at k=2 serves the same 4 prompts
    with both pools' invariants held;
-12. print the kernels line, the card line and, last, the contract line.
+12. the training slice's kernels against their plain versions on the
+   card: flash attention forward and backward (bf16 causal [16, 2048,
+   32, 128], each query row of out and dq and each key row of dk and dv
+   within 3e-2 x that row's max|ref|, lse within 1e-4, the plain
+   backward two batch rows at a time; float32 tail, cross-length and
+   dropout cases within 1e-4),
+   the fused RMSNorm at [32768, 4096] bf16 with and without the residual
+   (one bf16 ulp; the residual stream bitwise), the fused AdamW over the
+   12 leaves of the trainer (m, v, master within 1e-6 x max|ref|); each
+   timed with CUDA events beside its bound, its plain version (flash: at
+   batch 2) and one PyTorch call (sdpa, F.rms_norm,
+   torch.optim.AdamW(fused=True));
+13. training at bench.py's Llama-2-7B proxy widths (vocab 32000, hidden
+   4096, FFN 11008, 32 heads, 2 layers, seq 2048, batch 16, bf16, fp32
+   moments, remat off, chunked CE; random weights from --seed): 1
+   warm-up and 5 steps on one batch, every loss finite and the last
+   below the first; per step the flash kernels launch once per layer
+   each, RMSNorm twice per layer and AdamW once per leaf (12); tokens/s,
+   MFU, peak memory and a profile of one step;
+14. the kernel path against the plain path at the same widths (batch 2)
+   from equal weights: the loss, every gradient, and params and masters
+   after one step, within the bounds stated below;
+15. print the kernels line, the card line and, last, the contract line.
 Every number printed carries the card's name and power limit.
 """
 import argparse
@@ -80,8 +102,23 @@ TOL_REL = 1e-5             # paged vs dense: hidden / logits, rel. to max
 BOUND_KV8 = 0.05           # int8 KV pages: hidden, rel. to max|h_fp|
 BOUND_W8 = 0.1             # int8 weights: hidden, rel. to max|h_fp|
 BOUND_HEAD8 = 0.02         # int8 head: logits, rel. to max|logits_fp|
+# the training slice's bf16 flash kernels against their plain versions:
+# both round p and dS to bf16, relative to running maxima of different tile
+# widths, and write bf16 (1 ulp <= 2**-7 relative). Each row (a query of
+# out and dq, a key of dk and dv) is held on its own, since late rows are
+# far smaller than early ones: max|err| within 3e-2 x max|ref| of the row
+# (four ulps of its largest entry; no row's max|ref| below 1e-3 x the
+# tensor's, see _row_err). lse is float32 in both: TOL_KERNEL.
+TOL_BF16_ROW = 3e-2
+# the kernel path against the plain path at full width, bf16: the loss
+# (relative), each leaf's gradient (max abs error over max|plain|) and
+# its cosine with the plain gradient
+BOUND_TRAIN_LOSS = 1e-3
+BOUND_TRAIN_GRAD = 5e-2
+BOUND_TRAIN_COS = 0.999
 HBM_BYTES_S = 3.35e12      # H100 SXM HBM3
 FP32_FLOP_S = 67e12        # H100 SXM float32 outside the tensor cores
+BF16_FLOP_S = 989e12       # H100 SXM bf16 tensor cores, dense
 
 FULL = dict(vocab=50304, d=1024, layers=24, heads=16, ffn=4096,
             block_size=16, max_batch=8, chunk_tokens=128, budget=512,
@@ -92,7 +129,12 @@ FULL = dict(vocab=50304, d=1024, layers=24, heads=16, ffn=4096,
             q_num_blocks=310,
             # MoE serving (Mixtral-8x7B's routing) and speculation
             experts=8, top_k=2, capacity_factor=1.25, block_m=8,
-            draft_layers=6, spec_k=4, moe_spec_k=2, spec_requests=4)
+            draft_layers=6, spec_k=4, moe_spec_k=2, spec_requests=4,
+            # training: bench.py's Llama-2-7B proxy (bench.py:58-61)
+            train_vocab=32000, train_hidden=4096, train_ffn=11008,
+            train_heads=32, train_kv_heads=32, train_layers=2,
+            train_seq=2048, train_batch=16, train_steps=5,
+            train_plain_batch=2, train_timing_iters=10)
 
 
 class SmokeFailure(RuntimeError):
@@ -117,21 +159,17 @@ def card_line():
     return line or "nvidia-smi unavailable"
 
 
-def _time_ms(torch, fn, device, iters):
-    """(device ms, wall ms) per call after warm-up. Device: the kernels
-    ``fn`` launches, summed by CUPTI through torch.profiler (None when the
-    profiler records no device time); wall: CUDA events around ``iters``
-    back-to-back calls, which includes the host's launch overhead when
-    that is the slower side. Off the card both are host-clock times."""
+def _event_ms(torch, fn, device, iters):
+    """ms per call after warm-up: CUDA events around ``iters`` back-to-back
+    calls, which includes the host's launch overhead when that is the
+    slower side (the host clock off the card)."""
     for _ in range(3):
         fn()
     if device.type != "cuda":
         t0 = time.perf_counter()
         for _ in range(iters):
             fn()
-        ms = (time.perf_counter() - t0) * 1e3 / iters
-        return ms, ms
-    from torch.profiler import ProfilerActivity, profile
+        return (time.perf_counter() - t0) * 1e3 / iters
     torch.cuda.synchronize()
     a = torch.cuda.Event(enable_timing=True)
     b = torch.cuda.Event(enable_timing=True)
@@ -140,7 +178,18 @@ def _time_ms(torch, fn, device, iters):
         fn()
     b.record()
     b.synchronize()
-    wall = a.elapsed_time(b) / iters
+    return a.elapsed_time(b) / iters
+
+
+def _time_ms(torch, fn, device, iters):
+    """(device ms, wall ms) per call after warm-up. Device: the kernels
+    ``fn`` launches, summed by CUPTI through torch.profiler (None when the
+    profiler records no device time); wall: ``_event_ms``. Off the card
+    both are host-clock times."""
+    wall = _event_ms(torch, fn, device, iters)
+    if device.type != "cuda":
+        return wall, wall
+    from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(iters):
             fn()
@@ -159,8 +208,8 @@ def _device(*timings):
     return tuple(t[0] for t in timings)
 
 
-def _bound(nbytes, flops):
-    t_b, t_f = nbytes / HBM_BYTES_S, flops / FP32_FLOP_S
+def _bound(nbytes, flops, flop_s=FP32_FLOP_S):
+    t_b, t_f = nbytes / HBM_BYTES_S, flops / flop_s
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
 
 
@@ -1010,6 +1059,499 @@ def phase_profile(torch, device, cfg, tsm, tsm_moe, tag, say):
                         for t, c, k in top))
 
 
+# -- the training slice (phases 12-14) ---------------------------------
+def _train_cfg(cfg):
+    from paddle_tpu_torch.models import LlamaConfig
+    return LlamaConfig(
+        vocab_size=cfg["train_vocab"], hidden_size=cfg["train_hidden"],
+        intermediate_size=cfg["train_ffn"],
+        num_hidden_layers=cfg["train_layers"],
+        num_attention_heads=cfg["train_heads"],
+        num_key_value_heads=cfg["train_kv_heads"],
+        max_position_embeddings=cfg["train_seq"])
+
+
+def _leaf_shapes(cfg):
+    """The trainer's 12 parameter shapes (blocks stacked [1, L, ...])."""
+    H, F_, V = cfg["train_hidden"], cfg["train_ffn"], cfg["train_vocab"]
+    KV = cfg["train_kv_heads"] * (H // cfg["train_heads"])
+    lead = (1, cfg["train_layers"])
+    return [(V, H), (H,), (H, V)] + [lead + s for s in (
+        (H, H), (H, KV), (H, KV), (H, H), (H, F_), (H, F_), (F_, H), (H,),
+        (H,))]
+
+
+def _rel_err(got, ref):
+    """max |got - ref| / max |ref| over float32 copies."""
+    got, ref = got.float(), ref.float()
+    return float((got - ref).abs().max()) / max(float(ref.abs().max()),
+                                                1e-30)
+
+
+def phase_train_kernels(torch, device, cfg, tag, say):
+    """Phase 12: the training slice's kernels against their plain versions
+    at the shapes the trainer gives them, then timed beside their bound,
+    the plain version and one PyTorch call. Returns {name: row}."""
+    from paddle_tpu_torch.ops.hopper import flash_attention as fa
+    from paddle_tpu_torch.ops.hopper import fused_adamw as fw
+    from paddle_tpu_torch.ops.hopper import fused_norm as fn
+    F = torch.nn.functional
+    iters = cfg["train_timing_iters"]
+    B, T, nh = cfg["train_batch"], cfg["train_seq"], cfg["train_heads"]
+    H = cfg["train_hidden"]
+    hd = H // nh
+    bf16 = torch.bfloat16
+    rows = {}
+    scale = 1.0 / np.sqrt(hd)
+
+    # -- flash attention: small cases in both types, then the slice ----
+    small = {
+        # name: (B, t_q, t_k, H, D, causal, rate)
+        "fp32 causal tail": (2, 200, 200, 4, 128, True, 0.0),
+        "fp32 cross-length": (2, 64, 320, 2, 64, True, 0.0),
+        "fp32 non-causal tail": (1, 130, 77, 3, 64, False, 0.0),
+        "fp32 dropout": (2, 192, 192, 2, 128, True, 0.1),
+        "bf16 dropout cross-length": (1, 96, 256, 4, 128, True, 0.1),
+    }
+    for name, (b, tq, tk, h, d, causal, rate) in small.items():
+        dt = bf16 if name.startswith("bf16") else torch.float32
+        gen = torch.Generator().manual_seed(tq * tk + d)
+        q, do = (torch.randn((b, tq, h, d), generator=gen).to(device, dt)
+                 for _ in range(2))
+        k, v = (torch.randn((b, tk, h, d), generator=gen).to(device, dt)
+                for _ in range(2))
+        errs = _flash_check(torch, fa, q, k, v, do, causal, 1 / np.sqrt(d),
+                            rate, 1234)
+        if dt == torch.float32:
+            err = max(e[0] for e in errs)
+            require(err <= TOL_KERNEL, f"flash {name}: {err}")
+        else:
+            err = max(e[1] for e in errs)
+            require(err <= TOL_BF16_ROW,
+                    f"flash {name}: {err} x a row's max|ref|")
+        say(f"{tag} flash attention {name} [{b}, {tq}/{tk}, {h}, {d}] vs "
+            f"plain: out, dq, dk, dv max_abs_err "
+            f"{', '.join(f'{e[0]:.2e}' for e in errs)} (per row, rel. to "
+            f"the row's max|ref|: {', '.join(f'{e[1]:.2e}' for e in errs)})")
+
+    # the slice's shape: bf16 causal [B, T, nh, hd]; the plain backward
+    # holds [BH, T, T] float32 matrices, so it runs (and is checked) two
+    # batch rows at a time
+    gen = torch.Generator(device=device).manual_seed(21)
+    q, k, v, do = (torch.randn((B, T, nh, hd), generator=gen, device=device,
+                               dtype=bf16) for _ in range(4))
+    o, lse = fa._fwd_blhd(q, k, v, True, scale, 0.0, None)
+    dq, dk, dv = fa._bwd_blhd(q, k, v, o, lse, do, True, scale, 0.0, None)
+    pb = min(B, cfg["train_plain_batch"])
+    f_abs = f_row = lse_abs = b_abs = b_row = 0.0
+    for b0 in range(0, B, pb):
+        sl = slice(b0, b0 + pb)
+        qs, ks, vs = (fa._to_bhtd(t[sl]) for t in (q, k, v))
+        ro, rl = fa.flash_fwd_reference(qs, ks, vs, True, scale)
+        e_abs, e_row = _row_err(fa._to_bhtd(o[sl]), ro)
+        f_abs, f_row = max(f_abs, e_abs), max(f_row, e_row)
+        lse_abs = max(lse_abs, float(
+            (lse.view(B, nh, T)[sl].reshape(-1, T) - rl).abs().max()))
+        rg = fa.flash_bwd_reference(qs, ks, vs, ro, rl, fa._to_bhtd(do[sl]),
+                                    True, scale)
+        for g, r in zip((dq, dk, dv), rg):
+            e_abs, e_row = _row_err(fa._to_bhtd(g[sl]), r)
+            b_abs, b_row = max(b_abs, e_abs), max(b_row, e_row)
+        del qs, ks, vs, ro, rl, rg
+    say(f"{tag} flash attention bf16 causal [{B}, {T}, {nh}, {hd}] vs plain "
+        f"(two rows at a time): forward out {f_abs:.3e} max_abs_err, "
+        f"{f_row:.3e} x its row's max|ref|, lse {lse_abs:.3e} (tol "
+        f"{TOL_KERNEL}); backward dq, dk, dv {b_abs:.3e} max_abs_err, "
+        f"{b_row:.3e} x its row's max|ref| (tol {TOL_BF16_ROW} per row)")
+    require(f_row <= TOL_BF16_ROW and b_row <= TOL_BF16_ROW
+            and lse_abs <= TOL_KERNEL,
+            "flash attention disagrees at the slice's shape")
+    pairs = B * T * (T + 1) // 2 * nh          # causal (row, col) pairs
+    io = B * T * nh * hd * 2                   # one bf16 [B, T, nh, hd]
+    ms_f = _event_ms(torch, lambda: fa._fwd_blhd(q, k, v, True, scale,
+                                                 0.0, None), device, iters)
+    ms_b = _event_ms(torch, lambda: fa._bwd_blhd(
+        q, k, v, o, lse, do, True, scale, 0.0, None), device, iters)
+    # the kernels at the plain version's batch too, like for like
+    q2, k2, v2, do2 = (t[:pb] for t in (q, k, v, do))
+    o2, lse2 = fa._fwd_blhd(q2, k2, v2, True, scale, 0.0, None)
+    ms_f2 = _event_ms(torch, lambda: fa._fwd_blhd(q2, k2, v2, True, scale,
+                                                  0.0, None), device, iters)
+    ms_b2 = _event_ms(torch, lambda: fa._bwd_blhd(
+        q2, k2, v2, o2, lse2, do2, True, scale, 0.0, None), device, iters)
+    del q2, k2, v2, do2, o2, lse2
+    qp, kp, vp, dop = (fa._to_bhtd(t[:pb]) for t in (q, k, v, do))
+    op, lp = fa.flash_fwd_reference(qp, kp, vp, True, scale)
+    pl_f = _event_ms(torch, lambda: fa.flash_fwd_reference(
+        qp, kp, vp, True, scale), device, max(1, iters // 2))
+    pl_b = _event_ms(torch, lambda: fa.flash_bwd_reference(
+        qp, kp, vp, op, lp, dop, True, scale), device, max(1, iters // 2))
+    del qp, kp, vp, dop, op, lp
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    lib_f = _event_ms(torch, lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True), device, iters)
+    out_l = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2)
+    lib_b = _event_ms(torch, lambda: torch.autograd.grad(
+        out_l, (qt, kt, vt), dot, retain_graph=True), device, iters)
+    del out_l, qt, kt, vt, dot
+    # forward: QK^T and PV over the causal pairs; q, k, v read, out and
+    # lse written. backward, the least work: 5 products of the causal
+    # half (QK^T again, dP = dO V^T, dV, dQ, dK) — JAX's split design
+    # does 7; q, k, v, o, dO and lse read, dq, dk, dv written
+    bf_ms, bf_by = _bound(4 * io + B * nh * T * 4, 4 * hd * pairs,
+                          BF16_FLOP_S)
+    bb_ms, bb_by = _bound(8 * io + B * nh * T * 4, 10 * hd * pairs,
+                          BF16_FLOP_S)
+    say(f"{tag} flash attention forward, CUDA events per call: kernel "
+        f"{ms_f:.4f} ms (batch {pb}: {ms_f2:.4f}), plain {pl_f:.4f} ms "
+        f"(batch {pb}), sdpa(is_causal) {lib_f:.4f} ms, bound "
+        f"{bf_ms:.4f} ms ({bf_by}, bf16 tensor-core peak)")
+    say(f"{tag} flash attention backward, CUDA events per call: kernel "
+        f"{ms_b:.4f} ms (batch {pb}: {ms_b2:.4f}), plain {pl_b:.4f} ms "
+        f"(batch {pb}), sdpa backward {lib_b:.4f} ms, bound {bb_ms:.4f} ms "
+        f"({bb_by}: 5 products; JAX's split design does 7, "
+        f"{bb_ms * 7 / 5:.4f} ms)")
+    common = dict(route="cuda", source="paddle_tpu_torch/csrc/"
+                  "flash_attention.cu", plain_batch=pb)
+    # max_abs_err: the bf16 slice shape's (out; the largest of dq, dk, dv)
+    rows["flash_attention_fwd"] = dict(
+        name="flash_attention_fwd",
+        replaces="paddle_tpu/ops/pallas/flash_attention.py:157",
+        max_abs_err=f_abs, ms=ms_f, plain_ms=pl_f, bound_ms=bf_ms,
+        bound_by=bf_by, library_ms=lib_f, **common)
+    rows["flash_attention_bwd"] = dict(
+        name="flash_attention_bwd",
+        replaces="paddle_tpu/ops/pallas/flash_attention.py:382",
+        max_abs_err=b_abs, ms=ms_b, plain_ms=pl_b, bound_ms=bb_ms,
+        bound_by=bb_by, library_ms=lib_b, **common)
+    del q, k, v, do, o, lse, dq, dk, dv
+
+    # -- RMSNorm at [B * T, H] bf16, with and without the residual -----
+    gen = torch.Generator(device=device).manual_seed(22)
+    x, r = (torch.randn((B * T, H), generator=gen, device=device,
+                        dtype=bf16) for _ in range(2))
+    w = (1 + 0.1 * torch.randn((H,), generator=gen, device=device)).to(bf16)
+    eps = 1e-5
+    norm = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    errs = []
+    for label, res in (("plain", None), ("residual", r)):
+        y, z = fn._rms_fwd(x, res, w, eps)
+        ry, rz = fn.rms_fwd_reference(x, res, w, eps)
+        e = _rel_err(y, ry)
+        require(e <= 2 ** -7 and torch.equal(z, rz),
+                f"RMSNorm {label} disagrees: {e} x max|ref|")
+        errs.append(e)
+        if res is None:
+            lib = lambda: F.rms_norm(x, (H,), w, eps)  # noqa: E731
+        else:
+            lib = lambda: F.rms_norm(x + r, (H,), w, eps)  # noqa: E731
+        ms = _event_ms(torch, lambda: fn._rms_fwd(x, res, w, eps), device,
+                       iters)
+        plain_ms = _event_ms(torch, lambda: fn.rms_fwd_reference(
+            x, res, w, eps), device, iters)
+        lib_ms = _event_ms(torch, lib, device, iters)
+        n_io = 2 if res is None else 4            # x (, r) read; y (, z)
+        b_ms, _ = _bound(n_io * x.numel() * 2 + H * 2, 0)
+        say(f"{tag} fused_rms_norm {label} [{B * T}, {H}] bf16: "
+            f"{e:.3e} x max|ref| (tol 2**-7, one bf16 ulp; z bitwise); "
+            f"CUDA events per call: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, F.rms_norm"
+            f"{' after x + r' if res is not None else ''} {lib_ms:.4f} ms, "
+            f"bound {b_ms:.4f} ms (bytes)")
+        for key, val in (("ms", ms), ("plain_ms", plain_ms),
+                         ("library_ms", lib_ms), ("bound_ms", b_ms)):
+            norm[key] += val
+    say(f"{tag} fused_rms_norm a layer's two calls: kernel {norm['ms']:.4f} "
+        f"ms, plain {norm['plain_ms']:.4f} ms, library "
+        f"{norm['library_ms']:.4f} ms, bound {norm['bound_ms']:.4f} ms")
+    rows["fused_rms_norm"] = dict(
+        name="fused_rms_norm", route="cuda",
+        source="paddle_tpu_torch/csrc/fused_norm.cu",
+        replaces="paddle_tpu/ops/pallas/fused_norm.py:105",
+        max_abs_err=max(errs), bound_by="bytes", **norm)
+    del x, r, w, y, z, ry, rz
+
+    # -- AdamW over the slice's 12 leaves: p, g bf16; m, v, master fp32 -
+    gen = torch.Generator(device=device).manual_seed(23)
+    leaves = []
+    for shape in _leaf_shapes(cfg):
+        master = 0.02 * torch.randn(shape, generator=gen, device=device)
+        leaves.append(dict(
+            p=master.to(bf16), g=(1e-3 * torch.randn(
+                shape, generator=gen, device=device)).to(bf16),
+            m=1e-4 * torch.randn(shape, generator=gen, device=device),
+            v=1e-8 * torch.rand(shape, generator=gen, device=device),
+            master=master))
+    hyper = (3e-4, 0.9, 0.95, 1e-8, 0.1, 3)
+    scal = fw.adamw_scalars(*hyper, device)
+    err = 0.0
+    for lf in leaves:
+        ref = {key: t.clone() for key, t in lf.items()}
+        fw.fused_adamw_update(lf["p"], lf["g"], lf["m"], lf["v"],
+                              lf["master"], *hyper, scal=scal)
+        fw.fused_adamw_reference(ref["p"], ref["g"], ref["m"], ref["v"],
+                                 ref["master"], scal)
+        for key in ("m", "v", "master"):
+            e = float((lf[key] - ref[key]).abs().max())
+            err = max(err, e)
+            require(e <= 1e-6 * max(float(ref[key].abs().max()), 1e-30),
+                    f"AdamW {key} disagrees: {e}")
+        require(_rel_err(lf["p"], ref["p"]) <= 2 ** -7, "AdamW p disagrees")
+        del ref
+    n = sum(lf["p"].numel() for lf in leaves)
+
+    def step_kernel():
+        for lf in leaves:
+            fw.fused_adamw_update(lf["p"], lf["g"], lf["m"], lf["v"],
+                                  lf["master"], *hyper, scal=scal)
+
+    def step_plain():
+        for lf in leaves:
+            fw.fused_adamw_reference(lf["p"], lf["g"], lf["m"], lf["v"],
+                                     lf["master"], scal)
+
+    ms = _event_ms(torch, step_kernel, device, iters)
+    plain_ms = _event_ms(torch, step_plain, device, iters)
+    del leaves
+    # yardstick: torch's fused AdamW over float32 parameters and grads of
+    # the same sizes (it keeps no bf16 copy and no separate master)
+    params = [torch.zeros(s, device=device, requires_grad=True)
+              for s in _leaf_shapes(cfg)]
+    for p in params:
+        p.grad = torch.zeros_like(p)
+    opt = torch.optim.AdamW(params, lr=3e-4, betas=(0.9, 0.95), eps=1e-8,
+                            weight_decay=0.1, fused=device.type == "cuda")
+    lib_ms = _event_ms(torch, opt.step, device, iters)
+    del params, opt
+    b_ms, b_by = _bound(30 * n, 0)
+    say(f"{tag} fused_adamw 12 leaves, {n} elements (p, g bf16; m, v, "
+        f"master fp32): max_abs_err {err:.3e} (m, v, master within 1e-6 x "
+        f"max|ref|, p one bf16 ulp); CUDA events per step: kernel {ms:.4f} "
+        f"ms, plain {plain_ms:.4f} ms, torch.optim.AdamW(fused) over fp32 "
+        f"params {lib_ms:.4f} ms (28 B/element, no bf16 copy), bound "
+        f"{b_ms:.4f} ms ({b_by}, 30 B/element)")
+    rows["fused_adamw"] = dict(
+        name="fused_adamw", route="cuda",
+        source="paddle_tpu_torch/csrc/fused_adamw.cu",
+        replaces="paddle_tpu/ops/pallas/fused_adamw.py:67",
+        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=lib_ms)
+    return rows
+
+
+def _row_err(got, ref):
+    """(max |err|, max over rows of max|err| / max|ref| in the row) of
+    [BH, T, D] tensors; a row is a query (out, dq) or a key (dk, dv). A
+    row whose exact value is 0 (dq of a causal first row: its one key
+    gives dS = p (dP - delta) = 0) holds rounding noise only, so no row's
+    max|ref| counts below 1e-3 x the tensor's."""
+    got, ref = got.float(), ref.float()
+    err = (got - ref).abs().amax(-1)
+    row = ref.abs().amax(-1)
+    row = row.clamp_min(max(1e-3 * float(row.max()), 1e-30))
+    return float(err.max()), float((err / row).max())
+
+
+def _flash_check(torch, fa, q, k, v, do, causal, scale, rate, seed):
+    """[_row_err] of out, dq, dk, dv: the kernels against the plain
+    versions (the backward of both from the plain forward's out and
+    lse)."""
+    B, H = q.shape[0], q.shape[2]
+    o, lse = fa._fwd_blhd(q, k, v, causal, scale, rate, seed)
+    ro, rl = fa.flash_fwd_reference(*(fa._to_bhtd(t) for t in (q, k, v)),
+                                    causal, scale, rate, seed)
+    grads = fa._bwd_blhd(q, k, v, fa._from_bhtd(ro, B, H), rl, do, causal,
+                         scale, rate, seed)
+    ref = fa.flash_bwd_reference(*(fa._to_bhtd(t) for t in (q, k, v)), ro,
+                                 rl, fa._to_bhtd(do), causal, scale, rate,
+                                 seed)
+    out = []
+    for got, want in [(o, ro)] + list(zip(grads, ref)):
+        got = fa._to_bhtd(got)
+        require(bool(torch.isfinite(got).all()), "flash: non-finite")
+        out.append(_row_err(got, want))
+    return out
+
+
+def _train_counts():
+    from paddle_tpu_torch.ops.hopper import flash_attention as fa
+    from paddle_tpu_torch.ops.hopper import fused_adamw as fw
+    from paddle_tpu_torch.ops.hopper import fused_norm as fn
+    return {"flash_attention_fwd": fa.launch_count("fwd"),
+            "flash_attention_bwd": fa.launch_count("bwd"),
+            "fused_rms_norm": fn.launch_count(),
+            "fused_adamw": fw.launch_count()}
+
+
+def _reset_train_counts():
+    from paddle_tpu_torch.ops.hopper import flash_attention as fa
+    from paddle_tpu_torch.ops.hopper import fused_adamw as fw
+    from paddle_tpu_torch.ops.hopper import fused_norm as fn
+    for mod in (fa, fw, fn):
+        mod.reset_launch_count()
+
+
+def _sync(torch, device):
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def phase_train(torch, device, cfg, seed, tag, say):
+    """Phase 13: LlamaSpmdTrainer at bench.py's Llama-2-7B proxy widths,
+    fp32 moments (the fused AdamW), remat off, chunked CE; 1 warm-up step
+    and ``train_steps`` steps on one fixed batch. Returns the launch
+    counts of the measured steps."""
+    from paddle_tpu_torch.models import LlamaSpmdTrainer
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    tc = _train_cfg(cfg)
+    B, T, L = cfg["train_batch"], cfg["train_seq"], cfg["train_layers"]
+    tr = LlamaSpmdTrainer(tc, compute_dtype=torch.bfloat16, remat=False,
+                          ce_remat=True, moments_dtype=torch.float32,
+                          seed=seed, device=device)
+    require(tr._fused == (device.type == "cuda"),
+            "the trainer's kernels are not its CUDA path")
+    ids = np.random.RandomState(seed + 2).randint(0, tc.vocab_size, (B, T))
+    losses = [float(tr.train_step(ids))]               # warm-up
+    steps = cfg["train_steps"]
+    _sync(torch, device)
+    _reset_train_counts()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        loss = tr.train_step(ids)
+    _sync(torch, device)
+    wall = time.perf_counter() - t0
+    counts = _train_counts()
+    losses.append(float(loss))
+    tok_s = steps * B * T / wall
+    fpt = tr.flops_per_token(T)
+    peak = (torch.cuda.max_memory_allocated() / 2 ** 20
+            if device.type == "cuda" else float("nan"))
+    say(f"{tag} training {tr.param_count()} params ({L} layers of "
+        f"Llama-2-7B widths, vocab {tc.vocab_size}, batch {B} x seq {T}, "
+        f"bf16, fp32 moments): loss {losses[0]:.4f} (warm-up) -> "
+        f"{losses[-1]:.4f} after {steps} more steps; {wall / steps:.4f} s "
+        f"per step, {tok_s:.1f} tokens/s, MFU {fpt * tok_s / BF16_FLOP_S:.4f}"
+        f" ({fpt} FLOP/token over {BF16_FLOP_S:.3g}; a step's bound at the "
+        f"bf16 peak {fpt * B * T / BF16_FLOP_S:.4f} s), peak memory "
+        f"{peak:.1f} MiB; launches {counts}")
+    require(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+    require(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    if device.type == "cuda":
+        want = {"flash_attention_fwd": L, "flash_attention_bwd": L,
+                "fused_rms_norm": 2 * L, "fused_adamw": 12}
+        require(counts == {k: steps * n for k, n in want.items()},
+                f"launches {counts} are not {steps} x {want}")
+        from torch.profiler import ProfilerActivity, profile
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            tr.train_step(ids)
+            torch.cuda.synchronize()
+        wall1 = (time.perf_counter() - t0) * 1e3
+        ev = [(getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0)), e.count,
+               e.key) for e in prof.key_averages()]
+        ev = [e for e in ev if e[0] > 0]
+        busy = sum(e[0] for e in ev) / 1e3
+        top = sorted(ev, reverse=True)[:8]
+        groups = {"flash attention": ("flash_",),
+                  "GEMMs (cuBLAS)": ("nvjet", "gemm", "xmma", "cutlass"),
+                  "RMSNorm kernel": ("rms_kernel",),
+                  "AdamW kernel": ("adamw_kernel",)}
+        split = {g: sum(t for t, _, k in ev if any(n in k for n in names))
+                 / 1e3 for g, names in groups.items()}
+        split["other (elementwise, CE, embedding)"] = busy - sum(
+            split.values())
+        say(f"{tag} profile of one training step: host wall {wall1:.1f} ms "
+            f"(profiled), device busy {busy:.1f} ms ({100 * busy / wall1:.1f}"
+            f"%), {sum(e[1] for e in ev)} kernel launches; by kind: "
+            + ", ".join(f"{g} {v:.1f} ms" for g, v in split.items())
+            + "; costliest: "
+            + "; ".join(f"{k[:60]} x{c} {t / 1e3:.2f} ms"
+                        for t, c, k in top))
+    del tr
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return counts
+
+
+def phase_train_paths(torch, device, cfg, seed, tag, say):
+    """Phase 14: the kernel path against the plain path (the JAX jnp
+    branches in PyTorch) at the same widths and T, batch
+    ``train_plain_batch``, from equal weights and state: the loss, every
+    leaf's gradient, and params / masters after one step."""
+    from paddle_tpu_torch.models import LlamaSpmdTrainer
+    from paddle_tpu_torch.models.llama_spmd import tree_get, tree_paths
+    tc = _train_cfg(cfg)
+    B, T = cfg["train_plain_batch"], cfg["train_seq"]
+    ids = np.random.RandomState(seed + 3).randint(0, tc.vocab_size, (B, T))
+    trs = []
+    for fused in (True, False):
+        tr = LlamaSpmdTrainer(tc, compute_dtype=torch.bfloat16, remat=False,
+                              moments_dtype=torch.float32, seed=seed + 1,
+                              device=device)
+        tr._fused = fused
+        trs.append(tr)
+    a, b = trs
+    paths = tree_paths(a.params)
+    la = a.loss_fn(a.params, ids, ids)
+    lb = b.loss_fn(b.params, ids, ids)
+    ga = torch.autograd.grad(la, [tree_get(a.params, p) for p in paths])
+    gb = torch.autograd.grad(lb, [tree_get(b.params, p) for p in paths])
+    dl = abs(la.item() - lb.item()) / abs(lb.item())
+    worst, worst_cos = 0.0, 1.0
+    for path, x, y in zip(paths, ga, gb):
+        e = _rel_err(x, y)
+        cos = float(_cosine(torch, x, y))
+        worst, worst_cos = max(worst, e), min(worst_cos, cos)
+        say(f"{tag}   grad {'/'.join(path)}: {e:.3e} x max|plain|, cosine "
+            f"{cos:.6f}")
+    say(f"{tag} kernel path vs plain path, batch {B} x seq {T}: loss "
+        f"{la.item():.6f} vs {lb.item():.6f} ({dl:.2e} relative, bound "
+        f"{BOUND_TRAIN_LOSS}); gradients worst {worst:.3e} x max|plain| "
+        f"(bound {BOUND_TRAIN_GRAD}), worst cosine {worst_cos:.6f} (bound "
+        f"{BOUND_TRAIN_COS})")
+    require(dl <= BOUND_TRAIN_LOSS, f"losses differ by {dl}")
+    require(worst <= BOUND_TRAIN_GRAD and worst_cos >= BOUND_TRAIN_COS,
+            "kernel-path gradients disagree with the plain path's")
+    del ga, gb, la, lb
+    for tr in trs:
+        tr.train_step(ids)
+    # the first AdamW step moves an entry by lr * g / (|g| + eps): +-lr
+    # whatever the gradient's size, so where a gradient is near 0 and its
+    # sign differs between the paths the masters differ by 2 lr (plus a
+    # few float32 ulps); p is master rounded to bf16, each side within
+    # half an ulp (2**-8 relative), so |dp| <= |dmaster| + 2**-7 |p|
+    bound_m = 2 * a.lr + 1e-6
+    dp = dm = 0.0
+    for path in paths:
+        pa, pb = (tree_get(t.params, path).detach().float()
+                  for t in (a, b))
+        slack = float((pa - pb).abs().max()) - 2 ** -7 * float(
+            pb.abs().max())
+        dp = max(dp, slack)
+        dm = max(dm, float((tree_get(a.opt_state, path)["master"]
+                            - tree_get(b.opt_state, path)["master"]
+                            ).abs().max()))
+    say(f"{tag} after one step: masters differ by {dm:.3e}, params by "
+        f"{dp:.3e} beyond 2**-7 x max|p| of the leaf (bound {bound_m:.3e} "
+        f"for both)")
+    require(dm <= bound_m and dp <= bound_m,
+            "params after one step disagree between the paths")
+    del trs, a, b
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _cosine(torch, x, y):
+    x, y = x.float().flatten(), y.float().flatten()
+    return (x @ y) / max(float(x.norm() * y.norm()), 1e-30)
+
+
 def run(device, cfg, seed=0, say=print, card=None):
     """All phases on ``device``; returns the kernels line's rows."""
     import torch
@@ -1079,9 +1621,22 @@ def run(device, cfg, seed=0, say=print, card=None):
     rows["decode_attention"]["launches"] = \
         dense_launches["decode_attention"]
     rows["w8a16_matmul"]["launches"] = qserve["launches"]["w8a16_matmul"]
+    # the training slice reads its own peak memory: free the serving
+    # models first
+    del tsm, tsm_moe, serve, qserve, mserve
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    rows.update(phase_train_kernels(torch, device, cfg, tag, say))
+    counts = phase_train(torch, device, cfg, seed, tag, say)
+    for name, n in counts.items():
+        rows[name]["launches"] = n
+    phase_train_paths(torch, device, cfg, seed, tag, say)
     return [rows[k] for k in ("paged_attention_ragged",
                               "paged_attention_ragged_int8",
-                              "decode_attention", "w8a16_matmul", "gmm")]
+                              "decode_attention", "w8a16_matmul", "gmm",
+                              "flash_attention_fwd", "flash_attention_bwd",
+                              "fused_rms_norm", "fused_adamw")]
 
 
 def main(argv=None):

@@ -2,18 +2,21 @@
 paddle_tpu/nn/functional/attention.py).
 
 ``scaled_dot_product_attention`` takes Paddle's flash-attention layout
-``[batch, seqlen, num_heads, head_dim]`` and computes masked attention as
-einsum + fp32 softmax (the JAX package's ``_sdpa_jnp``). On a TPU the
-JAX package sends the unmasked case with head_dim a multiple of 64 to
-its Pallas flash kernel (``ops/pallas/flash_attention.py``), which this
-port has not written yet: that case raises on CUDA tensors instead of
-being served by some other implementation.
+``[batch, seqlen, num_heads, head_dim]``. As the JAX package does on its
+accelerator, unmasked attention on the card with head_dim a multiple of
+64 goes to the hand-written flash-attention kernel
+(``ops/hopper/flash_attention.py`` ``flash_attention_blhd``, which takes
+head_dim 64 and 128 and raises for wider heads); masked attention, and
+every call on the CPU, is einsum + fp32 softmax (the JAX package's
+``_sdpa_jnp``).
 """
 from __future__ import annotations
 
 import math
 
 import torch
+
+from ...ops.hopper.flash_attention import flash_attention_blhd
 
 NEG_INF = -1e30
 
@@ -40,8 +43,6 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     drops) and broadcasts against [B, H, Lq, Lk]."""
     hd = query.shape[-1]
     if query.is_cuda and attn_mask is None and hd >= 64 and hd % 64 == 0:
-        raise NotImplementedError(
-            "unmasked attention on CUDA is the flash-attention kernel "
-            "(paddle_tpu/ops/pallas/flash_attention.py _flash_fwd_pallas),"
-            " which is not ported yet")
+        return flash_attention_blhd(query, key, value, causal=is_causal,
+                                    sm_scale=scale)
     return _sdpa(query, key, value, attn_mask, is_causal, scale)

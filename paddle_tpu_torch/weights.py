@@ -14,7 +14,10 @@ optional untied head, or the JAX model's own int8 head).
 beside the attention and LayerNorm weights). Names and
 layouts are the same in both packages (Linear weights [in, out]), so the
 copy is by name and the int8 bytes are taken as they are, never
-re-quantized. This module never imports JAX: the caller hands it numpy.
+re-quantized. ``llama_spmd_trainer`` builds the port's LlamaSpmdTrainer
+holding a JAX ``LlamaSpmdTrainer``'s parameter tree (and optionally its
+optimizer state), given as nested dicts of numpy arrays with the same
+keys. This module never imports JAX: the caller hands it numpy.
 """
 from __future__ import annotations
 
@@ -27,9 +30,10 @@ import torch
 from .incubate.nn import FusedMultiTransformer, FusedMultiTransformerInt8
 from .inference.moe_serving import MoeServingCore
 from .inference.speculative import TokenServingModel
+from .models.llama_spmd import LlamaSpmdTrainer, tree_get, tree_paths
 
-__all__ = ["fused_multi_transformer", "moe_serving_core",
-           "token_serving_model"]
+__all__ = ["fused_multi_transformer", "llama_spmd_trainer",
+           "moe_serving_core", "token_serving_model"]
 
 
 def _layer_count(state, name: str) -> int:
@@ -125,3 +129,32 @@ def token_serving_model(state: Dict[str, np.ndarray], embedding,
         tsm._head_int8 = torch.from_numpy(q.copy()).to(core.device)
         tsm._head_scale = torch.from_numpy(sc.copy()).to(core.device)
     return tsm
+
+
+def llama_spmd_trainer(params_np, config, *, opt_state_np=None, step=0,
+                       device=None, **trainer_kw) -> LlamaSpmdTrainer:
+    """A port trainer holding ``params_np`` (the JAX trainer's parameter
+    tree as numpy, e.g. ``jax.tree_util.tree_map(np.asarray,
+    trainer.params)``) and, when given, ``opt_state_np`` (its
+    ``opt_state`` the same way, ``m``/``v``/``master`` per leaf; else
+    zero moments and the parameters as fp32 master), at step ``step``.
+    ``trainer_kw`` are the trainer's options (compute_dtype,
+    moments_dtype, remat, ...)."""
+    tr = LlamaSpmdTrainer(config, device=device, **trainer_kw)
+    with torch.no_grad():
+        for path in tree_paths(tr.params):
+            p = tree_get(tr.params, path)
+            src = np.array(tree_get(params_np, path), np.float32)
+            if src.shape != tuple(p.shape):
+                raise ValueError(f"{'/'.join(path)}: shape {src.shape} is "
+                                 f"not the trainer's {tuple(p.shape)}")
+            p.copy_(torch.from_numpy(src))
+            st = tree_get(tr.opt_state, path)
+            if opt_state_np is None:
+                st["master"].copy_(p.float())
+                continue
+            for k in ("m", "v", "master"):
+                st[k].copy_(torch.from_numpy(np.array(
+                    tree_get(opt_state_np, path)[k], np.float32)))
+    tr._stepno = int(step)
+    return tr

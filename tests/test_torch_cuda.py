@@ -16,7 +16,12 @@ from paddle_tpu_torch.inference import (MoeServingCore, SpeculativeEngine,
                                         TokenServingModel)
 from paddle_tpu_torch.inference.paged_cache import _quant_rows
 from paddle_tpu_torch.ops.hopper import _build
+from paddle_tpu_torch.models import LlamaConfig, LlamaSpmdTrainer
+from paddle_tpu_torch.models.llama_spmd import tree_get, tree_paths
 from paddle_tpu_torch.ops.hopper import decode_attention as tda
+from paddle_tpu_torch.ops.hopper import flash_attention as tfa
+from paddle_tpu_torch.ops.hopper import fused_adamw as tfw
+from paddle_tpu_torch.ops.hopper import fused_norm as tfn
 from paddle_tpu_torch.ops.hopper import grouped_gemm as tgg
 from paddle_tpu_torch.ops.hopper import int8_matmul as tim
 from paddle_tpu_torch.ops.hopper import paged_attention as tpa
@@ -431,3 +436,256 @@ def test_moe_engine_on_cuda_matches_cpu(k):
     # layers, the 1-layer draft's
     assert tgg.launch_count() == 2 * LAYERS * gpu._calls + \
         2 * draft_calls > 0
+
+
+# -- the training slice: flash attention, fused RMSNorm, fused AdamW ------
+# float32 kernels vs their plain versions: summation order (and, for
+# flash, 64-wide key tiles against the Pallas 128-wide blocks of the
+# online softmax) only
+TOL_TRAIN = dict(atol=1e-4, rtol=1e-4)
+# bfloat16: both sides round p and dS to bfloat16 at the same points, but
+# relative to running maxima of different tile widths, and the outputs are
+# bfloat16 themselves (1 ulp <= 2**-7 relative). Each row (a query of out
+# and dq, a key of dk and dv) is held on its own, since late rows are
+# smaller than early ones: max|err| within 3e-2 x max|ref| of that row,
+# four ulps of the row's largest entry. A row whose exact value is 0 (dq
+# of a causal first row: its one key gives dS = p (dP - delta) = 0) holds
+# rounding noise only, so no row's max|ref| counts below 1e-3 x the
+# tensor's
+TOL_BF16_ROW = 3e-2
+
+FLASH = {
+    # name: (B, t_q, t_k, H, D, causal, dropout rate)
+    "causal": (2, 192, 192, 4, 64, True, 0.0),
+    "non_causal_tail": (1, 100, 150, 3, 128, False, 0.0),
+    "cross_length": (2, 64, 192, 2, 64, True, 0.0),
+    "causal_tail_hd128": (1, 130, 130, 2, 128, True, 0.0),
+    "dropout": (2, 130, 130, 2, 64, True, 0.2),
+}
+
+
+def _flash_inputs(name, dtype, seed=0):
+    B, tq, tk, H, D, causal, rate = FLASH[name]
+    g = torch.Generator().manual_seed(seed)
+    q, do = (torch.randn((B, tq, H, D), generator=g) for _ in range(2))
+    k, v = (torch.randn((B, tk, H, D), generator=g) for _ in range(2))
+    return [t.to("cuda", dtype) for t in (q, k, v, do)], causal, rate
+
+
+def _close_per_row(got, ref, rel):
+    """[BH, T, D]: max|err| of each row within rel x max|ref| of the row."""
+    got, ref = got.float(), ref.float()
+    row = ref.abs().amax(-1)
+    row = row.clamp_min(max(1e-3 * float(row.max()), 1e-30))
+    err = (got - ref).abs().amax(-1) / row
+    assert float(err.max()) <= rel, float(err.max())
+
+
+def _bhtd(t):
+    return tfa._to_bhtd(t)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", sorted(FLASH))
+def test_flash_kernels_match_plain_versions(name, dtype):
+    """Forward (out, lse) and backward (dq, dk, dv) kernels against the
+    plain versions on the same card inputs; the backward of both from the
+    plain forward's out and lse."""
+    _need_cuda()
+    dt = getattr(torch, dtype)
+    (q, k, v, do), causal, rate = _flash_inputs(name, dt)
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    seed = -7
+    f0, b0 = tfa.launch_count("fwd"), tfa.launch_count("bwd")
+    o, lse = tfa._fwd_kernel(q, k, v, causal, scale, rate, seed)
+    o_ref, lse_ref = tfa.flash_fwd_reference(_bhtd(q), _bhtd(k), _bhtd(v),
+                                             causal, scale, rate, seed)
+    B, H = q.shape[0], q.shape[2]
+    o_blhd = tfa._from_bhtd(o_ref, B, H)
+    grads = tfa._bwd_kernel(q, k, v, o_blhd, lse_ref, do, causal, scale,
+                            rate, seed)
+    ref = tfa.flash_bwd_reference(_bhtd(q), _bhtd(k), _bhtd(v), o_ref,
+                                  lse_ref, _bhtd(do), causal, scale, rate,
+                                  seed)
+    torch.cuda.synchronize()
+    assert (tfa.launch_count("fwd"), tfa.launch_count("bwd")) == (f0 + 1,
+                                                                  b0 + 1)
+    torch.testing.assert_close(lse, lse_ref, **TOL_TRAIN)
+    pairs = [(_bhtd(o), o_ref)] + [(_bhtd(g), r) for g, r in zip(grads, ref)]
+    for got, want in pairs:
+        assert bool(torch.isfinite(got).all())
+        if dt == torch.float32:
+            torch.testing.assert_close(got, want, **TOL_TRAIN)
+        else:
+            _close_per_row(got, want, TOL_BF16_ROW)
+
+
+def test_flash_reads_strided_and_gqa_repeated_inputs():
+    """q/k/v as views of one packed [B, T, 3, H, D] projection (strided,
+    no copy) and K/V repeated for GQA give the contiguous inputs' bits;
+    the [BH, T, D] entry points agree with the [B, L, H, D] ones."""
+    _need_cuda()
+    g = torch.Generator().manual_seed(3)
+    qkv = torch.randn((2, 128, 3, 4, 64), generator=g).cuda()
+    q, k, v = qkv.unbind(2)
+    o1, l1 = tfa._fwd_kernel(q, k, v, True, 0.125, 0.0, None)
+    o2, l2 = tfa._fwd_kernel(*(t.contiguous() for t in (q, k, v)), True,
+                             0.125, 0.0, None)
+    assert torch.equal(o1, o2) and torch.equal(l1, l2)
+    kv = torch.randn((2, 2, 128, 2, 64), generator=g).cuda()
+    kr, vr = (t.repeat_interleave(2, dim=2) for t in kv.unbind(0))
+    o3 = tfa._flash_fwd(_bhtd(q), _bhtd(kr), _bhtd(vr), True, 0.125)
+    o4, _ = tfa._fwd_kernel(q, kr, vr, True, 0.125, 0.0, None)
+    assert torch.equal(o3, _bhtd(o4))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_dropout_mask_is_the_position_hash(dtype):
+    """With q = 0 every probability is exp(0) = 1 before dropout and v the
+    identity, so out * t_k is the kernel's keep scale at every (row, col)
+    (rounded to the input type, as p is before P.V): equal bit for bit to
+    the plain ``_keep_scale``."""
+    _need_cuda()
+    dt = getattr(torch, dtype)
+    B, H, T, D, rate, seed = 1, 3, 64, 64, 0.3, 12345
+    q = torch.zeros((B, T, H, D), device="cuda", dtype=dt)
+    eye = torch.eye(D, device="cuda", dtype=dt)[None, :, None].expand(
+        B, T, H, D)
+    o, _ = tfa._fwd_kernel(q, eye, eye.contiguous(), False, 1.0, rate, seed)
+    got = _bhtd(o) * T
+    want = tfa._drop_scale(B * H, torch.arange(T), torch.arange(T), seed,
+                           rate, torch.device("cuda")).to(dt)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,h", [(37, 4096), (64, 1000), (5, 9000),
+                                    (3, 30)])
+def test_rms_norm_kernel_matches_plain_version(rows, h, dtype):
+    """With and without the residual: vector and scalar paths, rows held
+    in registers and rows wider than the register cache."""
+    _need_cuda()
+    dt = getattr(torch, dtype)
+    g = torch.Generator().manual_seed(rows + h)
+    x, r, w = (torch.randn(shape, generator=g).to("cuda", dt)
+               for shape in ((rows, h), (rows, h), (h,)))
+    before = tfn.launch_count()
+    y1, _ = tfn._rms_fwd(x, None, w, 1e-5)
+    y2, z2 = tfn._rms_fwd(x, r, w, 1e-5)
+    assert tfn.launch_count() == before + 2
+    ry1, _ = tfn.rms_fwd_reference(x, None, w, 1e-5)
+    ry2, rz2 = tfn.rms_fwd_reference(x, r, w, 1e-5)
+    assert torch.equal(z2, rz2)
+    # float32: rsqrtf and the sum order; bfloat16: one output ulp (2**-8)
+    tol = TOL if dt == torch.float32 else dict(atol=1e-2, rtol=1e-2)
+    torch.testing.assert_close(y1.float(), ry1.float(), **tol)
+    torch.testing.assert_close(y2.float(), ry2.float(), **tol)
+
+
+@pytest.mark.parametrize("pdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("n,offset", [(1000003, 0), (4096, 0), (999, 1)])
+def test_adamw_kernel_matches_plain_version(n, offset, pdtype):
+    """Three steps in place; offset 1 misaligns every buffer (the scalar
+    path)."""
+    _need_cuda()
+    dt = getattr(torch, pdtype)
+    g0 = torch.Generator().manual_seed(n)
+    master = (0.02 * torch.randn(n + offset, generator=g0)).cuda()[offset:]
+    bufs = {"p": master.to(dt), "m": torch.zeros_like(master),
+            "v": torch.zeros_like(master), "master": master.clone()}
+    ref = {k: t.clone() for k, t in bufs.items()}
+    before = tfw.launch_count()
+    for step in (1, 2, 3):
+        grad = (torch.randn(n + offset, generator=g0) * 1e-2).cuda()[
+            offset:].to(dt)
+        args = (3e-4, 0.9, 0.95, 1e-8, 0.1, step)
+        tfw.fused_adamw_update(bufs["p"], grad, bufs["m"], bufs["v"],
+                               bufs["master"], *args)
+        tfw.fused_adamw_reference(ref["p"], grad, ref["m"], ref["v"],
+                                  ref["master"],
+                                  tfw.adamw_scalars(*args, "cuda"))
+    assert tfw.launch_count() == before + 3
+    for k in ("m", "v", "master"):
+        torch.testing.assert_close(bufs[k], ref[k], atol=1e-7, rtol=1e-5)
+    # p is master rounded to p's type: one ulp where master sits on a tie
+    torch.testing.assert_close(bufs["p"].float(), ref["p"].float(),
+                               atol=1e-7, rtol=2 ** -7)
+
+
+def _tiny_trainer(fused, remat=False, dtype=torch.float32):
+    cfg = LlamaConfig.tiny(vocab=512, hidden=256, layers=2, heads=4,
+                           kv_heads=2, inter=512, seq=128)
+    tr = LlamaSpmdTrainer(cfg, lr=1e-3, remat=remat, seed=5,
+                          compute_dtype=dtype, device="cuda")
+    tr._fused = fused
+    return tr
+
+
+def test_trainer_kernel_path_matches_plain_path():
+    """A tiny Llama (hd 64, GQA, T 128: the flash branch) on the card,
+    float32: the kernels' step against the plain step from the same
+    weights; loss, every gradient and two AdamW steps, with the launch
+    counts of the per-step formula (flash forward and backward once per
+    layer, RMSNorm twice per layer, AdamW once per leaf)."""
+    _need_cuda()
+    ids = torch.from_numpy(np.random.RandomState(0).randint(0, 512,
+                                                            (2, 128)))
+    a, b = _tiny_trainer(True), _tiny_trainer(False)
+    la = a.loss_fn(a.params, ids, ids)
+    lb = b.loss_fn(b.params, ids, ids)
+    torch.testing.assert_close(la, lb, atol=1e-5, rtol=1e-5)
+    ga = torch.autograd.grad(la, a._leaves(a.params))
+    gb = torch.autograd.grad(lb, b._leaves(b.params))
+    for x, y in zip(ga, gb):
+        torch.testing.assert_close(x, y, atol=2e-4, rtol=2e-4)
+    for mod in (tfa, tfn, tfw):
+        mod.reset_launch_count()
+    for _ in range(2):
+        a.train_step(ids)
+        b.train_step(ids)
+    torch.cuda.synchronize()
+    L = 2
+    assert (tfa.launch_count("fwd"), tfa.launch_count("bwd")) == (2 * L,
+                                                                  2 * L)
+    assert tfn.launch_count() == 2 * 2 * L
+    assert tfw.launch_count() == 2 * 12
+    # AdamW divides by sqrt(v): where a gradient is ~0 the two paths'
+    # rounding can move a parameter by up to ~lr per step
+    for path in tree_paths(a.params):
+        torch.testing.assert_close(tree_get(a.params, path),
+                                   tree_get(b.params, path),
+                                   atol=2 * 2 * a.lr, rtol=0)
+
+
+def test_trainer_bf16_remat_relaunches_forward_kernels():
+    """bf16 with remat: each block's forward runs again in the backward,
+    so the forward kernels launch twice per layer per step."""
+    _need_cuda()
+    ids = torch.from_numpy(np.random.RandomState(1).randint(0, 512,
+                                                            (2, 128)))
+    tr = _tiny_trainer(True, remat=True, dtype=torch.bfloat16)
+    for mod in (tfa, tfn, tfw):
+        mod.reset_launch_count()
+    losses = [float(tr.train_step(ids)) for _ in range(3)]
+    assert all(np.isfinite(losses)) and losses[-1] < losses[0]
+    L = 2
+    assert tfa.launch_count("fwd") == 3 * 2 * L
+    assert tfa.launch_count("bwd") == 3 * L
+    assert tfn.launch_count() == 3 * 2 * 2 * L
+    assert tfw.launch_count() == 3 * 12
+
+
+def test_unmasked_forward_takes_the_flash_kernel():
+    """A full forward with caches=None and no mask runs the flash kernel
+    on the card (causal, head_dim 64) and matches the masked dense path."""
+    _need_cuda()
+    core = FusedMultiTransformer(128, 2, 256, num_layers=2, device="cuda")
+    x = torch.randn((2, 128, 128), generator=torch.Generator().manual_seed(
+        2)).cuda()
+    mask = torch.full((128, 128), -1e30, device="cuda").triu(1)
+    before = tfa.launch_count("fwd")
+    with torch.no_grad():
+        got = core(x)
+        ref = core(x, attn_mask=mask)
+    assert tfa.launch_count("fwd") == before + 2
+    torch.testing.assert_close(got, ref, **TOL_TRAIN)
