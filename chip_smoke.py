@@ -81,7 +81,27 @@ fails the run:
 14. the kernel path against the plain path at the same widths (batch 2)
    from equal weights: the loss, every gradient, and params and masters
    after one step, within the bounds stated below;
-15. print the kernels line, the card line and, last, the contract line.
+15. the BERT slice's kernels against their plain versions at its shapes,
+   float32 and bf16: LayerNorm with and without the residual at [4096,
+   768] (float32 within 1e-5 x max|ref|, bf16 one ulp, the residual
+   stream bitwise, the backward within 1e-5), dropout at p 0.1 over
+   [4096, 768] and [4096, 3072] (output and backward bitwise, kept share
+   within 1e-3 of 0.9); each timed (profiler device sums) beside its
+   bound, its plain version and one PyTorch call (add + F.layer_norm,
+   F.dropout);
+16. BERT-base pretraining as bench_extra.py's config #2 (vocab 30522,
+   hidden 768, 12 layers, 12 heads, FFN 3072, dropout 0.1, batch 32 x
+   128, 85% of the MLM labels -100, AdamW(1e-4), FLAGS_tpu_fused_encoder
+   on, float32; random weights from --seed): 1 warm-up and 10 steps on
+   one batch, every loss finite and the last below the first; per step
+   dropout launches 2 x (1 + 3 x 12) times and LayerNorm 2 x 12 times;
+   sequences/s, MFU against the fp32 non-tensor peak, peak memory and a
+   profile of one step;
+17. the kernel path on the card against the plain path on the CPU at
+   full width (batch 2, hidden dropout 0.1, attention dropout 0, the
+   same weights and seeds): loss within 1e-5 relative, every gradient
+   within 1e-3 x max|g| with cosine >= 0.9999;
+18. print the kernels line, the card line and, last, the contract line.
 Every number printed carries the card's name and power limit.
 """
 import argparse
@@ -116,6 +136,11 @@ TOL_BF16_ROW = 3e-2
 BOUND_TRAIN_LOSS = 1e-3
 BOUND_TRAIN_GRAD = 5e-2
 BOUND_TRAIN_COS = 0.999
+# the BERT kernel path (card) against the plain path (CPU), float32, TF32
+# off: summation order only
+BOUND_BERT_LOSS = 1e-5
+BOUND_BERT_GRAD = 1e-3
+BOUND_BERT_COS = 0.9999
 HBM_BYTES_S = 3.35e12      # H100 SXM HBM3
 FP32_FLOP_S = 67e12        # H100 SXM float32 outside the tensor cores
 BF16_FLOP_S = 989e12       # H100 SXM bf16 tensor cores, dense
@@ -134,7 +159,11 @@ FULL = dict(vocab=50304, d=1024, layers=24, heads=16, ffn=4096,
             train_vocab=32000, train_hidden=4096, train_ffn=11008,
             train_heads=32, train_kv_heads=32, train_layers=2,
             train_seq=2048, train_batch=16, train_steps=5,
-            train_plain_batch=2, train_timing_iters=10)
+            train_plain_batch=2, train_timing_iters=10,
+            # BERT-base pretraining (bench_extra.py:186-287, config #2)
+            bert_vocab=30522, bert_hidden=768, bert_layers=12,
+            bert_heads=12, bert_ffn=3072, bert_batch=32, bert_seq=128,
+            bert_steps=10, bert_plain_batch=2, bert_timing_iters=20)
 
 
 class SmokeFailure(RuntimeError):
@@ -1381,7 +1410,7 @@ def _train_counts():
     from paddle_tpu_torch.ops.hopper import fused_norm as fn
     return {"flash_attention_fwd": fa.launch_count("fwd"),
             "flash_attention_bwd": fa.launch_count("bwd"),
-            "fused_rms_norm": fn.launch_count(),
+            "fused_rms_norm": fn.launch_count("rms_norm"),
             "fused_adamw": fw.launch_count()}
 
 
@@ -1444,33 +1473,13 @@ def phase_train(torch, device, cfg, seed, tag, say):
                 "fused_rms_norm": 2 * L, "fused_adamw": 12}
         require(counts == {k: steps * n for k, n in want.items()},
                 f"launches {counts} are not {steps} x {want}")
-        from torch.profiler import ProfilerActivity, profile
-        t0 = time.perf_counter()
-        with profile(activities=[ProfilerActivity.CUDA]) as prof:
-            tr.train_step(ids)
-            torch.cuda.synchronize()
-        wall1 = (time.perf_counter() - t0) * 1e3
-        ev = [(getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0)), e.count,
-               e.key) for e in prof.key_averages()]
-        ev = [e for e in ev if e[0] > 0]
-        busy = sum(e[0] for e in ev) / 1e3
-        top = sorted(ev, reverse=True)[:8]
-        groups = {"flash attention": ("flash_",),
-                  "GEMMs (cuBLAS)": ("nvjet", "gemm", "xmma", "cutlass"),
-                  "RMSNorm kernel": ("rms_kernel",),
-                  "AdamW kernel": ("adamw_kernel",)}
-        split = {g: sum(t for t, _, k in ev if any(n in k for n in names))
-                 / 1e3 for g, names in groups.items()}
-        split["other (elementwise, CE, embedding)"] = busy - sum(
-            split.values())
-        say(f"{tag} profile of one training step: host wall {wall1:.1f} ms "
-            f"(profiled), device busy {busy:.1f} ms ({100 * busy / wall1:.1f}"
-            f"%), {sum(e[1] for e in ev)} kernel launches; by kind: "
-            + ", ".join(f"{g} {v:.1f} ms" for g, v in split.items())
-            + "; costliest: "
-            + "; ".join(f"{k[:60]} x{c} {t / 1e3:.2f} ms"
-                        for t, c, k in top))
+        _profile_step(torch, lambda: tr.train_step(ids), tag, say,
+                      "training step", {
+                          "flash attention": ("flash_",),
+                          "GEMMs (cuBLAS)": ("nvjet", "gemm", "xmma",
+                                             "cutlass"),
+                          "RMSNorm kernel": ("rms_kernel",),
+                          "AdamW kernel": ("adamw_kernel",)})
     del tr
     gc.collect()
     if device.type == "cuda":
@@ -1550,6 +1559,361 @@ def phase_train_paths(torch, device, cfg, seed, tag, say):
 def _cosine(torch, x, y):
     x, y = x.float().flatten(), y.float().flatten()
     return (x @ y) / max(float(x.norm() * y.norm()), 1e-30)
+
+
+# -- the BERT pretraining slice ---------------------------------------------
+
+def _bert_cfg(cfg, hidden_dropout=0.1, attn_dropout=0.1):
+    from paddle_tpu_torch.models import BertConfig
+    return BertConfig(
+        vocab_size=cfg["bert_vocab"], hidden_size=cfg["bert_hidden"],
+        num_hidden_layers=cfg["bert_layers"],
+        num_attention_heads=cfg["bert_heads"],
+        intermediate_size=cfg["bert_ffn"],
+        hidden_dropout_prob=hidden_dropout,
+        attention_probs_dropout_prob=attn_dropout)
+
+
+def _bert_batch(torch, device, cfg, batch, seed):
+    """bench_extra.py's feed (:216-226): ids and MLM labels uniform over
+    the vocabulary, 85% of the labels -100, NSP labels 0/1."""
+    rng = np.random.default_rng(seed)
+    T, V = cfg["bert_seq"], cfg["bert_vocab"]
+    ids = rng.integers(0, V, (batch, T), dtype=np.int64)
+    mlm = rng.integers(0, V, (batch, T), dtype=np.int64)
+    nsp = rng.integers(0, 2, (batch,), dtype=np.int64)
+    mlm[rng.random((batch, T)) > 0.15] = -100
+    return [torch.from_numpy(a).to(device) for a in (ids, mlm, nsp)]
+
+
+def _bf16_ulp_ok(torch, got, want):
+    """Every element of bf16 ``got`` within one bf16 ulp of ``want``: the
+    ulp of the element, or of 2**-6 x max|want| for smaller elements
+    (where LayerNorm's ``xc * rstd * w + b`` cancels, the float32
+    rounding of the terms, not the bf16 rounding, sets the error)."""
+    got, want = got.float(), want.float()
+    mag = want.abs().clamp_min(max(2.0 ** -6 * float(want.abs().max()),
+                                   2.0 ** -126))
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return bool(((got - want).abs() <= ulp).all())
+
+
+def phase_bert_kernels(torch, device, cfg, tag, say):
+    """Phase 15: the LayerNorm and dropout kernels against their plain
+    versions at the BERT path's shapes, in float32 and bf16, then timed
+    (profiler device sums) beside the bound, the plain version and one
+    PyTorch call. Returns {name: row}."""
+    from paddle_tpu_torch.ops.hopper import fused_norm as fn
+    F = torch.nn.functional
+    iters = cfg["bert_timing_iters"]
+    R = cfg["bert_batch"] * cfg["bert_seq"]
+    H, FF = cfg["bert_hidden"], cfg["bert_ffn"]
+    eps = 1e-12
+    gen = torch.Generator(device=device).manual_seed(31)
+    rows = {}
+
+    # -- LayerNorm (+ residual) ----------------------------------------
+    ln = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    ln_err = 0.0
+    for dt in (torch.float32, torch.bfloat16):
+        x, r = (torch.randn((R, H), generator=gen, device=device).to(dt)
+                for _ in range(2))
+        w = (1 + 0.1 * torch.randn(H, generator=gen, device=device)).to(dt)
+        b = (0.1 * torch.randn(H, generator=gen, device=device)).to(dt)
+        for res in (None, r):
+            y, z = fn._ln_fwd_call(x, res, w, b, eps)
+            ry, rz = fn.ln_fwd_reference(x, res, w, b, eps)
+            require(torch.equal(z, rz), "LayerNorm: z is not bitwise")
+            e = _rel_err(y, ry)
+            if dt == torch.float32:
+                require(e <= 1e-5, f"LayerNorm fp32 disagrees: {e}")
+                ln_err = max(ln_err, float((y - ry).abs().max()))
+            else:
+                require(_bf16_ulp_ok(torch, y, ry),
+                        f"LayerNorm bf16: not within one ulp ({e})")
+            say(f"{tag} fused_layer_norm [{R}, {H}] {str(dt)[6:]} "
+                f"{'+ residual' if res is not None else 'alone'}: "
+                f"{e:.3e} x max|ref| (fp32 tol 1e-5, bf16 one ulp; z "
+                f"bitwise)")
+        # the backward is plain PyTorch from the saved z
+        xs = [t.detach().float().requires_grad_(True) for t in (x, r, w, b)]
+        gy = torch.randn((R, H), generator=gen, device=device)
+        yk, _ = fn.fused_layer_norm_residual(*xs, eps)
+        got = torch.autograd.grad(yk, xs, gy)
+        _, rz = fn.ln_fwd_reference(*xs, eps)
+        want = fn._ln_core_bwd(eps, rz.detach(), xs[2].detach(), gy, None)
+        for a, c in zip(got, want):
+            e = _rel_err(a, c)
+            require(e <= 1e-5, f"LayerNorm backward disagrees: {e}")
+        if dt != torch.float32:
+            continue
+        # timing at the path's call: float32 with the residual
+        t_k = _time_ms(torch, lambda: fn._ln_fwd_call(x, r, w, b, eps),
+                       device, iters)
+        t_p = _time_ms(torch, lambda: fn.ln_fwd_reference(x, r, w, b, eps),
+                       device, iters)
+        t_l = _time_ms(torch, lambda: F.layer_norm(x + r, (H,), w, b, eps),
+                       device, iters)
+        ms, plain_ms, lib_ms = _device(t_k, t_p, t_l)
+        b_ms, b_by = _bound(4 * x.numel() * 4 + 2 * H * 4, 10 * x.numel())
+        say(f"{tag} fused_layer_norm + residual [{R}, {H}] fp32 per call "
+            f"(profiler device time; events {t_k[1]:.4f} ms): kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, add + F.layer_norm "
+            f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        # a layer's two calls, as the row of the kernels line
+        for key, val in (("ms", ms), ("plain_ms", plain_ms),
+                         ("library_ms", lib_ms), ("bound_ms", b_ms)):
+            ln[key] = 2 * val
+    rows["fused_layer_norm"] = dict(
+        name="fused_layer_norm", route="cuda",
+        source="paddle_tpu_torch/csrc/fused_norm.cu",
+        replaces="paddle_tpu/ops/pallas/fused_norm.py:201",
+        max_abs_err=ln_err, bound_by="bytes", **ln)
+    say(f"{tag} fused_layer_norm a layer's two calls: kernel "
+        f"{ln['ms']:.4f} ms, plain {ln['plain_ms']:.4f} ms, library "
+        f"{ln['library_ms']:.4f} ms, bound {ln['bound_ms']:.4f} ms")
+
+    # -- dropout ---------------------------------------------------------
+    p, seed = 0.1, 20240917
+    drop = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    div = torch.tensor(np.float32(1 - p), device=device)
+    for dt in (torch.float32, torch.bfloat16):
+        for width, per_layer in ((H, 2), (FF, 1)):
+            x = torch.randn((R, width), generator=gen, device=device).to(dt)
+            xg = x.clone().requires_grad_(True)
+            y = fn._dropout_via_vjp(xg, p, seed)
+            require(torch.equal(y, fn.dropout_reference(x, p, seed)),
+                    "dropout: kernel and plain version differ")
+            keep = fn.dropout_keep(x.numel(), seed, p, device).view(x.shape)
+            kept = float(keep.float().mean())
+            # 1e-3 at the path's shapes (>= 5 standard deviations of the
+            # share there); five standard deviations at a rehearsal's
+            tol = max(1e-3, 5 * (p * (1 - p) / x.numel()) ** 0.5)
+            require(abs(kept - (1 - p)) <= tol,
+                    f"dropout keeps {kept}, not {1 - p} +- {tol}")
+            gy = torch.randn(x.shape, generator=gen, device=device).to(dt)
+            gx, = torch.autograd.grad(y, (xg,), gy)
+            require(torch.equal(gx, ((gy.float() * keep.float()) / div)
+                                .to(dt)),
+                    "dropout backward is not gy * keep / (1 - p)")
+            say(f"{tag} fused_dropout [{R}, {width}] {str(dt)[6:]} p {p}: "
+                f"bitwise equal to the plain version, kept {kept:.6f}, "
+                f"backward gy * keep / (1 - p) bitwise")
+            if dt != torch.float32:
+                continue
+            t_k = _time_ms(torch, lambda: fn._fused_dropout(x, p, seed),
+                           device, iters)
+            t_p = _time_ms(torch, lambda: fn.dropout_reference(x, p, seed),
+                           device, iters)
+            t_l = _time_ms(torch, lambda: F.dropout(x, p, training=True),
+                           device, iters)
+            ms, plain_ms, lib_ms = _device(t_k, t_p, t_l)
+            b_ms, b_by = _bound(2 * x.numel() * 4, 0)
+            say(f"{tag} fused_dropout [{R}, {width}] fp32 per call "
+                f"(profiler device time; events {t_k[1]:.4f} ms): kernel "
+                f"{ms:.4f} ms, plain {plain_ms:.4f} ms, F.dropout "
+                f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+            for key, val in (("ms", ms), ("plain_ms", plain_ms),
+                             ("library_ms", lib_ms), ("bound_ms", b_ms)):
+                drop[key] += per_layer * val
+    rows["fused_dropout"] = dict(
+        name="fused_dropout", route="cuda",
+        source="paddle_tpu_torch/csrc/fused_norm.cu",
+        replaces="paddle_tpu/ops/pallas/fused_norm.py:304",
+        max_abs_err=0.0, bound_by="bytes", **drop)
+    say(f"{tag} fused_dropout a layer's three forward calls (2 x [{R}, "
+        f"{H}] + [{R}, {FF}]): kernel {drop['ms']:.4f} ms, plain "
+        f"{drop['plain_ms']:.4f} ms, library {drop['library_ms']:.4f} ms, "
+        f"bound {drop['bound_ms']:.4f} ms")
+    return rows
+
+
+def _bert_counts():
+    from paddle_tpu_torch.ops.hopper import fused_norm as fn
+    return {"fused_layer_norm": fn.launch_count("layer_norm"),
+            "fused_dropout": fn.launch_count("dropout")}
+
+
+def bert_flops_per_step(bc, batch, seq):
+    """6 x tokens x the parameters of every matrix product a token goes
+    through (12 layers' q, k, v, out, FFN, the MLM transform and the tied
+    decoder), plus the pooler and NSP head per sequence, plus attention's
+    two [T, T] products per head (forward 4 T^2 h per layer and
+    sequence, three times that with the backward). No recompute."""
+    h, f, V, L = (bc.hidden_size, bc.intermediate_size, bc.vocab_size,
+                  bc.num_hidden_layers)
+    per_token = L * (4 * h * h + 2 * h * f) + h * h + h * V
+    per_seq = h * h + 2 * h
+    return (6 * batch * seq * per_token + 6 * batch * per_seq
+            + 12 * batch * seq * seq * h * L)
+
+
+def phase_bert_train(torch, device, cfg, seed, tag, say):
+    """Phase 16: BERT-base pretraining (bench_extra.py's config #2:
+    batch 32 x 128, AdamW(1e-4), FLAGS_tpu_fused_encoder on, float32),
+    1 warm-up and ``bert_steps`` steps on one seeded batch. Returns the
+    kernels' launch counts over the measured steps."""
+    import paddle_tpu_torch
+    from paddle_tpu_torch.models import BertForPretraining
+    from paddle_tpu_torch.ops.hopper import fused_norm as fn
+    from paddle_tpu_torch.optimizer import AdamW
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    bc = _bert_cfg(cfg)
+    B, T, L = cfg["bert_batch"], cfg["bert_seq"], bc.num_hidden_layers
+    paddle_tpu_torch.set_flags({"FLAGS_tpu_fused_encoder": True})
+    try:
+        model = BertForPretraining(
+            bc, device=device, generator=torch.Generator().manual_seed(seed))
+        opt = AdamW(1e-4, parameters=model.parameters())
+        ids, mlm, nsp = _bert_batch(torch, device, cfg, B, seed + 4)
+
+        def step():
+            loss, _ = model(ids, masked_lm_labels=mlm,
+                            next_sentence_label=nsp)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return loss.detach()
+
+        losses = [float(step())]                       # warm-up
+        steps = cfg["bert_steps"]
+        _sync(torch, device)
+        fn.reset_launch_count()
+        t0 = time.perf_counter()
+        out = [step() for _ in range(steps)]
+        _sync(torch, device)
+        wall = time.perf_counter() - t0
+        counts = _bert_counts()
+        losses += [float(v) for v in out]
+        n_params = sum(p.numel() for p in model.parameters())
+        flops = bert_flops_per_step(bc, B, T)
+        s_step = wall / steps
+        peak = (torch.cuda.max_memory_allocated() / 2 ** 20
+                if device.type == "cuda" else float("nan"))
+        say(f"{tag} BERT-base pretraining, {n_params} params ({L} layers, "
+            f"hidden {bc.hidden_size}, vocab {bc.vocab_size}), batch {B} x "
+            f"seq {T}, fp32, AdamW(1e-4), fused encoder: loss "
+            f"{losses[0]:.4f} (warm-up) -> {losses[-1]:.4f} after {steps} "
+            f"steps; {s_step:.4f} s per step, {B / s_step:.1f} sequences/s,"
+            f" MFU {flops / s_step / FP32_FLOP_S:.4f} ({flops:.4e} FLOP a "
+            f"step over the {FP32_FLOP_S:.3g} fp32 non-tensor peak; a "
+            f"step's bound there {flops / FP32_FLOP_S:.4f} s), peak memory "
+            f"{peak:.1f} MiB; launches {counts}")
+        require(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+        require(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+        if device.type == "cuda":
+            want = {"fused_layer_norm": 2 * L,
+                    "fused_dropout": 2 * (1 + 3 * L)}
+            require(counts == {k: steps * n for k, n in want.items()},
+                    f"launches {counts} are not {steps} x {want}")
+            _profile_step(torch, step, tag, say, "BERT training step", {
+                "GEMMs (cuBLAS)": ("gemm", "nvjet", "xmma", "cutlass",
+                                   "sm90_"),
+                "LayerNorm kernel": ("ln_kernel",),
+                "dropout kernel": ("dropout_kernel",)})
+    finally:
+        paddle_tpu_torch.set_flags({"FLAGS_tpu_fused_encoder": False})
+    del model, opt
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return counts
+
+
+def _profile_step(torch, step, tag, say, what, groups):
+    """One profiled call of ``step``: host wall, device busy, time by
+    kernel group and the costliest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+    t0 = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    ev = [(getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0)), e.count, e.key)
+          for e in prof.key_averages()]
+    ev = [e for e in ev if e[0] > 0]
+    busy = sum(e[0] for e in ev) / 1e3
+    split = {g: sum(t for t, _, k in ev if any(n in k for n in names))
+             / 1e3 for g, names in groups.items()}
+    split["other (elementwise, CE, embedding, ...)"] = busy - sum(
+        split.values())
+    top = sorted(ev, reverse=True)[:8]
+    say(f"{tag} profile of one {what}: host wall {wall:.1f} ms "
+        f"(profiled), device busy {busy:.1f} ms ({100 * busy / wall:.1f}%),"
+        f" {sum(e[1] for e in ev)} kernel launches; by kind: "
+        + ", ".join(f"{g} {v:.1f} ms" for g, v in split.items())
+        + "; costliest: "
+        + "; ".join(f"{k[:60]} x{c} {t / 1e3:.2f} ms" for t, c, k in top))
+
+
+def phase_bert_paths(torch, device, cfg, seed, tag, say):
+    """Phase 17: the kernel path on the card against the plain path on
+    the CPU (the kernels' plain versions) at full width, batch
+    ``bert_plain_batch``: hidden dropout 0.1 (the hash mask is the same
+    on both devices), attention dropout 0 (its Bernoulli bits come from
+    each device's own generator), the same weights and seeds. Loss within
+    BOUND_BERT_LOSS relative; each gradient within BOUND_BERT_GRAD x
+    max|g| and cosine >= BOUND_BERT_COS."""
+    import paddle_tpu_torch
+    from paddle_tpu_torch.models import BertForPretraining
+    bc = _bert_cfg(cfg, hidden_dropout=0.1, attn_dropout=0.0)
+    B = cfg["bert_plain_batch"]
+    cpu = torch.device("cpu")
+    batch = _bert_batch(torch, cpu, cfg, B, seed + 5)
+    paddle_tpu_torch.set_flags({"FLAGS_tpu_fused_encoder": True})
+    try:
+        res = []
+        state = None
+        for dev in (device, cpu):
+            m = BertForPretraining(
+                bc, device=dev,
+                generator=torch.Generator().manual_seed(seed + 6))
+            if state is None:
+                state = {k: v.detach().cpu() for k, v in
+                         m.state_dict().items()}
+            else:
+                m.load_state_dict(state)
+            ids, mlm, nsp = (t.to(dev) for t in batch)
+            loss, _ = m(ids, masked_lm_labels=mlm, next_sentence_label=nsp)
+            loss.backward()
+            res.append((loss.item(), {n: p.grad.detach().cpu() for n, p in
+                                      m.named_parameters()
+                                      if p.grad is not None}))
+            del m
+    finally:
+        paddle_tpu_torch.set_flags({"FLAGS_tpu_fused_encoder": False})
+    (lk, gk), (lp, gp) = res
+    dl = abs(lk - lp) / abs(lp)
+    require(set(gk) == set(gp), "the two paths differ in which parameters "
+            "get gradients")
+    # the key projection's bias has an exact gradient of 0 (softmax is
+    # unchanged by a per-query shift of the scores): both sides hold
+    # rounding noise there, so no tensor's max|g| counts below 1e-3 x the
+    # model's largest, and noise tensors take no cosine
+    floor = 1e-3 * max(float(g.abs().max()) for g in gp.values())
+    worst, worst_cos, noise = 0.0, 1.0, []
+    for n in gp:
+        scale = float(gp[n].abs().max())
+        e = float((gk[n] - gp[n]).abs().max()) / max(scale, floor)
+        worst = max(worst, e)
+        if scale < floor:
+            noise.append(n)
+            continue
+        worst_cos = min(worst_cos, float(_cosine(torch, gk[n], gp[n])))
+    say(f"{tag} BERT-base kernel path (card) vs plain path (CPU), batch "
+        f"{B} x {cfg['bert_seq']}, hidden dropout 0.1: loss {lk:.7f} vs "
+        f"{lp:.7f} ({dl:.2e} relative, bound {BOUND_BERT_LOSS}); "
+        f"gradients worst {worst:.3e} x max|g| (bound {BOUND_BERT_GRAD}), "
+        f"worst cosine {worst_cos:.7f} (bound {BOUND_BERT_COS}; "
+        f"{len(noise)} noise-level tensors: {noise})")
+    require(dl <= BOUND_BERT_LOSS, f"losses differ by {dl}")
+    require(worst <= BOUND_BERT_GRAD and worst_cos >= BOUND_BERT_COS,
+            "the kernel path's gradients disagree with the plain path's")
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
 
 
 def run(device, cfg, seed=0, say=print, card=None):
@@ -1632,11 +1996,18 @@ def run(device, cfg, seed=0, say=print, card=None):
     for name, n in counts.items():
         rows[name]["launches"] = n
     phase_train_paths(torch, device, cfg, seed, tag, say)
+    # the BERT pretraining slice
+    rows.update(phase_bert_kernels(torch, device, cfg, tag, say))
+    for name, n in phase_bert_train(torch, device, cfg, seed, tag,
+                                    say).items():
+        rows[name]["launches"] = n
+    phase_bert_paths(torch, device, cfg, seed, tag, say)
     return [rows[k] for k in ("paged_attention_ragged",
                               "paged_attention_ragged_int8",
                               "decode_attention", "w8a16_matmul", "gmm",
                               "flash_attention_fwd", "flash_attention_bwd",
-                              "fused_rms_norm", "fused_adamw")]
+                              "fused_rms_norm", "fused_layer_norm",
+                              "fused_dropout", "fused_adamw")]
 
 
 def main(argv=None):

@@ -13,3 +13,7 @@ def gelu(x, approximate: bool = False):
 
 def relu(x):
     return torch.relu(x)
+
+
+def tanh(x):
+    return torch.tanh(x)

@@ -17,7 +17,10 @@ copy is by name and the int8 bytes are taken as they are, never
 re-quantized. ``llama_spmd_trainer`` builds the port's LlamaSpmdTrainer
 holding a JAX ``LlamaSpmdTrainer``'s parameter tree (and optionally its
 optimizer state), given as nested dicts of numpy arrays with the same
-keys. This module never imports JAX: the caller hands it numpy.
+keys. ``bert_for_pretraining`` builds the port's BertForPretraining
+from a JAX ``BertForPretraining.state_dict()`` as numpy (``bert.*``,
+``cls.*``, ``nsp.*``; the tied decoder reads the word embeddings). This
+module never imports JAX: the caller hands it numpy.
 """
 from __future__ import annotations
 
@@ -30,10 +33,11 @@ import torch
 from .incubate.nn import FusedMultiTransformer, FusedMultiTransformerInt8
 from .inference.moe_serving import MoeServingCore
 from .inference.speculative import TokenServingModel
+from .models.bert import BertConfig, BertForPretraining
 from .models.llama_spmd import LlamaSpmdTrainer, tree_get, tree_paths
 
-__all__ = ["fused_multi_transformer", "llama_spmd_trainer",
-           "moe_serving_core", "token_serving_model"]
+__all__ = ["bert_for_pretraining", "fused_multi_transformer",
+           "llama_spmd_trainer", "moe_serving_core", "token_serving_model"]
 
 
 def _layer_count(state, name: str) -> int:
@@ -158,3 +162,12 @@ def llama_spmd_trainer(params_np, config, *, opt_state_np=None, step=0,
                     tree_get(opt_state_np, path)[k], np.float32)))
     tr._stepno = int(step)
     return tr
+
+
+def bert_for_pretraining(state_np: Dict[str, np.ndarray], config: BertConfig,
+                         *, device=None, generator=None) -> BertForPretraining:
+    """A port BertForPretraining holding ``state_np`` (the JAX model's
+    ``state_dict()`` as ``{name: np.ndarray}``); ``generator`` draws its
+    dropout seeds."""
+    return _load(BertForPretraining(config, device=device,
+                                    generator=generator), state_np)

@@ -569,10 +569,10 @@ def test_rms_norm_kernel_matches_plain_version(rows, h, dtype):
     g = torch.Generator().manual_seed(rows + h)
     x, r, w = (torch.randn(shape, generator=g).to("cuda", dt)
                for shape in ((rows, h), (rows, h), (h,)))
-    before = tfn.launch_count()
+    before = tfn.launch_count("rms_norm")
     y1, _ = tfn._rms_fwd(x, None, w, 1e-5)
     y2, z2 = tfn._rms_fwd(x, r, w, 1e-5)
-    assert tfn.launch_count() == before + 2
+    assert tfn.launch_count("rms_norm") == before + 2
     ry1, _ = tfn.rms_fwd_reference(x, None, w, 1e-5)
     ry2, rz2 = tfn.rms_fwd_reference(x, r, w, 1e-5)
     assert torch.equal(z2, rz2)
@@ -580,6 +580,148 @@ def test_rms_norm_kernel_matches_plain_version(rows, h, dtype):
     tol = TOL if dt == torch.float32 else dict(atol=1e-2, rtol=1e-2)
     torch.testing.assert_close(y1.float(), ry1.float(), **tol)
     torch.testing.assert_close(y2.float(), ry2.float(), **tol)
+
+
+def _bf16_ulp(t):
+    """One bfloat16 ulp at each value of the float32 tensor ``t``, or of
+    2**-6 x max|t| for smaller values: where LayerNorm's
+    ``xc * rstd * w + b`` cancels, the float32 rounding of the terms, not
+    the bf16 rounding, sets the error."""
+    a = t.abs().clamp_min(max(2.0 ** -6 * float(t.abs().max()),
+                              2.0 ** -126))
+    return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rows,h", [(4096, 768), (37, 1000), (5, 3000),
+                                    (3, 30)])
+def test_layer_norm_kernel_matches_plain_version(rows, h, dtype):
+    """With and without the residual: BERT's rows, the vector path with
+    rows held in registers and rows wider than the register cache, and
+    the scalar path; then the backward through the kernel path."""
+    _need_cuda()
+    dt = getattr(torch, dtype)
+    g = torch.Generator().manual_seed(rows + h)
+    x, r, w, b = (torch.randn(shape, generator=g).to("cuda", dt)
+                  for shape in ((rows, h), (rows, h), (h,), (h,)))
+    before = tfn.launch_count("layer_norm")
+    y1, _ = tfn._ln_fwd_call(x, None, w, b, 1e-12)
+    y2, z2 = tfn._ln_fwd_call(x, r, w, b, 1e-12)
+    assert tfn.launch_count("layer_norm") == before + 2
+    ry1, _ = tfn.ln_fwd_reference(x, None, w, b, 1e-12)
+    ry2, rz2 = tfn.ln_fwd_reference(x, r, w, b, 1e-12)
+    assert torch.equal(z2, rz2)
+    for got, want in ((y1, ry1), (y2, ry2)):
+        got, want = got.float(), want.float()
+        if dt == torch.float32:
+            # rsqrtf and the sum order: 1e-5 of the largest output
+            assert float((got - want).abs().max()) <= 1e-5 * float(
+                want.abs().max())
+        else:
+            assert bool(((got - want).abs() <= _bf16_ulp(want)).all())
+    # the backward is plain PyTorch from the saved z: the kernel path's
+    # gradients equal _ln_core_bwd from the plain version's z
+    xs = [t.detach().requires_grad_(True) for t in (x, r, w, b)]
+    gy = torch.randn((rows, h), generator=g).to("cuda", dt)
+    y, _ = tfn.fused_layer_norm_residual(*xs, 1e-12)
+    got = torch.autograd.grad(y, xs, gy)
+    want = tfn._ln_core_bwd(1e-12, rz2, w, gy, None)
+    for a, c in zip(got, want):
+        torch.testing.assert_close(a.float(), c.float(), atol=1e-5,
+                                   rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape,offset", [((4096, 768), 0),
+                                          ((4096, 3072), 0),
+                                          ((1001, 3), 1)])
+def test_dropout_kernel_matches_plain_version(shape, offset, dtype):
+    """Bitwise: output and backward against the plain version (the same
+    hash, the same correctly rounded division); keep rate; offset 1
+    misaligns the buffers (the scalar path)."""
+    _need_cuda()
+    dt = getattr(torch, dtype)
+    n = shape[0] * shape[1]
+    g = torch.Generator().manual_seed(n)
+    x = torch.randn(n + offset, generator=g).to("cuda", dt)[offset:]
+    x = x.view(shape).requires_grad_(True)
+    before = tfn.launch_count("dropout")
+    y = tfn._dropout_via_vjp(x, 0.1, -123)
+    gy = torch.randn(shape, generator=g).to("cuda", dt)
+    gx, = torch.autograd.grad(y, (x,), gy)
+    assert tfn.launch_count("dropout") == before + 2
+    assert torch.equal(y, tfn.dropout_reference(x.detach(), 0.1, -123))
+    keep = tfn.dropout_keep(n, -123, 0.1, "cuda").view(shape)
+    want = ((gy.float() * keep.float())
+            / torch.tensor(np.float32(0.9), device="cuda")).to(dt)
+    assert torch.equal(gx, want)
+    if n > 10 ** 6:
+        assert abs(float(keep.float().mean()) - 0.9) < 1e-3
+    # the same mask as the CPU's plain version
+    assert torch.equal(keep.cpu(), tfn.dropout_keep(n, -123, 0.1, "cpu")
+                       .view(shape))
+
+
+def test_bert_card_matches_cpu():
+    """A tiny BERT with hidden dropout 0.1 (the hash mask is
+    device-independent) and attention dropout 0, fused encoder: the card
+    (the LayerNorm and dropout kernels) against the CPU (their plain
+    versions) from the same weights and seeds, with the launches of the
+    per-step formula; then two AdamW steps."""
+    _need_cuda()
+    import paddle_tpu_torch
+    from paddle_tpu_torch.models import BertConfig, BertForPretraining
+    from paddle_tpu_torch.optimizer import AdamW
+    cfg = BertConfig.tiny(vocab=1000, hidden=128, layers=2, heads=2,
+                          inter=256)
+    cfg.attention_probs_dropout_prob = 0.0
+    rng = np.random.RandomState(3)
+    ids = torch.from_numpy(rng.randint(0, 1000, (2, 32)))
+    mlm = torch.from_numpy(np.where(rng.rand(2, 32) < 0.15,
+                                    rng.randint(0, 1000, (2, 32)), -100))
+    nsp = torch.from_numpy(rng.randint(0, 2, (2,)))
+    paddle_tpu_torch.set_flags({"FLAGS_tpu_fused_encoder": True})
+    try:
+        models, losses = [], []
+        for dev in ("cuda", "cpu"):
+            m = BertForPretraining(cfg, device=dev,
+                                   generator=torch.Generator().manual_seed(1))
+            if models:
+                m.load_state_dict({k: v.cpu() for k, v in
+                                   models[0].state_dict().items()})
+            models.append(m)
+        tfn.reset_launch_count()
+        for m in models:
+            dev = next(m.parameters()).device
+            opt = AdamW(1e-4, parameters=m.parameters())
+            out = []
+            for _ in range(2):
+                loss, _ = m(ids.to(dev), masked_lm_labels=mlm.to(dev),
+                            next_sentence_label=nsp.to(dev))
+                loss.backward()
+                out.append(loss.detach().cpu())
+                if len(out) == 1:
+                    grads = {n: p.grad.detach().cpu()
+                             for n, p in m.named_parameters()
+                             if p.grad is not None}
+                opt.step()
+                opt.clear_grad()
+            losses.append((out, grads))
+        torch.cuda.synchronize()
+    finally:
+        paddle_tpu_torch.set_flags({"FLAGS_tpu_fused_encoder": False})
+    L = cfg.num_hidden_layers
+    # per step: dropout 1 + 3 per layer forward, the same backward;
+    # LayerNorm + residual 2 per layer
+    assert tfn.launch_count("dropout") == 2 * 2 * (1 + 3 * L)
+    assert tfn.launch_count("layer_norm") == 2 * 2 * L
+    (lc, gc), (lp, gp) = losses
+    for a, b in zip(lc, lp):
+        torch.testing.assert_close(a, b, atol=0, rtol=1e-5)
+    assert set(gc) == set(gp)
+    for n in gc:
+        scale = float(gp[n].abs().max())
+        assert float((gc[n] - gp[n]).abs().max()) <= 1e-3 * scale + 1e-6, n
 
 
 @pytest.mark.parametrize("pdtype", ["float32", "bfloat16"])
@@ -647,7 +789,7 @@ def test_trainer_kernel_path_matches_plain_path():
     L = 2
     assert (tfa.launch_count("fwd"), tfa.launch_count("bwd")) == (2 * L,
                                                                   2 * L)
-    assert tfn.launch_count() == 2 * 2 * L
+    assert tfn.launch_count("rms_norm") == 2 * 2 * L
     assert tfw.launch_count() == 2 * 12
     # AdamW divides by sqrt(v): where a gradient is ~0 the two paths'
     # rounding can move a parameter by up to ~lr per step
@@ -671,7 +813,7 @@ def test_trainer_bf16_remat_relaunches_forward_kernels():
     L = 2
     assert tfa.launch_count("fwd") == 3 * 2 * L
     assert tfa.launch_count("bwd") == 3 * L
-    assert tfn.launch_count() == 3 * 2 * 2 * L
+    assert tfn.launch_count("rms_norm") == 3 * 2 * 2 * L
     assert tfw.launch_count() == 3 * 12
 
 
