@@ -63,8 +63,10 @@ fails the run:
    card: flash attention forward and backward (bf16 causal [16, 2048,
    32, 128], each query row of out and dq and each key row of dk and dv
    within 3e-2 x that row's max|ref|, lse within 1e-4, the plain
-   backward two batch rows at a time; float32 tail, cross-length and
-   dropout cases within 1e-4),
+   backward two batch rows at a time; dq, dk, dv bitwise equal across
+   two calls; float32 tail, cross-length and dropout cases within 1e-4
+   and their bf16 twins per row within 3e-2; the wgmma kernels' ptxas
+   report: registers, and no spills),
    the fused RMSNorm at [32768, 4096] bf16 with and without the residual
    (one bf16 ulp; the residual stream bitwise), the fused AdamW over the
    12 leaves of the trainer (m, v, master within 1e-6 x max|ref|); each
@@ -1141,6 +1143,12 @@ def phase_train_kernels(torch, device, cfg, tag, say):
         "fp32 non-causal tail": (1, 130, 77, 3, 64, False, 0.0),
         "fp32 dropout": (2, 192, 192, 2, 128, True, 0.1),
         "bf16 dropout cross-length": (1, 96, 256, 4, 128, True, 0.1),
+        # the float32 cases' bf16 twins: the wgmma kernels' tails,
+        # bottom-right offset, sub-box key tail and dropout
+        "bf16 causal tail": (2, 200, 200, 4, 128, True, 0.0),
+        "bf16 cross-length": (2, 64, 320, 2, 64, True, 0.0),
+        "bf16 non-causal tail": (1, 130, 77, 3, 64, False, 0.0),
+        "bf16 dropout": (2, 192, 192, 2, 128, True, 0.1),
     }
     for name, (b, tq, tk, h, d, causal, rate) in small.items():
         dt = bf16 if name.startswith("bf16") else torch.float32
@@ -1171,6 +1179,14 @@ def phase_train_kernels(torch, device, cfg, tag, say):
                                dtype=bf16) for _ in range(4))
     o, lse = fa._fwd_blhd(q, k, v, True, scale, 0.0, None)
     dq, dk, dv = fa._bwd_blhd(q, k, v, o, lse, do, True, scale, 0.0, None)
+    # each gradient is written once, with no float atomics: the same bits
+    # run to run
+    again = fa._bwd_blhd(q, k, v, o, lse, do, True, scale, 0.0, None)
+    same = all(bool(torch.equal(x, y)) for x, y in zip((dq, dk, dv), again))
+    del again
+    say(f"{tag} flash attention backward at the slice's shape, run to run: "
+        f"dq, dk, dv bitwise {'equal' if same else 'DIFFERENT'}")
+    require(same, "flash backward is not bitwise repeatable")
     pb = min(B, cfg["train_plain_batch"])
     f_abs = f_row = lse_abs = b_abs = b_row = 0.0
     for b0 in range(0, B, pb):
@@ -1242,6 +1258,40 @@ def phase_train_kernels(torch, device, cfg, tag, say):
         f"(batch {pb}), sdpa backward {lib_b:.4f} ms, bound {bb_ms:.4f} ms "
         f"({bb_by}: 5 products; JAX's split design does 7, "
         f"{bb_ms * 7 / 5:.4f} ms)")
+    say(f"{tag} flash attention achieved: forward "
+        f"{4 * hd * pairs / ms_f / 1e9:.1f} TFLOP/s; backward "
+        f"{10 * hd * pairs / ms_b / 1e9:.1f} TFLOP/s over the 5 products, "
+        f"{14 * hd * pairs / ms_b / 1e9:.1f} over the 7 the split design "
+        f"runs (bf16 peak {BF16_FLOP_S / 1e12:.0f})")
+    if device.type == "cuda":
+        # the backward's three kernels apart (profiler device time)
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                fa._fwd_blhd(q, k, v, True, scale, 0.0, None)
+                fa._bwd_blhd(q, k, v, o, lse, do, True, scale, 0.0, None)
+            torch.cuda.synchronize()
+        split = []
+        for e in prof.key_averages():
+            us = getattr(e, "self_device_time_total",
+                         getattr(e, "self_cuda_time_total", 0))
+            for key in ("flash_fwd_wgmma", "flash_delta_kernel",
+                        "flash_dq_wgmma", "flash_dkv_wgmma"):
+                if key in e.key and us > 0:
+                    split.append(f"{key} {us / 1e3 / e.count:.4f} ms "
+                                 f"(x{e.count})")
+        say(f"{tag} flash attention kernels, profiler device time per "
+            f"launch: {', '.join(sorted(split))}")
+        from paddle_tpu_torch.ops.hopper import _build
+        report = _ptxas_report(_build.build_all()["flash_attention"].ptxas,
+                               "_wgmma")
+        for name, (regs, st, ld) in sorted(report.items()):
+            say(f"{tag} ptxas {name}: {regs} registers at entry (setmaxnreg "
+                f"gives the consumers more), spill stores {st} B, spill "
+                f"loads {ld} B")
+        require(len(report) == 12 and not any(
+            st or ld for _, st, ld in report.values()),
+            f"the wgmma flash kernels spill or are missing: {report}")
     common = dict(route="cuda", source="paddle_tpu_torch/csrc/"
                   "flash_attention.cu", plain_batch=pb)
     # max_abs_err: the bf16 slice shape's (out; the largest of dq, dk, dv)
@@ -1368,6 +1418,33 @@ def phase_train_kernels(torch, device, cfg, tag, say):
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=lib_ms)
     return rows
+
+
+def _ptxas_report(text, key):
+    """{kernel: (registers, spill store bytes, spill load bytes)} of the
+    entry functions whose mangled name holds ``key``, from an
+    ``-Xptxas -v`` report; the name shortened to ``<name><D,DROP>``."""
+    import re
+    out, cur = {}, None
+    for line in text.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            cur = m.group(1) if key in m.group(1) else None
+            continue
+        if cur is None:
+            continue
+        k = re.search(r"(flash_[a-z]+_wgmma)ILi(\d+)ELb(\d)", cur)
+        name = f"{k.group(1)}<{k.group(2)},{k.group(3)}>" if k else cur
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[name] = (out.get(name, (0,))[0], int(m.group(1)),
+                         int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            old = out.get(name, (0, 0, 0))
+            out[name] = (int(m.group(1)), old[1], old[2])
+    return out
 
 
 def _row_err(got, ref):

@@ -1,1 +1,2 @@
-"""Framework pieces of the port: random seeds (``random``)."""
+"""Framework pieces of the port: random seeds (``random``) and the
+reference parameters it accepts without implementing (``unported``)."""

@@ -31,6 +31,7 @@ import numpy as np
 import torch
 
 from ...device import resolve_device
+from ...framework.unported import require_defaults
 from ...nn import functional as F
 from ...nn.layer import LayerNorm, Linear
 from ...ops.hopper.decode_attention import decode_attention
@@ -59,9 +60,30 @@ class FusedMultiTransformer(torch.nn.Module):
     (paddle_tpu_torch/weights.py)."""
 
     def __init__(self, embed_dim, num_heads, dim_feedforward,
-                 activation="gelu", normalize_before=True, epsilon=1e-5,
-                 num_layers=1, *, device=None, dtype=torch.float32,
+                 dropout_rate=0.0, activation="gelu", normalize_before=True,
+                 ln_scale_attrs=None, ln_bias_attrs=None,
+                 qkv_weight_attrs=None, qkv_bias_attrs=None,
+                 linear_weight_attrs=None, linear_bias_attrs=None,
+                 ffn_ln_scale_attrs=None, ffn_ln_bias_attrs=None,
+                 ffn1_weight_attrs=None, ffn1_bias_attrs=None,
+                 ffn2_weight_attrs=None, ffn2_bias_attrs=None,
+                 epsilon=1e-5, num_layers=1, nranks=1, trans_qkvw=True,
+                 ring_id=-1, name=None, *, device=None, dtype=torch.float32,
                  generator: Optional[torch.Generator] = None):
+        # the reference's order; dropout, parameter attributes and tensor
+        # parallelism are not ported (``name`` is accepted and unused)
+        attrs = (ln_scale_attrs, ln_bias_attrs, qkv_weight_attrs,
+                 qkv_bias_attrs, linear_weight_attrs, linear_bias_attrs,
+                 ffn_ln_scale_attrs, ffn_ln_bias_attrs, ffn1_weight_attrs,
+                 ffn1_bias_attrs, ffn2_weight_attrs, ffn2_bias_attrs)
+        require_defaults(type(self).__name__,
+                         dropout_rate=(dropout_rate, 0.0),
+                         attrs=(None if all(x is None for x in attrs)
+                                else attrs, None),
+                         nranks=(nranks, 1), trans_qkvw=(trans_qkvw, True),
+                         ring_id=(ring_id, -1))
+        if num_layers == -1:          # the reference's "from the attrs"
+            num_layers = 1
         super().__init__()
         self.device = resolve_device(device)
         self.embed_dim = int(embed_dim)

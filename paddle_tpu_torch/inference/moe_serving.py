@@ -169,13 +169,13 @@ class MoeServingCore(FusedMultiTransformer):
 
     def __init__(self, embed_dim, num_heads, dim_feedforward,
                  num_experts=4, top_k=2, capacity_factor=1.25,
-                 activation="gelu", normalize_before=True, epsilon=1e-5,
-                 num_layers=1, use_kernel=None, block_m=8, *, device=None,
-                 dtype=torch.float32, generator=None):
+                 dropout_rate=0.0, activation="gelu", normalize_before=True,
+                 epsilon=1e-5, num_layers=1, use_kernel=None, block_m=8, *,
+                 device=None, dtype=torch.float32, generator=None):
         if num_experts < top_k:
             raise ValueError(f"num_experts={num_experts} < top_k={top_k}")
         super().__init__(embed_dim, num_heads, dim_feedforward,
-                         activation=activation,
+                         dropout_rate=dropout_rate, activation=activation,
                          normalize_before=normalize_before, epsilon=epsilon,
                          num_layers=num_layers, device=device, dtype=dtype,
                          generator=generator)

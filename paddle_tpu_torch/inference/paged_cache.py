@@ -56,6 +56,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
+from ..framework.unported import require_defaults
 from ..ops.hopper.paged_attention import RaggedPlan, paged_attention_ragged
 
 __all__ = ["BlockOOM", "BlockAllocator", "PagedKVCache",
@@ -447,7 +448,10 @@ class PagedKVCache:
                  block_size: int, num_blocks: int, max_seqs: int,
                  max_blocks_per_seq: Optional[int] = None,
                  dtype="float32", prefix_cache: bool = False,
-                 device=None):
+                 mp: int = 1, shard_devices=None, *, device=None):
+        # tensor-parallel pools (mp > 1) are not ported
+        require_defaults("PagedKVCache", mp=(mp, 1),
+                         shard_devices=(shard_devices, None))
         if isinstance(dtype, str):
             dtype = getattr(torch, dtype)
         self.device = resolve_device(device)

@@ -52,6 +52,7 @@ from typing import Deque, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..framework.unported import require_defaults
 from .paged_cache import BlockOOM, PagedKVCache, chain_block_hashes
 from .resilience import RequestOutcome
 from .serving import PrefillStats, PrefixCacheStats, ResilienceStats
@@ -189,7 +190,9 @@ class PagedServingEngine:
                  prefix_cache: bool = False,
                  chunk_tokens: Optional[int] = None,
                  prefill_token_budget: Optional[int] = None,
-                 max_preemptions: Optional[int] = None):
+                 injector=None, max_preemptions: Optional[int] = None):
+        # the reference's fault injector is not ported
+        require_defaults("PagedServingEngine", injector=(injector, None))
         self.model = model
         self._ragged_plan: Optional[List[dict]] = None
         self.max_batch = int(max_batch)

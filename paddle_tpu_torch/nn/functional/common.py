@@ -16,7 +16,7 @@ def linear(x, weight, bias=None):
 
 
 def dropout(x, p=0.5, axis=None, training=True, mode="upscale_in_train",
-            generator=None):
+            name=None, *, generator=None):
     """Paddle's dropout. With ``upscale_in_train``, ``axis=None``,
     ``0 < p < 1`` and ``FLAGS_tpu_fused_dropout`` on, the fused dropout
     kernel (its plain version for a CPU tensor) with a seed drawn from

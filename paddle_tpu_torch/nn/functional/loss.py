@@ -4,13 +4,22 @@ from __future__ import annotations
 
 import torch
 
+from ...framework.unported import require_defaults
 
-def cross_entropy(input, label, ignore_index=-100, reduction="mean",
-                  axis=-1):
+
+def cross_entropy(input, label, weight=None, ignore_index=-100,
+                  reduction="mean", soft_label=False, axis=-1,
+                  use_softmax=True, label_smoothing=0.0, name=None):
     """Softmax cross entropy of logits ``input`` against integer class
     ids ``label`` (its class axis squeezed when it has one). Entries whose
     label is ``ignore_index`` add 0; ``mean`` divides the sum by the
-    number of the other entries (at least 1), as the JAX package does."""
+    number of the other entries (at least 1), as the JAX package does.
+    Class weights, soft labels, inputs that are already probabilities and
+    label smoothing are not ported; ``name`` is accepted and unused."""
+    require_defaults("nn.functional.cross_entropy", weight=(weight, None),
+                     soft_label=(soft_label, False),
+                     use_softmax=(use_softmax, True),
+                     label_smoothing=(label_smoothing, 0.0))
     ax = axis % input.ndim
     logp = torch.log_softmax(input, dim=ax)
     hard = label

@@ -21,7 +21,8 @@ def layer_norm(x, normalized_shape, weight=None, bias=None, epsilon=1e-5):
 
 
 def fused_ln_residual_dropout(x, residual, weight, bias, epsilon=1e-5,
-                              dropout_p=0.0, training=True, generator=None):
+                              dropout_p=0.0, training=True, name=None, *,
+                              generator=None):
     """y = layernorm(dropout(x) + residual) * weight + bias through the
     fused kernels (``ops/hopper/fused_norm.py``): the dropout kernel,
     seeded from ``generator`` when it drops anything, then the LayerNorm

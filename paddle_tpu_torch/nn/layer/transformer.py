@@ -16,6 +16,7 @@ import copy
 import torch
 
 from ...flags import get_flag
+from ...framework.unported import require_defaults
 from .. import functional as F
 from .common import Dropout, Linear
 from .norm import LayerNorm
@@ -70,7 +71,12 @@ class TransformerEncoderLayer(torch.nn.Module):
 
     def __init__(self, d_model, nhead, dim_feedforward, dropout=0.1,
                  activation="relu", attn_dropout=None, act_dropout=None,
+                 normalize_before=False, weight_attr=None, bias_attr=None,
                  layer_norm_eps=1e-5, *, device=None, generator=None):
+        require_defaults("nn.TransformerEncoderLayer",
+                         normalize_before=(normalize_before, False),
+                         weight_attr=(weight_attr, None),
+                         bias_attr=(bias_attr, None))
         super().__init__()
         attn_dropout = dropout if attn_dropout is None else attn_dropout
         act_dropout = dropout if act_dropout is None else act_dropout

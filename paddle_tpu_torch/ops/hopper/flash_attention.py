@@ -21,8 +21,8 @@
   kernel, its own, for every case.
 
 Dispatch: CUDA tensors launch ``csrc/flash_attention.cu`` (head_dim 64
-or 128; bfloat16 on the tensor cores, float32 on SIMT kernels; anything
-else raises); CPU tensors take the
+or 128; bfloat16 on wgmma kernels fed by TMA, float32 on SIMT kernels;
+anything else raises); CPU tensors take the
 plain versions ``flash_fwd_reference`` / ``flash_bwd_reference``, which
 repeat the Pallas arithmetic: the forward's online softmax over key
 blocks of the Pallas block width, lse, and the rounding of p (forward),
@@ -197,10 +197,12 @@ def _mha_reference(q, k, v, causal, sm_scale, dropout_rate=0.0, seed=None):
 # -- the kernels -------------------------------------------------------
 def _loadable(t):
     """t itself when the kernel can read it (head_dim contiguous, the
-    other strides and the base 16-byte friendly), else a contiguous
-    copy."""
-    ok = t.stride(-1) == 1 and all(s % 8 == 0 for s in t.stride()[:-1]) \
-        and t.data_ptr() % 16 == 0
+    other strides and the base 16-byte friendly, no axis of extent > 1
+    broadcast with stride 0, which a TMA tensor map does not take), else
+    a contiguous copy."""
+    ok = t.stride(-1) == 1 and t.data_ptr() % 16 == 0 and all(
+        s % 8 == 0 and (s > 0 or n == 1)
+        for s, n in zip(t.stride()[:-1], t.shape[:-1]))
     return t if ok else t.contiguous()
 
 
@@ -227,6 +229,34 @@ def _check_kernel_inputs(*ts):
         if t.device != q.device or t.dtype != q.dtype:
             raise ValueError("q, k, v (and o, dO) must share device and "
                              "dtype")
+
+
+def _wgmma_probe(a, b, transpose_b):
+    """The bf16 kernels' building blocks alone on one warpgroup (TMA into
+    128-byte-swizzled tiles, wgmma descriptors, the accumulator and
+    register-operand layouts), for a card test against ``torch.matmul``:
+    ``a [64, 128] @ b.T`` for ``b [N, 128]`` (N 64 or 128; the score
+    products' K-major operands) when ``transpose_b``, else ``a [64, R] @ b``
+    for ``b [R, 128]`` (R 64 or 128; A from registers, b read MN-major as V
+    in P.V). Returns float32 [64, N]."""
+    a, b = a.contiguous(), b.contiguous()
+    if a.dtype != torch.bfloat16 or b.dtype != torch.bfloat16 \
+            or not a.is_cuda:
+        raise ValueError("the probe takes bfloat16 CUDA tensors")
+    mode, n, rows = (0, b.shape[0], 64) if transpose_b else \
+        (1, b.shape[1], b.shape[0])
+    c = torch.empty((64, n), dtype=torch.float32, device=a.device)
+    from ._build import check, load
+    fn = load("flash_attention").pt_flash_wgmma_probe
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    fn.restype = ci
+    fn.argtypes = [ci, ci, ci, vp, vp, vp, vp]
+    with torch.cuda.device(a.device):
+        stream = torch.cuda.current_stream(a.device).cuda_stream
+        err = fn(mode, n, rows, a.data_ptr(), b.data_ptr(), c.data_ptr(),
+                 stream)
+    check(err, "wgmma probe")
+    return c
 
 
 def _fwd_kernel(q, k, v, causal, scale, dropout_rate, seed):

@@ -8,6 +8,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..framework.unported import require_defaults
 from .optimizer import Optimizer
 
 
@@ -16,9 +17,13 @@ class Adam(Optimizer):
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-08, parameters=None, weight_decay=None,
-                 multi_precision=False):
-        super().__init__(learning_rate, parameters, weight_decay,
-                         multi_precision)
+                 grad_clip=None, lazy_mode=False, multi_precision=False,
+                 use_multi_tensor=False, name=None):
+        # lazy_mode (sparse gradients only) and use_multi_tensor (the port
+        # always updates through torch._foreach ops) change nothing here,
+        # as in the reference
+        super().__init__(learning_rate, parameters, weight_decay, grad_clip,
+                         multi_precision, name)
         self._beta1 = beta1
         self._beta2 = beta2
         self._epsilon = epsilon
@@ -48,9 +53,15 @@ class AdamW(Adam):
 
     def __init__(self, learning_rate=0.001, beta1=0.9, beta2=0.999,
                  epsilon=1e-08, parameters=None, weight_decay=0.01,
-                 multi_precision=False):
+                 lr_ratio=None, apply_decay_param_fun=None, grad_clip=None,
+                 lazy_mode=False, multi_precision=False, name=None):
+        # per-parameter learning-rate ratios and decay filters are not
+        # ported: decay applies to every parameter
+        require_defaults("AdamW", lr_ratio=(lr_ratio, None),
+                         apply_decay_param_fun=(apply_decay_param_fun, None))
         super().__init__(learning_rate, beta1, beta2, epsilon, parameters,
-                         weight_decay, multi_precision)
+                         weight_decay, grad_clip, lazy_mode, multi_precision,
+                         False, name)
 
     def _wd_mode(self):
         return "decoupled"

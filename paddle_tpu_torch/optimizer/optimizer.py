@@ -16,12 +16,17 @@ from typing import Dict, List
 import numpy as np
 import torch
 
+from ..framework.unported import require_defaults
+
 
 class Optimizer:
     _accum_names: List[str] = []
 
     def __init__(self, learning_rate=0.001, parameters=None,
-                 weight_decay=None, multi_precision=False):
+                 weight_decay=None, grad_clip=None, multi_precision=False,
+                 name=None):
+        # gradient clipping is not ported; ``name`` is accepted and unused
+        require_defaults(type(self).__name__, grad_clip=(grad_clip, None))
         self._lr = float(learning_rate)
         self._parameter_list = list(parameters) if parameters is not None \
             else []

@@ -461,6 +461,13 @@ FLASH = {
     "cross_length": (2, 64, 192, 2, 64, True, 0.0),
     "causal_tail_hd128": (1, 130, 130, 2, 128, True, 0.0),
     "dropout": (2, 130, 130, 2, 64, True, 0.2),
+    # edges of the bf16 kernels' 128-row tiles: one row past a tile, one
+    # short of two, a causal offset (77) that is no multiple of 128, and
+    # a key tail shorter than one 64-key box
+    "causal_t129": (1, 129, 129, 2, 128, True, 0.0),
+    "causal_t255": (2, 255, 255, 2, 64, True, 0.0),
+    "cross_length_offset_77": (1, 200, 277, 2, 128, True, 0.0),
+    "non_causal_hd64_tk77": (2, 130, 77, 3, 64, False, 0.0),
 }
 
 
@@ -520,23 +527,62 @@ def test_flash_kernels_match_plain_versions(name, dtype):
             _close_per_row(got, want, TOL_BF16_ROW)
 
 
-def test_flash_reads_strided_and_gqa_repeated_inputs():
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_reads_strided_and_gqa_repeated_inputs(dtype):
     """q/k/v as views of one packed [B, T, 3, H, D] projection (strided,
     no copy) and K/V repeated for GQA give the contiguous inputs' bits;
     the [BH, T, D] entry points agree with the [B, L, H, D] ones."""
     _need_cuda()
+    dt = getattr(torch, dtype)
     g = torch.Generator().manual_seed(3)
-    qkv = torch.randn((2, 128, 3, 4, 64), generator=g).cuda()
+    qkv = torch.randn((2, 128, 3, 4, 64), generator=g).to("cuda", dt)
     q, k, v = qkv.unbind(2)
     o1, l1 = tfa._fwd_kernel(q, k, v, True, 0.125, 0.0, None)
     o2, l2 = tfa._fwd_kernel(*(t.contiguous() for t in (q, k, v)), True,
                              0.125, 0.0, None)
     assert torch.equal(o1, o2) and torch.equal(l1, l2)
-    kv = torch.randn((2, 2, 128, 2, 64), generator=g).cuda()
+    kv = torch.randn((2, 2, 128, 2, 64), generator=g).to("cuda", dt)
     kr, vr = (t.repeat_interleave(2, dim=2) for t in kv.unbind(0))
     o3 = tfa._flash_fwd(_bhtd(q), _bhtd(kr), _bhtd(vr), True, 0.125)
     o4, _ = tfa._fwd_kernel(q, kr, vr, True, 0.125, 0.0, None)
     assert torch.equal(o3, _bhtd(o4))
+
+
+@pytest.mark.parametrize("name", ["causal_t255", "dropout",
+                                  "cross_length_offset_77"])
+def test_flash_backward_is_bitwise_repeatable(name):
+    """bf16: two backward calls on the same inputs give the same dq, dk
+    and dv bits (each output is written once, no float atomics)."""
+    _need_cuda()
+    (q, k, v, do), causal, rate = _flash_inputs(name, torch.bfloat16)
+    scale = 1.0 / np.sqrt(q.shape[-1])
+    o, lse = tfa._fwd_kernel(q, k, v, causal, scale, rate, 5)
+    first = tfa._bwd_kernel(q, k, v, o, lse, do, causal, scale, rate, 5)
+    again = tfa._bwd_kernel(q, k, v, o, lse, do, causal, scale, rate, 5)
+    for x, y in zip(first, again):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("n", [64, 128])
+def test_flash_wgmma_building_blocks_match_matmul(n):
+    """The bf16 kernels' TMA tiles, wgmma descriptors and fragment layouts
+    alone: a K-major score product (a @ b.T, b [n, 128]) and a register-A
+    product with an MN-major B (a [64, n] @ b [n, 128], as P.V) against
+    torch.matmul. The products of bf16 values are exact; the tensor cores
+    sum them in their own order and rounding (1e-3; a wrong layout is off
+    by O(1))."""
+    _need_cuda()
+    g = torch.Generator().manual_seed(n)
+    a, b = (torch.randn(shape, generator=g).to("cuda", torch.bfloat16)
+            for shape in ((64, 128), (n, 128)))
+    got = tfa._wgmma_probe(a, b, True)
+    torch.testing.assert_close(got, a.float() @ b.float().T, atol=1e-3,
+                               rtol=1e-3)
+    a, b = (torch.randn(shape, generator=g).to("cuda", torch.bfloat16)
+            for shape in ((64, n), (n, 128)))
+    got = tfa._wgmma_probe(a, b, False)
+    torch.testing.assert_close(got, a.float() @ b.float(), atol=1e-3,
+                               rtol=1e-3)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
