@@ -13,7 +13,9 @@ fails the run:
    shapes the serving path gives it (float32; attention within 1e-4 abs,
    w8a16 within 1e-4 x max|ref|), then time kernel, plain version and
    one PyTorch library call, beside the bytes/FLOP bound of the H100:
-   ragged paged attention over float32 and over int8 pages (a mixed
+   ragged paged attention over float32 pages (split-KV: bitwise equal
+   across two calls; timed warm and with L2 flushed between calls, the
+   flushed times in the kernels line) and over int8 pages (a mixed
    step), dense decode attention, and the w8a16 matmul at 1, 8 and 256
    rows for every projection of the model and its head;
 3. serve 12 greedy requests end to end through
@@ -41,9 +43,11 @@ fails the run:
 8. the grouped GEMM (gmm) against its plain version at the MoE slice's
    shapes — decode (8 experts x capacity 8 rows) and a 520-row mixed
    call (8 x 168 rows), for the expert ffn1 and ffn2 — within 1e-4 x
-   max|ref| and bitwise equal from run to run, then timed beside its
-   bound, the plain version and torch.bmm over the equal-capacity
-   layout;
+   max|ref| and bitwise equal from run to run, then timed warm and with
+   L2 flushed beside its bound (the 3xTF32 tensor-core floor, the
+   float32 SIMT figure beside it), the plain version and torch.bmm over
+   the equal-capacity layout; the kernels line holds a mixed call's
+   ffn1 + ffn2, L2 flushed;
 9. MoE serving: an 8-expert top-2 MoeServingCore at the same widths
    (expert FFN 4096, capacity factor 1.25, block_m 8) serves phase 3's
    12 prompts through SpeculativeEngine(k=0) with phase 3's pool and
@@ -53,8 +57,9 @@ fails the run:
 10. per layer, on the same rows (a decode batch with inactive zero rows
    and 512 rows), the gmm path and the per-expert fold route alike and
    agree within 1e-5 x max|out|; shard_experts(2) is bitwise equal to the
-   unsharded fold over one whole forward; a decode-sized call of each
-   model is profiled (host wall, device busy, costliest kernels);
+   unsharded fold over one whole forward; a decode-sized and a
+   mixed-sized call of each model are profiled (host wall, device busy,
+   costliest kernels);
 11. speculative decoding: the dense model with a 6-layer truncated draft
    at k=4 emits phase 4's greedy tokens up to the first near-tie; the
    MoE model with its 6-layer MoE draft at k=2 serves the same 4 prompts
@@ -65,8 +70,9 @@ fails the run:
    within 3e-2 x that row's max|ref|, lse within 1e-4, the plain
    backward two batch rows at a time; dq, dk, dv bitwise equal across
    two calls; float32 tail, cross-length and dropout cases within 1e-4
-   and their bf16 twins per row within 3e-2; the wgmma kernels' ptxas
-   report: registers, and no spills),
+   and their bf16 twins per row within 3e-2; the ptxas report of the
+   wgmma kernels, the gmm tile kernel and the split-KV ragged kernels:
+   registers, and no spills),
    the fused RMSNorm at [32768, 4096] bf16 with and without the residual
    (one bf16 ulp; the residual stream bitwise), the fused AdamW over the
    12 leaves of the trainer (m, v, master within 1e-6 x max|ref|); each
@@ -105,10 +111,17 @@ fails the run:
    within 1e-3 x max|g| with cosine >= 0.9999;
 18. print the kernels line, the card line and, last, the contract line.
 Every number printed carries the card's name and power limit.
+
+    python3 chip_smoke.py --kernels-only [--root DIR]
+
+runs phases 1, 2, 8 and phase 10's profiles alone, importing the package
+from DIR when given (an unpacked older commit: A/B timing of two commits
+in one call), and prints no kernels or contract line.
 """
 import argparse
 import gc
 import json
+import os
 import subprocess
 import sys
 import time
@@ -145,6 +158,8 @@ BOUND_BERT_GRAD = 1e-3
 BOUND_BERT_COS = 0.9999
 HBM_BYTES_S = 3.35e12      # H100 SXM HBM3
 FP32_FLOP_S = 67e12        # H100 SXM float32 outside the tensor cores
+TF32_FLOP_S = 494.7e12     # H100 SXM TF32 tensor cores, dense
+L2_FLUSH_BYTES = 128 << 20  # written between L2-flushed timed calls
 BF16_FLOP_S = 989e12       # H100 SXM bf16 tensor cores, dense
 
 FULL = dict(vocab=50304, d=1024, layers=24, heads=16, ffn=4096,
@@ -239,6 +254,38 @@ def _device(*timings):
     return tuple(t[0] for t in timings)
 
 
+def _flush_buffer(torch, device):
+    """A buffer of 2.56x the H100's 50 MB L2 (None off the card)."""
+    if device.type != "cuda":
+        return None
+    return torch.empty(L2_FLUSH_BYTES // 4, dtype=torch.float32,
+                       device=device)
+
+
+def _flushed_ms(torch, fn, device, iters, flush):
+    """ms per call with L2 flushed before each call: CUDA events around
+    each call alone; between calls, outside the events, a write of
+    ``flush`` (>= 2x the L2) and a device-side wait of ~0.5 ms that lets
+    the host enqueue the call before the card reaches it, so the events
+    time the device and not the host's launch. Off the card:
+    ``_event_ms``."""
+    if device.type != "cuda":
+        return _event_ms(torch, fn, device, iters)
+    fn()
+    pairs = []
+    for i in range(iters):
+        flush.fill_(float(i))
+        torch.cuda._sleep(1_000_000)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        pairs.append((a, b))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / iters
+
+
 def _bound(nbytes, flops, flop_s=FP32_FLOP_S):
     t_b, t_f = nbytes / HBM_BYTES_S, flops / flop_s
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
@@ -307,17 +354,33 @@ def phase_kernels(torch, device, cfg, tag, say):
              <= qpos[:, :, None])[:, None]
     kt, vt = kg.transpose(1, 2), vg.transpose(1, 2)
     iters = cfg["timing_iters"]
-    plan = pa.RaggedPlan(q_lens)
-    t_k = _time_ms(torch, lambda: pa.paged_attention_ragged(
-        q, pool, btd, q_lens, lensd, plan=plan), device, iters)
-    t_p = _time_ms(torch, lambda: pa.paged_attention_ragged_reference(
-        q, pool, btd, q_lens, lensd), device, iters)
-    t_l = _time_ms(torch, lambda: F.scaled_dot_product_attention(
-        qp, kt, vt, attn_mask=lmask), device, iters)
-    ms, plain_ms, lib_ms = _device(t_k, t_p, t_l)
-    # the Pallas module's default tile width, for comparison
+    try:   # the serving path's plan: split-KV items from the host lengths
+        plan = pa.RaggedPlan(q_lens, kv_lens)
+    except TypeError:   # a checkout from before split-KV (A/B runs)
+        plan = pa.RaggedPlan(q_lens)
+    again = pa.paged_attention_ragged(q, pool, btd, q_lens, lensd, plan=plan)
+    same = bool(torch.equal(again, got))
+    require(same, "ragged kernel: two launches differ")
+    del again
+    kernel = lambda: pa.paged_attention_ragged(  # noqa: E731
+        q, pool, btd, q_lens, lensd, plan=plan)
+    plain = lambda: pa.paged_attention_ragged_reference(  # noqa: E731
+        q, pool, btd, q_lens, lensd)
+    library = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qp, kt, vt, attn_mask=lmask)
+    t_k = _time_ms(torch, kernel, device, iters)
+    t_p = _time_ms(torch, plain, device, iters)
+    t_l = _time_ms(torch, library, device, iters)
+    warm = _device(t_k, t_p, t_l)
+    flush = _flush_buffer(torch, device)
+    ms, plain_ms, lib_ms = (_flushed_ms(torch, f, device, iters, flush)
+                            for f in (kernel, plain, library))
+    # the Pallas module's default tile width, and spans sized from the
+    # table width (device lengths only), for comparison
     t_64 = _time_ms(torch, lambda: pa.paged_attention_ragged(
         q, pool, btd, q_lens, lensd, tile_q=64), device, iters)
+    t_w = _time_ms(torch, lambda: pa.paged_attention_ragged(
+        q, pool, btd, q_lens, lensd), device, iters)
     # bound: q read + out written once, each row's visible K/V once per
     # sequence (positions < kv_len), tables and lengths
     live = [s for s, ql in enumerate(q_lens) if ql]
@@ -329,12 +392,17 @@ def phase_kernels(torch, device, cfg, tag, say):
         p0 = int(kv_lens[s]) - q_lens[s]
         flops += sum(p0 + i + 1 for i in range(q_lens[s])) * 4 * hd * H
     b_ms, b_by = _bound(nbytes, flops)
-    say(f"{tag} paged_attention_ragged device time: kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, sdpa over gathered pages {lib_ms:.4f} "
-        f"ms, bound {b_ms:.4f} ms ({b_by}; {nbytes} B, {flops} flop); "
-        f"wall per call: kernel {t_k[1]:.4f}, plain {t_p[1]:.4f}, sdpa "
-        f"{t_l[1]:.4f} ms; kernel at tile_q 64 (the Pallas default) "
-        f"{_device(t_64)[0]:.4f} ms vs {pa.DEFAULT_TILE_Q_CAP} (default)")
+    say(f"{tag} paged_attention_ragged (float32 pages) time per call, L2 "
+        f"flushed (CUDA events): kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+        f"ms, sdpa over gathered pages {lib_ms:.4f} ms; warm (profiler "
+        f"device time, back to back): kernel {warm[0]:.4f}, plain "
+        f"{warm[1]:.4f}, sdpa {warm[2]:.4f} ms; bound {b_ms:.4f} ms "
+        f"({b_by}; {nbytes} B, {flops} flop); warm wall per call: kernel "
+        f"{t_k[1]:.4f}, plain {t_p[1]:.4f}, sdpa {t_l[1]:.4f} ms; run to "
+        f"run bitwise {same}; warm kernel at tile_q 64 (the Pallas "
+        f"default) {_device(t_64)[0]:.4f} ms, spans from the table width "
+        f"{_device(t_w)[0]:.4f} ms")
+    del flush
     rows["paged_attention_ragged"] = dict(
         name="paged_attention_ragged", route="cuda",
         source="paddle_tpu_torch/csrc/paged_attention.cu",
@@ -813,13 +881,17 @@ def _moe_cap_pad(cfg, rows):
 def phase_gmm(torch, device, cfg, tag, say):
     """gmm against its plain version at the MoE serving shapes: a decode
     call (max_batch rows) and a mixed call (budget + max_batch rows),
-    each for ffn1 and ffn2; each timed beside its bound, the plain
-    version and torch.bmm over the equal-capacity layout [E, cap_pad,
-    K] x [E, K, N] (the same function for that layout). The kernels-line
-    row sums one layer's two decode calls."""
+    each for ffn1 and ffn2; each timed warm (profiler, back to back) and
+    with L2 flushed (CUDA events) beside its bound, the plain version and
+    torch.bmm over the equal-capacity layout [E, cap_pad, K] x [E, K, N]
+    (the same function for that layout). The bound: bytes against the
+    3xTF32 tensor-core floor (3 TF32 products per float32 product), the
+    float32 SIMT figure beside it. The kernels-line row sums one layer's
+    two mixed calls (the tensor-core kernel), L2 flushed."""
     from paddle_tpu_torch.ops.hopper import grouped_gemm as gg
     E, bm, d, ffn = cfg["experts"], cfg["block_m"], cfg["d"], cfg["ffn"]
     iters = cfg["timing_iters"]
+    flush = _flush_buffer(torch, device)
     layer = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
                  max_abs_err=0.0, by=set())
     for call, rows in (("decode", cfg["max_batch"]),
@@ -846,33 +918,41 @@ def phase_gmm(torch, device, cfg, tag, say):
             require(same, f"gmm {call} {name}: two launches differ")
             del again, ref
             l3, r3 = lhs.reshape(E, cap_pad, K), rhs
-            t_k = _time_ms(torch, lambda: gg.gmm(lhs, rhs, be, block_m=bm),
-                           device, iters)
-            t_p = _time_ms(torch, lambda: gg.gmm_reference(
-                lhs, rhs, be, block_m=bm), device, iters)
-            t_l = _time_ms(torch, lambda: torch.bmm(l3, r3), device, iters)
-            ms, plain_ms, lib_ms = _device(t_k, t_p, t_l)
+            fns = (lambda: gg.gmm(lhs, rhs, be, block_m=bm),
+                   lambda: gg.gmm_reference(lhs, rhs, be, block_m=bm),
+                   lambda: torch.bmm(l3, r3))
+            warm = _device(*(_time_ms(torch, f, device, iters)
+                             for f in fns))
+            ms, plain_ms, lib_ms = (_flushed_ms(torch, f, device, iters,
+                                                flush) for f in fns)
             # every expert owns rows, so each weight is read once
             nbytes = (M * K + E * K * N + M * N) * 4
-            b_ms, b_by = _bound(nbytes, 2 * M * K * N)
+            flops = 2 * M * K * N
+            b_ms, b_by = _bound(nbytes, 3 * flops, TF32_FLOP_S)
+            simt_ms = _bound(nbytes, flops)[0]
             say(f"{tag} gmm {call} {name} M {M} (E {E} x cap_pad "
                 f"{cap_pad}) K {K} N {N}: max_abs_err {err:.3e} (tol "
-                f"{TOL_GMM * scale:.3e}), run to run bitwise {same}; "
-                f"device time kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-                f"torch.bmm {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
-                f"{nbytes} B, {2 * M * K * N} flop); wall kernel "
-                f"{t_k[1]:.4f} ms")
-            if call == "decode":
+                f"{TOL_GMM * scale:.3e}), run to run bitwise {same}; L2 "
+                f"flushed (CUDA events): kernel {ms:.4f} ms, plain "
+                f"{plain_ms:.4f} ms, torch.bmm {lib_ms:.4f} ms; warm "
+                f"(profiler, back to back): kernel {warm[0]:.4f}, plain "
+                f"{warm[1]:.4f}, torch.bmm {warm[2]:.4f} ms; bound "
+                f"{b_ms:.4f} ms ({b_by}; 3xTF32 floor: {nbytes} B, "
+                f"3 x {flops} TF32 flop at {TF32_FLOP_S:.4g}/s; the float32 "
+                f"SIMT figure {simt_ms:.4f} ms)")
+            if call == "mixed":
                 for key, val in (("ms", ms), ("plain_ms", plain_ms),
                                  ("library_ms", lib_ms),
                                  ("bound_ms", b_ms)):
                     layer[key] += val
                 layer["max_abs_err"] = max(layer["max_abs_err"], err)
                 layer["by"].add(b_by)
-            del lhs, rhs, got, l3, r3
-    say(f"{tag} gmm one layer's ffn1 + ffn2 at decode: kernel "
-        f"{layer['ms']:.4f} ms, plain {layer['plain_ms']:.4f} ms, bmm "
-        f"{layer['library_ms']:.4f} ms, bound {layer['bound_ms']:.4f} ms")
+            del lhs, rhs, got, l3, r3, fns
+    del flush
+    say(f"{tag} gmm one layer's ffn1 + ffn2 at a mixed call, L2 flushed: "
+        f"kernel {layer['ms']:.4f} ms, plain {layer['plain_ms']:.4f} ms, "
+        f"bmm {layer['library_ms']:.4f} ms, bound {layer['bound_ms']:.4f} "
+        f"ms")
     return dict(
         name="gmm", route="cuda",
         source="paddle_tpu_torch/csrc/grouped_gemm.cu",
@@ -1051,43 +1131,48 @@ def phase_spec(torch, device, cfg, tsm, tsm_moe, prompts, toks, first_small,
 
 
 def phase_profile(torch, device, cfg, tsm, tsm_moe, tag, say):
-    """Where a decode-sized model call spends its time: one forward of
-    max_batch rows (causal, no cache) through the dense and the MoE
-    core, host wall per call against the device time torch.profiler
-    sums over its kernels, and the MoE call's costliest kernels."""
-    B, iters = cfg["max_batch"], cfg["timing_iters"]
-    x = torch.randn((1, B, cfg["d"]), generator=torch.Generator(
-        ).manual_seed(9)).to(device)
-    causal = torch.full((B, B), -1e30, device=device).triu(1)
-    for label, core in (("dense", tsm.core), ("MoE", tsm_moe.core)):
-        with torch.no_grad():
-            fn = lambda: core(x, attn_mask=causal)  # noqa: E731
-            for _ in range(3):
-                fn()
-            if device.type != "cuda":
-                continue
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for _ in range(iters):
-                fn()
-            torch.cuda.synchronize()
-            wall = (time.perf_counter() - t0) * 1e3 / iters
-            from torch.profiler import ProfilerActivity, profile
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
-                fn()
+    """Where a model call spends its time: one forward of max_batch rows
+    (decode-sized) and one of budget + max_batch rows (mixed-sized, the
+    MoE call's gmm at phase 8's mixed shapes), causal, no cache, through
+    the dense and the MoE core: host wall per call against the device
+    time torch.profiler sums over its kernels, and the costliest
+    kernels."""
+    iters = cfg["timing_iters"]
+    for size, B in (("decode-sized", cfg["max_batch"]),
+                    ("mixed-sized", cfg["budget"] + cfg["max_batch"])):
+        x = torch.randn((1, B, cfg["d"]), generator=torch.Generator(
+            ).manual_seed(9)).to(device)
+        causal = torch.full((B, B), -1e30, device=device).triu(1)
+        for label, core in (("dense", tsm.core), ("MoE", tsm_moe.core)):
+            with torch.no_grad():
+                fn = lambda: core(x, attn_mask=causal)  # noqa: E731
+                for _ in range(3):
+                    fn()
+                if device.type != "cuda":
+                    continue
                 torch.cuda.synchronize()
-        ev = [(getattr(e, "self_device_time_total",
-                       getattr(e, "self_cuda_time_total", 0)), e.count,
-               e.key) for e in prof.key_averages()]
-        ev = [e for e in ev if e[0] > 0]
-        dev = sum(e[0] for e in ev) / 1e3
-        top = sorted(ev, reverse=True)[:5]
-        say(f"{tag} profile, {label} decode-sized call ({B} rows, "
-            f"{cfg['layers']} layers): host wall {wall:.3f} ms per call, "
-            f"device busy {dev:.3f} ms ({100 * dev / wall:.1f}%), "
-            f"{sum(e[1] for e in ev)} kernel launches; costliest: "
-            + "; ".join(f"{k[:48]} x{c} {t / 1e3:.3f} ms"
-                        for t, c, k in top))
+                t0 = time.perf_counter()
+                for _ in range(iters):
+                    fn()
+                torch.cuda.synchronize()
+                wall = (time.perf_counter() - t0) * 1e3 / iters
+                from torch.profiler import ProfilerActivity, profile
+                with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    fn()
+                    torch.cuda.synchronize()
+            ev = [(getattr(e, "self_device_time_total",
+                           getattr(e, "self_cuda_time_total", 0)), e.count,
+                   e.key) for e in prof.key_averages()]
+            ev = [e for e in ev if e[0] > 0]
+            dev = sum(e[0] for e in ev) / 1e3
+            top = sorted(ev, reverse=True)[:5]
+            say(f"{tag} profile, {label} {size} call ({B} rows, "
+                f"{cfg['layers']} layers): host wall {wall:.3f} ms per "
+                f"call, device busy {dev:.3f} ms ({100 * dev / wall:.1f}%), "
+                f"{sum(e[1] for e in ev)} kernel launches; costliest: "
+                + "; ".join(f"{k[:48]} x{c} {t / 1e3:.3f} ms"
+                            for t, c, k in top))
+        del x, causal
 
 
 # -- the training slice (phases 12-14) ---------------------------------
@@ -1292,6 +1377,20 @@ def phase_train_kernels(torch, device, cfg, tag, say):
         require(len(report) == 12 and not any(
             st or ld for _, st, ld in report.values()),
             f"the wgmma flash kernels spill or are missing: {report}")
+        # the redesigned serving kernels: the 3xTF32 gmm tile kernel and
+        # the split-KV ragged kernel (float32 / bf16 x three head widths
+        # of the span kernel, x two of the combine kernel)
+        built = _build.build_all()
+        for src, key, n in (("grouped_gemm", "gmm_tile_kernel", 1),
+                            ("paged_attention", "span_kernel", 6),
+                            ("paged_attention", "combine_kernel", 4)):
+            report = _ptxas_report(built[src].ptxas, key)
+            for name, (regs, st, ld) in sorted(report.items()):
+                say(f"{tag} ptxas {name}: {regs} registers, spill stores "
+                    f"{st} B, spill loads {ld} B")
+            require(len(report) == n and not any(
+                st or ld for _, st, ld in report.values()),
+                f"{key} spills or is missing: {report}")
     common = dict(route="cuda", source="paddle_tpu_torch/csrc/"
                   "flash_attention.cu", plain_batch=pb)
     # max_abs_err: the bf16 slice shape's (out; the largest of dq, dk, dv)
@@ -1434,7 +1533,11 @@ def _ptxas_report(text, key):
         if cur is None:
             continue
         k = re.search(r"(flash_[a-z]+_wgmma)ILi(\d+)ELb(\d)", cur)
-        name = f"{k.group(1)}<{k.group(2)},{k.group(3)}>" if k else cur
+        t = re.search(r"(span_kernel|combine_kernel)I\w*?Li(\d+)E", cur)
+        name = (f"{k.group(1)}<{k.group(2)},{k.group(3)}>" if k else
+                f"{t.group(1)}<{'bf16' if 'bfloat16' in cur else 'f32'},"
+                f"{t.group(2)}>" if t else
+                "gmm_tile_kernel" if "gmm_tile_kernel" in cur else cur)
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
         if m:
@@ -2087,10 +2190,38 @@ def run(device, cfg, seed=0, say=print, card=None):
                               "fused_dropout", "fused_adamw")]
 
 
+def run_kernels(device, cfg, seed=0, say=print, card=None):
+    """Phases 1, 2, 8 and phase 10's profile alone: the serving kernels
+    timed and a decode- and a mixed-sized call of each model profiled
+    (``--kernels-only``; with ``--root`` over another checkout, for A/B
+    runs of two commits in one call)."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = card or card_line()
+    tag = f"[{card}]"
+    from paddle_tpu_torch.ops.hopper import _build
+    import paddle_tpu_torch
+    say(f"{tag} package: {paddle_tpu_torch.__file__}")
+    if device.type == "cuda":
+        _build.build_all()
+    phase_kernels(torch, device, cfg, tag, say)
+    phase_gmm(torch, device, cfg, tag, say)
+    tsm = build_model(torch, device, cfg, seed)
+    tsm_moe = build_moe_model(torch, device, cfg, seed, tsm._embed_np)
+    phase_profile(torch, device, cfg, tsm, tsm_moe, tag, say)
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--kernels-only", action="store_true",
+                    help="run phases 1, 2, 8 and phase 10's profile only, "
+                    "and print no kernels or contract line")
+    ap.add_argument("--root", help="import paddle_tpu_torch from this "
+                    "checkout (with --kernels-only: time another commit)")
     args = ap.parse_args(argv)
+    if args.root:
+        sys.path.insert(0, os.path.abspath(args.root))
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2104,6 +2235,15 @@ def main(argv=None):
     t0 = time.perf_counter()
     card = card_line()
     print(f"card: {card}")
+    if args.kernels_only:
+        try:
+            run_kernels(torch.device("cuda"), FULL, seed=args.seed,
+                        card=card)
+        except SmokeFailure as e:
+            print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+            return 1
+        print(f"[{card}] total {time.perf_counter() - t0:.1f} s")
+        return 0
     try:
         kernels = run(torch.device("cuda"), FULL, seed=args.seed,
                       card=card)

@@ -26,9 +26,25 @@
 //   staged in shared memory; the block's threads split K into
 //   interleaved slices summed in a fixed order at the end.
 // * mixed and prefill calls (168 rows per expert at 520 rows) are
-//   float32-arithmetic bound (11.3 GFLOP per ffn1 call). gmm_tile_kernel
-//   is a shared-memory tiled SIMT GEMM: 64 x 128 output tiles, 16-deep K
-//   slabs double-buffered through registers, 4 x 8 outputs a thread.
+//   arithmetic bound (11.3 GFLOP per ffn1 call; 0.168 ms at the 67
+//   TFLOP/s float32 SIMT peak). gmm_tile_kernel runs the products on the
+//   tensor cores in 3xTF32: each float32 operand splits into a TF32 big
+//   part and a TF32 remainder, and big·big + big·small + small·big
+//   accumulate in float32 (three mma.m16n8k8 per product, ~21 mantissa
+//   bits of each operand: float32 accuracy, where one TF32 pass keeps
+//   ~10). The tensor cores' float32 additions do not round to nearest,
+//   so each 32-deep slab is summed on them and the slab sums are added
+//   in float32 registers (on an H100, one tensor-core chain of 4096 / 8 x
+//   3 additions lost 1.6e-5 x max|ref| at K 4096; per-slab sums 2.9e-6).
+//   64 x 128 output tiles, 32-deep K slabs through a 4-stage ring of
+//   cp.async copies (16 bytes where the row strides allow it, 4 bytes
+//   otherwise, zero-filled past K, N and the tile's rows).
+//   Why mma.sync and not wgmma: wgmma reads TF32 operands from shared
+//   memory K-major only, and the weight [E, K, N] is N-contiguous (MN-
+//   major for B). mma.sync takes B fragments that each thread reads from
+//   an N-major shared tile, so the weight is used in place: no packed
+//   K-major copy of every expert (134 MB per ffn matrix and layer at
+//   GPT-medium widths) and no transpose pass.
 // The wrapper picks the kernel from the shapes alone (rows per expert:
 // M over min(E, M / block_m)), so no host sync reads block_expert.
 //
@@ -38,7 +54,7 @@
 // in split order. No float atomics anywhere: a result is the same from
 // run to run.
 //
-// Not yet done (later PRs): tensor cores (TF32 or bf16 wgmma), TMA
+// Not yet done (later PRs): wgmma over a K-major weight copy, TMA
 // staging, a persistent schedule.
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -57,12 +73,23 @@ constexpr int kRUnroll = 4;                          // weight loads in flight
 constexpr int kRKStep = kRKGroups * kRUnroll;        // K positions a round
 constexpr int kRKC = 256;                            // x positions staged
 
-// -- tile kernel: kTM x kTN output tiles, kBK-deep K slabs ---------------
+// -- tile kernel: kTM x kTN output tiles, kBK-deep K slabs in a ring ----
 constexpr int kTM = 64;
 constexpr int kTN = 128;
-constexpr int kBK = 16;
-constexpr int kTAs = kTM + 4;   // padded A row: fewer bank conflicts on the
-                                // transposed store, float4-aligned reads
+constexpr int kBK = 32;
+constexpr int kStages = 4;
+// padded shared rows: the 8 rows x 16 bytes of an A ldmatrix block start
+// at banks 4 r, B fragment reads (row tq, column gq) hit banks 8 tq + gq:
+// all 32 distinct, and every row stays 16-byte aligned for cp.async
+constexpr int kALd = kBK + 4;
+constexpr int kBLd = kTN + 8;
+constexpr int kWM = 1, kWN = 4;               // warps: rows x columns
+constexpr int kTThreads = 32 * kWM * kWN;
+constexpr int MT = kTM / kWM / 16;            // m16 fragments a warp
+constexpr int NT = kTN / kWN / 8;             // n8 fragments a warp
+constexpr int kAStage = kTM * kALd;
+constexpr int kBStage = kBK * kBLd;
+constexpr size_t kTileSmem = sizeof(float) * kStages * (kAStage + kBStage);
 
 enum Kind { kRows = 0, kTile = 1 };
 
@@ -191,116 +218,228 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Asynchronous global -> shared copies: `bytes` of the 16 (or 4) are
+// read, the rest of the destination is zero-filled (bytes 0 reads
+// nothing, so `src` need only be a valid address).
+__device__ __forceinline__ void cp_async16(uint32_t dst, const float* src,
+                                           int bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes));
+}
+__device__ __forceinline__ void cp_async4(uint32_t dst, const float* src,
+                                          int bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(bytes));
+}
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+// 3xTF32: x = big + small, both TF32. big is x with the 13 low mantissa
+// bits cleared (a bit mask: no conversion instruction, which costs more
+// than the mask); small = x - big is exact, and is cleared the same way,
+// so big·big + big·small + small·big carries ~21 bits of each operand's
+// mantissa (one TF32 pass keeps 10).
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = __float_as_uint(x) & 0xffffe000u;
+  small = __float_as_uint(x - __uint_as_float(big)) & 0xffffe000u;
+}
+
+// The A fragment of mma.m16n8k8 TF32 (a0..a3: rows g, g + 8 at k t, then
+// at k t + 4) in one shared-memory instruction: ldmatrix of four 8 x 8
+// b16 matrices hands thread i the 32-bit word (row i / 4, word i % 4) of
+// each 8-row x 16-byte block, which is that fragment's layout.
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const float* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  // not volatile: the products of different fragments may interleave
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// Tensor-core tile kernel: kTM x kTN output tiles of one expert, K in
+// kBK-deep slabs through a kStages ring of cp.async copies. kWM x kWN
+// warps (rows x columns), each a (kTM / kWM) x (kTN / kWN) sub-tile of
+// MT x NT mma.m16n8k8 fragments. avec / bvec: lhs rows / weight rows may
+// be read as 16-byte vectors (row stride and base 16-byte aligned);
+// otherwise 4-byte copies. Zeros past the tile's rows, k_hi and N.
+__global__ void __launch_bounds__(kTThreads, 2)
     gmm_tile_kernel(const float* __restrict__ x, int64_t x_sr,
                     const float* __restrict__ w, const int* __restrict__ be,
                     float* __restrict__ out, int M, int K, int N, int E,
-                    int block_m, int per, int vec) {
-  __shared__ __align__(16) float As[2][kBK][kTAs];
-  __shared__ __align__(16) float Bs[2][kBK][kTN];
+                    int block_m, int per, int avec, int bvec) {
+  extern __shared__ __align__(16) float smem[];
+  float* As = smem;                          // [kStages][kTM][kALd]
+  float* Bs = smem + kStages * kAStage;      // [kStages][kBK][kBLd]
   const int nmb = M / block_m;
   const int n0 = blockIdx.x * kTN;
   const int k_lo = blockIdx.z * per;
   const int k_hi = min(K, k_lo + per);
+  const int nslab = k_hi > k_lo ? (k_hi - k_lo + kBK - 1) / kBK : 0;
   out += (int64_t)blockIdx.z * M * N;
   const int tid = threadIdx.x;
-  const int tx = tid % 16;   // columns 4 tx .. 4 tx + 3 and 64 + the same
-  const int ty = tid / 16;   // rows 4 ty .. 4 ty + 3
+  const int lane = tid & 31, warp = tid >> 5;
+  const int wm = warp / kWN, wn = warp % kWN;
+  const int gq = lane >> 2, tq = lane & 3;   // mma group / thread in group
   Tile tile;
   for (int t = blockIdx.y;
        find_tile(be, M, nmb, block_m, kTM, E, t, tile); t += gridDim.y) {
+    const float* xe = x + (int64_t)tile.m0 * x_sr;
     const float* we = w + (int64_t)tile.e * K * N;
-    float acc[4][8];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
-    float a_reg[4];
-    float4 b_reg[2];
 
-    // global -> registers: the slab at K position k0 (zeros past the
-    // tile's rows, past k_hi and past N)
-    auto load = [&](int k0) {
+    // slab s (K positions k_lo + s kBK ...) into ring stage s % kStages
+    auto load = [&](int s) {
+      const int k0 = k_lo + s * kBK;
+      const uint32_t a_s = smem_addr(As + (s % kStages) * kAStage);
+      const uint32_t b_s = smem_addr(Bs + (s % kStages) * kBStage);
+      if (avec) {
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int idx = tid + i * kThreads;
-        const int r = idx / kBK, kk = idx % kBK;
-        a_reg[i] = (r < tile.rows && k0 + kk < k_hi)
-                       ? x[(int64_t)(tile.m0 + r) * x_sr + k0 + kk]
-                       : 0.f;
+        for (int i = 0; i < kTM * kBK / 4 / kTThreads; ++i) {
+          const int c = tid + i * kTThreads;
+          const int r = c / (kBK / 4), kk = 4 * (c % (kBK / 4));
+          const int n = r < tile.rows ? min(max(k_hi - k0 - kk, 0), 4) : 0;
+          cp_async16(a_s + 4 * (r * kALd + kk),
+                     n ? xe + (int64_t)r * x_sr + k0 + kk : x, 4 * n);
+        }
+      } else {
+#pragma unroll 4
+        for (int i = 0; i < kTM * kBK / kTThreads; ++i) {
+          const int c = tid + i * kTThreads;
+          const int r = c / kBK, kk = c % kBK;
+          const bool ok = r < tile.rows && k0 + kk < k_hi;
+          cp_async4(a_s + 4 * (r * kALd + kk),
+                    ok ? xe + (int64_t)r * x_sr + k0 + kk : x, ok ? 4 : 0);
+        }
       }
+      if (bvec) {
 #pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int idx = tid + i * kThreads;
-        const int kk = idx / (kTN / 4), c = n0 + 4 * (idx % (kTN / 4));
-        const bool ok = k0 + kk < k_hi && c < N;
-        const float* wp = we + (int64_t)(ok ? k0 + kk : 0) * N + c;
-        if (ok && vec) {
-          b_reg[i] = *reinterpret_cast<const float4*>(wp);
-        } else {
-          b_reg[i].x = ok ? wp[0] : 0.f;
-          b_reg[i].y = (ok && c + 1 < N) ? wp[1] : 0.f;
-          b_reg[i].z = (ok && c + 2 < N) ? wp[2] : 0.f;
-          b_reg[i].w = (ok && c + 3 < N) ? wp[3] : 0.f;
+        for (int i = 0; i < kBK * kTN / 4 / kTThreads; ++i) {
+          const int c = tid + i * kTThreads;
+          const int kk = c / (kTN / 4), cc = 4 * (c % (kTN / 4));
+          const int n =
+              k0 + kk < k_hi ? min(max(N - n0 - cc, 0), 4) : 0;
+          cp_async16(b_s + 4 * (kk * kBLd + cc),
+                     n ? we + (int64_t)(k0 + kk) * N + n0 + cc : w, 4 * n);
+        }
+      } else {
+#pragma unroll 4
+        for (int i = 0; i < kBK * kTN / kTThreads; ++i) {
+          const int c = tid + i * kTThreads;
+          const int kk = c / kTN, cc = c % kTN;
+          const bool ok = k0 + kk < k_hi && n0 + cc < N;
+          cp_async4(b_s + 4 * (kk * kBLd + cc),
+                    ok ? we + (int64_t)(k0 + kk) * N + n0 + cc : w,
+                    ok ? 4 : 0);
         }
       }
     };
-    auto store = [&](int buf) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int idx = tid + i * kThreads;
-        As[buf][idx % kBK][idx / kBK] = a_reg[i];
-      }
-#pragma unroll
-      for (int i = 0; i < 2; ++i) {
-        const int idx = tid + i * kThreads;
-        *reinterpret_cast<float4*>(
-            &Bs[buf][idx / (kTN / 4)][4 * (idx % (kTN / 4))]) = b_reg[i];
-      }
-    };
 
-    __syncthreads();  // the previous tile's slabs are consumed
-    int cur = 0;
-    if (k_lo < k_hi) {
-      load(k_lo);
-      store(0);
-    }
-    __syncthreads();
-    for (int k0 = k_lo; k0 < k_hi; k0 += kBK) {
-      const bool next = k0 + kBK < k_hi;
-      if (next) load(k0 + kBK);   // in flight while this slab is used
+    // acc: the tile's sums; part: one slab's. The tensor cores add in
+    // float32 without round-to-nearest, so a 1000s-long chain of their
+    // additions loses ~1e-5 relative; each slab's 12 products per
+    // fragment are summed there, and the slab sums added here in float32
+    // (round to nearest) keep the result at float32 accuracy.
+    float acc[MT][NT][4];
 #pragma unroll
-      for (int kk = 0; kk < kBK; ++kk) {
-        const float4 a = *reinterpret_cast<const float4*>(
-            &As[cur][kk][4 * ty]);
-        const float4 b0 = *reinterpret_cast<const float4*>(
-            &Bs[cur][kk][4 * tx]);
-        const float4 b1 = *reinterpret_cast<const float4*>(
-            &Bs[cur][kk][64 + 4 * tx]);
-        const float av[4] = {a.x, a.y, a.z, a.w};
-        const float bv[8] = {b0.x, b0.y, b0.z, b0.w,
-                             b1.x, b1.y, b1.z, b1.w};
+    for (int i = 0; i < MT; ++i)
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+      for (int j = 0; j < NT; ++j)
 #pragma unroll
-          for (int j = 0; j < 8; ++j) acc[i][j] += av[i] * bv[j];
-      }
-      if (next) store(cur ^ 1);
-      __syncthreads();
-      cur ^= 1;
-    }
+        for (int v = 0; v < 4; ++v) acc[i][j][v] = 0.f;
 
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int r = 4 * ty + i;
-      if (r >= tile.rows) continue;
-      float* o = out + (int64_t)(tile.m0 + r) * N;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        const int c = n0 + (j < 4 ? 4 * tx + j : 64 + 4 * tx + j - 4);
-        if (c < N) o[c] = acc[i][j];
-      }
+    for (int s = 0; s < kStages - 1; ++s) {
+      if (s < nslab) load(s);
+      cp_commit();
     }
+    for (int s = 0; s < nslab; ++s) {
+      cp_wait<kStages - 2>();   // slab s has landed (this thread's part)
+      __syncthreads();          // ... everyone's; slab s - 1 is consumed
+      if (s + kStages - 1 < nslab) load(s + kStages - 1);
+      cp_commit();
+      // ldmatrix rows: lanes 0-7, 8-15, 16-23, 24-31 address rows 0-7 /
+      // 8-15 at k 0-3, then at k 4-7, of a 16 x 8 fragment (its four
+      // 8 x 4 TF32 blocks are the four 8 x 8 b16 matrices)
+      const float* a = As + (s % kStages) * kAStage +
+                       (wm * MT * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * kALd +
+                       (lane >> 4) * 4;
+      const float* b = Bs + (s % kStages) * kBStage + wn * NT * 8 + gq;
+      float part[MT][NT][4];
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int v = 0; v < 4; ++v) part[i][j][v] = 0.f;
+#pragma unroll
+      for (int k8 = 0; k8 < kBK; k8 += 8) {
+        uint32_t bb[NT][2], bs[NT][2];
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const float* bp = b + (k8 + tq) * kBLd + j * 8;
+          split_tf32(bp[0], bb[j][0], bs[j][0]);
+          split_tf32(bp[4 * kBLd], bb[j][1], bs[j][1]);
+        }
+#pragma unroll
+        for (int i = 0; i < MT; ++i) {
+          uint32_t ab[4], as[4];
+          uint32_t r4[4];
+          ldmatrix_x4(r4, a + i * 16 * kALd + k8);
+#pragma unroll
+          for (int v = 0; v < 4; ++v)
+            split_tf32(__uint_as_float(r4[v]), ab[v], as[v]);
+          // the small cross terms first, the big product last; each
+          // pass covers the NT fragments of the row, so a fragment's
+          // three products are NT independent products apart
+#pragma unroll
+          for (int j = 0; j < NT; ++j) mma_tf32(part[i][j], as, bb[j]);
+#pragma unroll
+          for (int j = 0; j < NT; ++j) mma_tf32(part[i][j], ab, bs[j]);
+#pragma unroll
+          for (int j = 0; j < NT; ++j) mma_tf32(part[i][j], ab, bb[j]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j)
+#pragma unroll
+          for (int v = 0; v < 4; ++v) acc[i][j][v] += part[i][j][v];
+    }
+    cp_wait<0>();
+    __syncthreads();   // the ring is free for the next tile
+
+#pragma unroll
+    for (int i = 0; i < MT; ++i)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int r = wm * MT * 16 + i * 16 + gq + 8 * h;
+        if (r >= tile.rows) continue;
+        float* o = out + (int64_t)(tile.m0 + r) * N;
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const int c = n0 + wn * NT * 8 + j * 8 + 2 * tq;
+          if (c < N) o[c] = acc[i][j][2 * h];
+          if (c + 1 < N) o[c + 1] = acc[i][j][2 * h + 1];
+        }
+      }
   }
 }
 
@@ -365,8 +504,9 @@ extern "C" void pt_gmm_plan(int M, int K, int N, int E, int block_m,
 // x float32 [M, K] (row stride x_sr elements, K contiguous); w float32
 // [E, K, N] contiguous; be int32 [M / block_m] on the device; out float32
 // [M, N] contiguous; ws float32 [splits, M, N] when splits > 1 (else
-// unused). `vec`: N % 4 == 0 and w 16-byte aligned (float4 weight loads).
-// kind and splits as pt_gmm_plan gives them.
+// unused). `vec` bit 0: N % 4 == 0 and w 16-byte aligned (16-byte weight
+// loads); bit 1: x_sr % 4 == 0 and x 16-byte aligned (16-byte lhs
+// copies, tile kernel). kind and splits as pt_gmm_plan gives them.
 extern "C" int pt_gmm(const void* x, long long x_sr, const void* w,
                       const void* be, void* out, void* ws, int M, int K,
                       int N, int E, int block_m, int kind, int splits,
@@ -382,12 +522,22 @@ extern "C" int pt_gmm(const void* x, long long x_sr, const void* w,
   const float* xf = static_cast<const float*>(x);
   const float* wf = static_cast<const float*>(w);
   const int* bi = static_cast<const int*>(be);
-  if (kind == kTile)
-    gmm_tile_kernel<<<grid, kThreads, 0, s>>>(xf, x_sr, wf, bi, dst, M, K,
-                                             N, E, block_m, per, vec);
-  else
+  if (kind == kTile) {
+    static bool configured = false;   // above 48 KB must be opted into
+    if (!configured) {
+      cudaError_t e = cudaFuncSetAttribute(
+          gmm_tile_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+          (int)kTileSmem);
+      if (e != cudaSuccess) return (int)e;
+      configured = true;
+    }
+    gmm_tile_kernel<<<grid, kTThreads, kTileSmem, s>>>(
+        xf, x_sr, wf, bi, dst, M, K, N, E, block_m, per, (vec >> 1) & 1,
+        vec & 1);
+  } else {
     gmm_rows_kernel<<<grid, kThreads, 0, s>>>(xf, x_sr, wf, bi, dst, M, K,
-                                             N, E, block_m, per, vec);
+                                             N, E, block_m, per, vec & 1);
+  }
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess || splits == 1) return (int)e;
   const int64_t n = (int64_t)M * N;

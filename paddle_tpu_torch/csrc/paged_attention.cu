@@ -1,4 +1,4 @@
-// Ragged paged attention for Hopper (sm_90a).
+// Ragged paged attention over float32 / bf16 pages for Hopper (sm_90a).
 //
 // Replaces: paddle_tpu/ops/pallas/paged_attention.py
 //   paged_attention_ragged (pallas_call at :464, kernel
@@ -11,49 +11,68 @@
 // pool [num_blocks, 2, nkv, block_size, hd]. GQA: query head h reads kv
 // head h / (nh / nkv).
 //
-// What bounds it on the H100: at decode it is the K/V bytes read from
-// HBM (one query row per sequence does 4 * hd flops per 8 * hd bytes of
-// fp32 K/V, far below the card's ~20 flop/byte fp32 balance point); a
-// long prefill tile of 64 rows moves it towards the fp32 CUDA-core rate.
+// What bounds it on the H100: the K/V bytes read from HBM (one query row
+// does 4 hd flops per 8 hd bytes of fp32 K/V; a serving step's mixed
+// batch is ~0.17 GFLOP for ~38 MB). What held the first design back was
+// not the bytes but the critical path: one block per (query tile, kv
+// head) walked all of its sequence's keys serially, so a ~1000-key
+// decode row was one block that streamed 16 chunks alone.
 //
-// What the design does about it: one block per (query tile, kv head)
-// loads each visited K/V page ONCE into shared memory and scores every
-// query row of the tile (all g query heads of the kv head, all tile
-// rows) against it, so a page crosses HBM once per tile instead of once
-// per row; pages past the tile's causal frontier (its last REAL query
-// position) are never read. The next 64 positions' K/V are loaded into
-// registers while the current ones are scored (attention_common.cuh), so
-// HBM latency overlaps the arithmetic. There is no scalar prefetch on
-// Hopper: the
-// block reads its own tile descriptor and block-table row from device
-// memory. The descriptors are built on the host once per step and shared
-// by every layer (ops/hopper/paged_attention.py RaggedPlan).
+// What the design does about it (ragged_split.cuh):
+// * split-KV: each (tile, kv head) splits its visible keys into spans of
+//   128 absolute positions, one block each; combine_kernel merges a row's
+//   partial (m, l, acc) in span order. No atomics: the bits repeat, and a
+//   row's bits do not depend on the rest of the step.
+// * asynchronous page staging: a span streams through a 3-stage ring of
+//   32-position K/V chunks copied by cp.async (16-byte copies of each
+//   position's page row), 2 chunks (32 KB at hd 64) in flight a block,
+//   3 blocks an SM.
+// * arithmetic: a warp scores up to 4 of its rows against each staged
+//   chunk (lane j holds key j), with no per-row branch in the products,
+//   split dot products and accumulators for more independent work.
+// * balance: the host plan (RaggedPlan.split_tables) lists the items
+//   heaviest first (rows x keys), so long prefill tiles and long decode
+//   rows start together.
+// There is no scalar prefetch on Hopper: each block reads its item, tile
+// descriptor and block-table row from device memory. The plan is built
+// on the host once per step (from the host kv_lens where the caller has
+// them, else from the table width, whose surplus spans exit at once) and
+// shared by every layer.
 //
-// The kernel template lives in paged_attention.cuh; this source builds
-// it over float32 and bf16 pools, paged_attention_int8.cu over int8 pools.
+// paged_attention_int8.cu (int8 pools) keeps the first design
+// (paged_attention.cuh).
 //
-// Not yet done (later PRs): tensor cores (wgmma) and TMA staging,
-// split-KV across blocks for long decode contexts.
-#include "paged_attention.cuh"
+// Not yet done (later PRs): tensor cores for long prefill tiles, the
+// int8 pool on this body.
+#include "ragged_split.cuh"
 
-extern "C" int pt_paged_attention_ragged(
+// tables, ws: see pt::split::launch. dtype: pt::kF32 or pt::kBF16 (q,
+// pool and out alike).
+extern "C" int pt_paged_attention_split(
     int dtype, const void* q, long long q_sr, long long q_sh,
     const void* pool, const int* bt, int mb, const int* q_lens,
-    const int* kv_lens, const int* tiles, int n_tiles, void* out, int nh,
-    int nkv, int hd, int bs, int max_rows, float scale, int vec,
-    void* stream) {
+    const int* kv_lens, const int* tables, int n_tiles, int n_items,
+    void* ws, void* out, int R, int nh, int nkv, int hd, int bs,
+    int max_rows, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (hd < 1 || hd > pt::kMaxHd || nkv < 1 || nh % nkv || max_rows < 1 ||
+      max_rows > pt::split::max_rows(hd))
+    return (int)cudaErrorInvalidValue;
   if (dtype == pt::kF32)
-    return pt::launch_ragged_hd<float, float>(
-        q, q_sr, q_sh, pool, nullptr, bt, mb, q_lens, kv_lens, tiles,
-        n_tiles, out, nh, nkv, hd, bs, max_rows, scale, vec, s);
+    return pt::split::launch_hd<float, float>(
+        q, q_sr, q_sh, pool, bt, mb, q_lens, kv_lens, tables, n_tiles,
+        n_items, ws, out, R, nh, nkv, hd, bs, max_rows, scale, s);
   if (dtype == pt::kBF16)
-    return pt::launch_ragged_hd<__nv_bfloat16, __nv_bfloat16>(
-        q, q_sr, q_sh, pool, nullptr, bt, mb, q_lens, kv_lens, tiles,
-        n_tiles, out, nh, nkv, hd, bs, max_rows, scale, vec, s);
+    return pt::split::launch_hd<__nv_bfloat16, __nv_bfloat16>(
+        q, q_sr, q_sh, pool, bt, mb, q_lens, kv_lens, tables, n_tiles,
+        n_items, ws, out, R, nh, nkv, hd, bs, max_rows, scale, s);
   return (int)cudaErrorInvalidValue;
 }
 
+// The most query rows (tile rows x g) one block holds at head width hd.
 extern "C" int pt_paged_attention_max_rows(int hd) {
-  return pt::max_block_rows(hd);
+  return pt::split::max_rows(hd);
 }
+
+// Key positions per span (the host plan cuts its items by it).
+extern "C" int pt_paged_attention_span() { return pt::split::kSpan; }

@@ -230,7 +230,8 @@ class _Route:
         self.kv_lens = torch.from_numpy(
             np.asarray(kv_lens, np.int32)).to(device)
         self.bt = bt
-        self.plan = RaggedPlan(q_lens)
+        # the host lengths size the split-KV work items (no device read)
+        self.plan = RaggedPlan(q_lens, kv_lens)
 
 
 def _append(cache: "PagedKVCache", layer: int, route: _Route, k, v) -> None:

@@ -79,7 +79,9 @@ def _launch(lhs, rhs, be, block_m):
     fn.restype = ci
     fn.argtypes = [vp, ll, vp, vp, vp, vp, ci, ci, ci, ci, ci, ci, ci, ci,
                    vp]
-    vec = int(N % 4 == 0 and rhs.data_ptr() % 16 == 0)
+    # 16-byte copies: bit 0 the weight rows, bit 1 the lhs rows
+    vec = int(N % 4 == 0 and rhs.data_ptr() % 16 == 0) | \
+        int(lhs.stride(0) % 4 == 0 and lhs.data_ptr() % 16 == 0) << 1
     with torch.cuda.device(lhs.device):
         stream = torch.cuda.current_stream(lhs.device).cuda_stream
         err = fn(lhs.data_ptr(), lhs.stride(0), rhs.data_ptr(),

@@ -19,11 +19,14 @@ back.
 
 Host descriptors: each sequence's rows are cut into tiles of ``tile_q``
 rows; a ``RaggedPlan`` holds, per tile, (sequence, query offset, real
-rows, first packed row) as one int32 device table. The positions follow
-on the device from ``kv_lens``, so a serving step builds one plan and
-every layer's launch reuses it (``PagedRaggedView`` in
-inference/paged_cache.py). The kernel writes straight into the packed
-output — the Pallas path's pad/unpad gathers do not exist here.
+rows, first packed row). For float pools it also cuts each tile's
+visible keys into split-KV work items of ``SPAN`` absolute key
+positions, heaviest first; the kernel merges a row's items in span
+order. The positions follow on the device from ``kv_lens``, so a
+serving step builds one plan and every layer's launch reuses it
+(``PagedRaggedView`` in inference/paged_cache.py). The kernel writes
+straight into the packed output — the Pallas path's pad/unpad gathers
+do not exist here.
 
 Int8 pools (``kv_scales=``, the JAX module's quantized path): the pool
 holds int8 payload and ``kv_scales`` ``[num_blocks, 2, nkv, block_size]``
@@ -47,6 +50,9 @@ NEG_INF = -1e30
 # the H100 a prefill tile is bound by CUDA-core arithmetic, and narrower
 # tiles put more blocks on the 132 SMs (chip_smoke.py times both)
 DEFAULT_TILE_Q_CAP = 16
+# key positions per split-KV work item of the float-pool kernel (kSpan of
+# csrc/ragged_split.cuh): spans start at absolute multiples of it
+SPAN = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # launch count of the CUDA kernel (CPU calls run the plain version and
@@ -63,14 +69,26 @@ def reset_launch_count() -> None:
 
 
 class RaggedPlan:
-    """Host-built tile descriptors of one packed batch (a function of the
-    static ``q_lens`` and the tile width only), uploaded once per device
-    and tile width and shared by every launch over the same batch."""
+    """Host-built descriptors of one packed batch, uploaded once per
+    device and shared by every launch over the same batch.
 
-    def __init__(self, q_lens):
+    ``tiles_host`` cuts each sequence's rows into query tiles (a function
+    of the static ``q_lens`` and the tile width only). ``split_host`` cuts
+    each tile's visible keys into work items of ``SPAN`` absolute key
+    positions for the split-KV kernel of float pools; it sizes them from
+    the host ``kv_lens`` when the plan was built with them (the serving
+    path has them before it copies them to the card), else from the table
+    width, whose surplus items exit at once on the card. A plan built with
+    ``kv_lens`` serves launches over those lengths only."""
+
+    def __init__(self, q_lens, kv_lens=None):
         self.q_lens = tuple(int(x) for x in q_lens)
-        self._dev: Dict[Tuple[int, str], Tuple[torch.Tensor,
-                                               torch.Tensor]] = {}
+        self.kv_lens = None if kv_lens is None else \
+            np.asarray(kv_lens, np.int64).reshape(-1)
+        if self.kv_lens is not None and \
+                self.kv_lens.shape[0] != len(self.q_lens):
+            raise ValueError("kv_lens needs one entry per sequence")
+        self._dev: Dict[tuple, tuple] = {}
 
     def tiles_host(self, tile_q: int) -> np.ndarray:
         """[T, 4] int32: (sequence, query offset, real rows, first row)."""
@@ -82,8 +100,47 @@ class RaggedPlan:
             r0 += ql
         return np.asarray(out, np.int32).reshape(-1, 4)
 
+    def split_host(self, tile_q: int, width: int,
+                   span: Optional[int] = None) -> Dict[str, np.ndarray]:
+        """The split-KV work list for tables ``width`` (= MB x block_size)
+        positions wide, int32:
+
+        - ``tiles`` [T, 4] as ``tiles_host``;
+        - ``frontier`` [T]: keys [0, frontier) the tile sees (its last
+          row's position + 1, within the table), the table width where
+          the lengths are not on the host;
+        - ``tspan`` [T, 2]: (first item, items) of each tile, items of a
+          tile consecutive, span s covering [s span, (s + 1) span);
+        - ``items`` [I, 2]: (tile, span);
+        - ``order`` [I]: the launch order, heaviest (rows x keys) first;
+        - ``row_tile`` [R]: the tile of each packed row."""
+        span = SPAN if span is None else span
+        tiles = self.tiles_host(tile_q)
+        T = tiles.shape[0]
+        if self.kv_lens is None:
+            frontier = np.full(T, width, np.int64)
+        else:
+            ql = np.asarray(self.q_lens, np.int64)
+            seq = tiles[:, 0]
+            frontier = np.clip(self.kv_lens[seq] - ql[seq] + tiles[:, 1]
+                               + tiles[:, 2], 0, width)
+        nsp = -(-frontier // span)
+        first = np.concatenate([[0], np.cumsum(nsp)[:-1]]).astype(np.int64)
+        tile_of = np.repeat(np.arange(T), nsp)
+        sp = np.arange(tile_of.shape[0]) - first[tile_of]
+        keys = np.minimum(span, frontier[tile_of] - sp * span)
+        order = np.argsort(-(tiles[tile_of, 2].astype(np.int64) * keys),
+                           kind="stable")
+        row_tile = np.repeat(np.arange(T), tiles[:, 2])
+        i32 = lambda a: np.ascontiguousarray(a, np.int32)  # noqa: E731
+        return dict(tiles=tiles, frontier=i32(frontier),
+                    tspan=i32(np.stack([first, nsp], 1).reshape(-1, 2)),
+                    items=i32(np.stack([tile_of, sp], 1).reshape(-1, 2)),
+                    order=i32(order), row_tile=i32(row_tile))
+
     def device_tables(self, tile_q: int, device) -> Tuple[torch.Tensor,
                                                           torch.Tensor]:
+        """(tiles [T, 4], q_lens) on ``device`` (the int8 pool kernel)."""
         key = (int(tile_q), str(device))
         got = self._dev.get(key)
         if got is None:
@@ -91,6 +148,30 @@ class RaggedPlan:
             qlens = torch.tensor(self.q_lens, dtype=torch.int32,
                                  device=device)
             got = self._dev[key] = (tiles, qlens)
+        return got
+
+    def split_tables(self, tile_q: int, width: int, device):
+        """(packed tables, tiles, items, q_lens) on ``device``, one int32
+        tensor (one copy to the card a batch): each launched block's item
+        in launch order, (slot, sequence, query offset, rows, first packed
+        row, span, 0, 0); then tiles, tspan and row_tile of
+        ``split_host``."""
+        key = (int(tile_q), str(device), int(width))
+        got = self._dev.get(key)
+        if got is None:
+            h = self.split_host(tile_q, width)
+            item = h["order"]
+            tile, span = h["items"][item, 0], h["items"][item, 1]
+            tl = h["tiles"][tile]
+            zero = np.zeros_like(item)
+            launch = np.stack([item, tl[:, 0], tl[:, 1], tl[:, 2], tl[:, 3],
+                               span, zero, zero], 1).astype(np.int32)
+            packed = np.concatenate([launch.reshape(-1)] + [
+                h[k].reshape(-1) for k in ("tiles", "tspan", "row_tile")])
+            got = self._dev[key] = (
+                torch.from_numpy(packed).to(device), h["tiles"].shape[0],
+                h["items"].shape[0],
+                torch.tensor(self.q_lens, dtype=torch.int32, device=device))
         return got
 
 
@@ -121,9 +202,10 @@ def paged_attention_ragged(q, kv_pool, block_tables, q_lens, kv_lens,
     (entries past an allocation point at a valid block, e.g. the trash
     block 0); q_lens: static per-sequence row counts; kv_lens: int32
     [n_seq] valid lengths INCLUDING each sequence's new rows. ``plan``
-    (a ``RaggedPlan`` of the same q_lens) lets callers share the tile
-    descriptors across launches. ``kv_scales`` [num_blocks, 2, nkv, bs]
-    float32 comes with an int8 pool. Returns [R, nh, hd]."""
+    (a ``RaggedPlan`` of the same q_lens, and of these kv_lens if it was
+    built with lengths) lets callers share the descriptors across
+    launches. ``kv_scales`` [num_blocks, 2, nkv, bs] float32 comes with
+    an int8 pool. Returns [R, nh, hd]."""
     q_lens = tuple(int(x) for x in q_lens)
     R, nh, hd = q.shape
     if R != sum(q_lens):
@@ -174,6 +256,12 @@ def paged_attention_ragged(q, kv_pool, block_tables, q_lens, kv_lens,
     if bt.dim() != 2 or bt.shape[0] != len(q_lens):
         raise ValueError(f"block_tables must be [{len(q_lens)}, MB], got "
                          f"{tuple(bt.shape)}")
+    # lengths already on the host size the split-KV work items; lengths
+    # on the card are never read back
+    if isinstance(kv_lens, torch.Tensor):
+        host_lens = None if kv_lens.is_cuda else kv_lens.numpy()
+    else:
+        host_lens = np.asarray(kv_lens)
     lens = _as_int32(kv_lens, dev).reshape(-1).contiguous()
     if lens.shape[0] != len(q_lens):
         raise ValueError("kv_lens needs one entry per sequence")
@@ -182,29 +270,44 @@ def paged_attention_ragged(q, kv_pool, block_tables, q_lens, kv_lens,
         tile_q = min(DEFAULT_TILE_Q_CAP, max(q_lens))
     tile_q = max(1, min(int(tile_q), max_rows // g))
     if plan is None or plan.q_lens != q_lens:
-        plan = RaggedPlan(q_lens)
-    tiles, qlens_dev = plan.device_tables(tile_q, dev)
+        plan = RaggedPlan(q_lens, host_lens)
     out = torch.empty((R, nh, hd), dtype=q.dtype, device=dev)
     vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    pool_args = [kv_pool.data_ptr()]
-    pool_types = [vp]
-    if quant:
-        fn = lib.pt_paged_attention_ragged_int8
-        pool_args.append(kv_scales.data_ptr())
-        pool_types.append(vp)
-    else:
-        fn = lib.pt_paged_attention_ragged
-    fn.restype = ctypes.c_int
-    fn.argtypes = [ci, vp, ll, ll, *pool_types, vp, ci, vp, vp, vp, ci, vp,
-                   ci, ci, ci, ci, ci, ctypes.c_float, ci, vp]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(_DTYPES[q.dtype], q.data_ptr(), q.stride(0), q.stride(1),
-                 *pool_args, bt.data_ptr(), bt.shape[1],
-                 qlens_dev.data_ptr(), lens.data_ptr(), tiles.data_ptr(),
-                 tiles.shape[0], out.data_ptr(), nh, nkv, hd, bs,
-                 tile_q * g, float(scale),
-                 int(rows_vectorizable(kv_pool, ())), stream)
+        if quant:
+            tiles, qlens_dev = plan.device_tables(tile_q, dev)
+            fn = lib.pt_paged_attention_ragged_int8
+            fn.restype = ci
+            fn.argtypes = [ci, vp, ll, ll, vp, vp, vp, ci, vp, vp, vp, ci,
+                           vp, ci, ci, ci, ci, ci, ctypes.c_float, ci, vp]
+            err = fn(_DTYPES[q.dtype], q.data_ptr(), q.stride(0),
+                     q.stride(1), kv_pool.data_ptr(), kv_scales.data_ptr(),
+                     bt.data_ptr(), bt.shape[1], qlens_dev.data_ptr(),
+                     lens.data_ptr(), tiles.data_ptr(), tiles.shape[0],
+                     out.data_ptr(), nh, nkv, hd, bs, tile_q * g,
+                     float(scale), int(rows_vectorizable(kv_pool, ())),
+                     stream)
+        else:
+            if lib.pt_paged_attention_span() != SPAN:
+                raise RuntimeError("csrc/ragged_split.cuh's kSpan is not "
+                                   f"SPAN = {SPAN}")
+            tables, n_tiles, n_items, qlens_dev = plan.split_tables(
+                tile_q, bt.shape[1] * bs, dev)
+            # each item's partial (acc [max_rows, hd], then m, l)
+            ws = torch.empty(nkv * n_items * tile_q * g * (hd + 2),
+                             dtype=torch.float32, device=dev)
+            fn = lib.pt_paged_attention_split
+            fn.restype = ci
+            fn.argtypes = [ci, vp, ll, ll, vp, vp, ci, vp, vp, vp, ci, ci,
+                           vp, vp, ci, ci, ci, ci, ci, ci, ctypes.c_float,
+                           vp]
+            err = fn(_DTYPES[q.dtype], q.data_ptr(), q.stride(0),
+                     q.stride(1), kv_pool.data_ptr(), bt.data_ptr(),
+                     bt.shape[1], qlens_dev.data_ptr(), lens.data_ptr(),
+                     tables.data_ptr(), n_tiles, n_items, ws.data_ptr(),
+                     out.data_ptr(), R, nh, nkv, hd, bs, tile_q * g,
+                     float(scale), stream)
     check(err, "paged_attention_ragged")
     _LAUNCHES["count"] += 1
     return out

@@ -97,6 +97,78 @@ def test_ragged_kernel_refuses_what_it_does_not_take():
                                    lens)
 
 
+SPLIT = {
+    # name: (nh, nkv, hd, bs, q_lens, kv_lens, MB, dtype, tile_q)
+    # one decode row over 8200 keys (65 spans)
+    "decode_8k_keys": (4, 4, 64, 16, (1, 1), (8200, 300), 513, "float32",
+                       None),
+    # 48-position pages: the span edges at 256 and 512 fall mid-page
+    "prefill_span_edge_mid_page": (4, 4, 64, 48, (40, 1), (300, 530), 12,
+                                   "float32", 16),
+    # tile rows at 248..263: for the first 8, the span [256, 264) holds
+    # only keys the causal mask hides
+    "span_only_hidden_keys": (4, 4, 64, 16, (16, 1), (264, 9), 17,
+                              "float32", 16),
+    "gqa_g4": (16, 4, 128, 16, (1, 20, 3), (700, 300, 3), 44, "float32",
+               None),
+    "bf16_q_gqa_g4": (16, 4, 64, 16, (1, 20, 3), (700, 300, 3), 44,
+                      "bfloat16", None),
+}
+
+
+@pytest.mark.parametrize("host_lens", [True, False])
+@pytest.mark.parametrize("name", sorted(SPLIT))
+def test_ragged_split_kv_matches_plain_version(name, host_lens):
+    """The float-pool kernel's split-KV cases against the plain version
+    (float32 under TOL; bf16 q and pages against the float32 plain
+    version of the same bf16 values within bf16's rounding), bitwise
+    equal across two calls. host_lens: the plan sizes its spans from the
+    host lengths (the serving path) or from the table width (device
+    lengths only; surplus spans hold no key)."""
+    _need_cuda()
+    nh, nkv, hd, bs, q_lens, kv_lens, MB, dt, tile_q = SPLIT[name]
+    q, pool, bt, lens = _ragged(12, nh, nkv, hd, bs, q_lens, kv_lens, MB,
+                                ())
+    q, pool = q.to(getattr(torch, dt)), pool.to(getattr(torch, dt))
+    dev_lens = torch.from_numpy(lens).cuda()
+    plan = tpa.RaggedPlan(q_lens, lens if host_lens else None)
+    got = tpa.paged_attention_ragged(q, pool, bt, q_lens, dev_lens,
+                                     tile_q=tile_q, plan=plan)
+    again = tpa.paged_attention_ragged(q, pool, bt, q_lens, dev_lens,
+                                       tile_q=tile_q, plan=plan)
+    assert torch.equal(got, again)
+    ref = tpa.paged_attention_ragged_reference(q.float(), pool.float(), bt,
+                                               q_lens, lens)
+    assert torch.isfinite(got).all()
+    tol = TOL if dt == "float32" else dict(atol=1e-2, rtol=1e-2)
+    torch.testing.assert_close(got.float(), ref, **tol)
+
+
+def test_ragged_rows_do_not_depend_on_the_rest_of_the_step():
+    """One sequence's rows alone, inside a mixed step with other
+    sequences (a prefill chunk, decode rows, a zero-length segment), at
+    another tile width and with spans sized from the table width give
+    the same bits: span and chunk edges sit at absolute key positions,
+    and each row's arithmetic is fixed by them."""
+    _need_cuda()
+    nh, nkv, hd, bs, MB = 8, 2, 64, 16, 40
+    q_lens = (50, 1, 0, 128, 1)
+    kv_lens = (560, 610, 7, 384, 1)
+    q, pool, bt, lens = _ragged(13, nh, nkv, hd, bs, q_lens, kv_lens, MB,
+                                ())
+    mixed = tpa.paged_attention_ragged(q, pool, bt, q_lens, lens)
+    for s in (0, 1, 3):
+        r0 = sum(q_lens[:s])
+        rows = q[r0:r0 + q_lens[s]]
+        want = mixed[r0:r0 + q_lens[s]]
+        one = ((q_lens[s],), lens[s:s + 1], bt[s:s + 1])
+        assert torch.equal(tpa.paged_attention_ragged(rows, pool, one[2],
+                                                      one[0], one[1]), want)
+        assert torch.equal(tpa.paged_attention_ragged(
+            rows, pool, one[2], one[0], torch.from_numpy(one[1]).cuda(),
+            tile_q=5), want)
+
+
 @pytest.mark.parametrize("nh,nkv,hd,S,lens", [
     (4, 4, 64, 32, [0, 1, 17, 32]),
     (8, 2, 64, 300, [5, 300, 0]),
@@ -330,6 +402,11 @@ GMM = {
     # uneven groups from make_group_metadata at block_m 16
     "grouped_16": (tgg.make_group_metadata([37, 0, 130, 9], 16)[1], 16,
                    512, 384),
+    # expert runs of 72, 24 and 40 rows: each ends inside a 64-row
+    # tensor-core tile
+    "run_ends_mid_tile": (np.repeat(np.arange(3), [9, 3, 5]), 8, 512, 256),
+    # K not a multiple of 8 (the last 32-deep slab is partly zeros)
+    "k_not_multiple_of_8": (np.repeat(np.arange(2), 10), 8, 1004, 384),
 }
 
 
@@ -356,6 +433,32 @@ def test_gmm_kernel_matches_plain_version(name):
     # a host block_expert and a strided lhs give the same bits
     wide = torch.cat([lhs, lhs], dim=1)[:, :K]
     assert torch.equal(tgg.gmm(wide, rhs, be, block_m=block_m), got)
+
+
+@pytest.mark.parametrize("name", ["mixed_ffn2", "odd_tile",
+                                  "run_ends_mid_tile",
+                                  "k_not_multiple_of_8"])
+def test_gmm_kernel_reads_an_unaligned_lhs(name):
+    """lhs as a view one element into a wider buffer (base and row
+    stride not 16-byte aligned: the 4-byte copy path) gives the bits of
+    the contiguous lhs."""
+    _need_cuda()
+    be, block_m, K, N = GMM[name]
+    M = len(be) * block_m
+    E = int(be.max()) + 1
+    rng = np.random.RandomState(M + K + N)
+    lhs = torch.from_numpy(rng.randn(M, K).astype(np.float32)).cuda()
+    rhs = torch.from_numpy(rng.randn(E, K, N).astype(np.float32)).cuda()
+    bed = torch.from_numpy(be.astype(np.int32)).cuda()
+    wide = torch.zeros((M, K + 5), device="cuda")
+    wide[:, 1:K + 1] = lhs
+    view = wide[:, 1:K + 1]
+    assert view.stride(0) % 4 and view.data_ptr() % 16
+    got = tgg.gmm(lhs, rhs, bed, block_m=block_m)
+    assert torch.equal(tgg.gmm(view, rhs, bed, block_m=block_m), got)
+    ref = tgg.gmm_reference(lhs, rhs, bed, block_m=block_m)
+    torch.testing.assert_close(got, ref, atol=1e-4 * float(ref.abs().max()),
+                               rtol=0)
 
 
 def test_gmm_kernel_empty_and_refusals():

@@ -127,3 +127,50 @@ def test_empty_batch_is_no_launch():
     out = tpa.paged_attention_ragged(q, pool, np.zeros((2, 1), np.int32),
                                      (0, 0), [0, 0])
     assert out.shape == (0, 4, 16) and tpa.launch_count() == before
+
+
+@pytest.mark.parametrize("host_lens", [True, False])
+@pytest.mark.parametrize("tile_q", [1, 5, 16])
+def test_split_items_cover_each_visible_key_once(tile_q, host_lens):
+    """The split-KV work list of a mixed step (prefill chunks, decode rows,
+    a zero-length segment, a row at position 0, a row past the table):
+    every (packed row, visible key position) lies in exactly one item of
+    the row's tile, items start and end at absolute multiples of SPAN
+    (or the tile's frontier), and the launch order is a permutation,
+    heaviest (rows x keys) first."""
+    span, bs, mb = tpa.SPAN, 16, 40
+    width = bs * mb
+    q_lens = (50, 1, 0, 128, 1, 3, 2)
+    kv_lens = np.asarray([560, 610, 7, 384, 1, 260, 700], np.int32)
+    plan = tpa.RaggedPlan(q_lens, kv_lens if host_lens else None)
+    h = plan.split_host(tile_q, width)
+    tiles, tspan, items = h["tiles"], h["tspan"], h["items"]
+    np.testing.assert_array_equal(tiles, plan.tiles_host(tile_q))
+    assert sorted(h["order"].tolist()) == list(range(items.shape[0]))
+    # items of a tile are consecutive, span index = position in the run
+    for t, (first, n) in enumerate(tspan):
+        np.testing.assert_array_equal(items[first:first + n, 0], t)
+        np.testing.assert_array_equal(items[first:first + n, 1],
+                                      np.arange(n))
+    assert tspan[:, 1].sum() == items.shape[0]
+    starts = np.concatenate([[0], np.cumsum(q_lens)[:-1]])
+    seen = 0
+    for i in range(sum(q_lens)):
+        t = h["row_tile"][i]
+        s, off, n, r0 = tiles[t]
+        assert r0 <= i < r0 + n and r0 == starts[s] + off
+        qpos = int(kv_lens[s]) - q_lens[s] + (i - starts[s])
+        visible = np.arange(min(qpos + 1, width))
+        first, cnt = tspan[t]
+        lo = items[first:first + cnt, 1] * span
+        hi = np.minimum(lo + span, h["frontier"][t])
+        assert (lo % span == 0).all() and (hi > lo).all()
+        covered = ((visible[:, None] >= lo) & (visible[:, None] < hi)).sum(1)
+        np.testing.assert_array_equal(covered, 1)
+        seen += visible.size
+    assert seen > 0
+    rows_keys = [tiles[t, 2] * min(span, h["frontier"][t] - sp * span)
+                 for t, sp in items[h["order"]]]
+    assert all(a >= b for a, b in zip(rows_keys, rows_keys[1:]))
+    if not host_lens:
+        np.testing.assert_array_equal(h["frontier"], width)
