@@ -110,18 +110,12 @@ fails the run:
    same weights and seeds): loss within 1e-5 relative, every gradient
    within 1e-3 x max|g| with cosine >= 0.9999;
 18. print the kernels line, the card line and, last, the contract line.
-Every number printed carries the card's name and power limit.
-
-    python3 chip_smoke.py --kernels-only [--root DIR]
-
-runs phases 1, 2, 8 and phase 10's profiles alone, importing the package
-from DIR when given (an unpacked older commit: A/B timing of two commits
-in one call), and prints no kernels or contract line.
+Every number printed carries the card's name and power limit; each row
+of the kernels line says in ``timed`` which call it timed and how.
 """
 import argparse
 import gc
 import json
-import os
 import subprocess
 import sys
 import time
@@ -354,10 +348,8 @@ def phase_kernels(torch, device, cfg, tag, say):
              <= qpos[:, :, None])[:, None]
     kt, vt = kg.transpose(1, 2), vg.transpose(1, 2)
     iters = cfg["timing_iters"]
-    try:   # the serving path's plan: split-KV items from the host lengths
-        plan = pa.RaggedPlan(q_lens, kv_lens)
-    except TypeError:   # a checkout from before split-KV (A/B runs)
-        plan = pa.RaggedPlan(q_lens)
+    # the serving path's plan: split-KV items from the host lengths
+    plan = pa.RaggedPlan(q_lens, kv_lens)
     again = pa.paged_attention_ragged(q, pool, btd, q_lens, lensd, plan=plan)
     same = bool(torch.equal(again, got))
     require(same, "ragged kernel: two launches differ")
@@ -407,6 +399,8 @@ def phase_kernels(torch, device, cfg, tag, say):
         name="paged_attention_ragged", route="cuda",
         source="paddle_tpu_torch/csrc/paged_attention.cu",
         replaces="paddle_tpu/ops/pallas/paged_attention.py:290",
+        timed=f"phase 2's mixed step ({R} rows), L2 flushed, CUDA events "
+        f"per call",
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=lib_ms)
 
@@ -450,6 +444,8 @@ def phase_kernels(torch, device, cfg, tag, say):
         name="paged_attention_ragged_int8", route="cuda",
         source="paddle_tpu_torch/csrc/paged_attention_int8.cu",
         replaces="paddle_tpu/ops/pallas/paged_attention.py:231",
+        timed=f"phase 2's mixed step ({R} rows) over int8 pages, warm, "
+        f"profiler device time",
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=lib_ms)
     del qpool, scales, kq, vq, kqt, vqt
@@ -494,6 +490,7 @@ def phase_kernels(torch, device, cfg, tag, say):
         name="decode_attention", route="cuda",
         source="paddle_tpu_torch/csrc/decode_attention.cu",
         replaces="paddle_tpu/ops/pallas/decode_attention.py:86",
+        timed=f"{B} rows over {S} positions, warm, profiler device time",
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=lib_ms)
     rows["w8a16_matmul"] = phase_w8a16(torch, device, cfg, tag, say)
@@ -556,6 +553,8 @@ def phase_w8a16(torch, device, cfg, tag, say):
         name="w8a16_matmul", route="cuda",
         source="paddle_tpu_torch/csrc/int8_matmul.cu",
         replaces="paddle_tpu/ops/pallas/int8_matmul.py:61",
+        timed="one layer's 4 projections at 8 rows, warm, profiler device "
+        "time",
         max_abs_err=layer["max_abs_err"], ms=layer["ms"],
         plain_ms=layer["plain_ms"], bound_ms=layer["bound_ms"],
         bound_by="bytes" if layer["by"] == {"bytes"} else "operations",
@@ -887,17 +886,19 @@ def phase_gmm(torch, device, cfg, tag, say):
     (the same function for that layout). The bound: bytes against the
     3xTF32 tensor-core floor (3 TF32 products per float32 product), the
     float32 SIMT figure beside it. The kernels-line row sums one layer's
-    two mixed calls (the tensor-core kernel), L2 flushed."""
+    two mixed calls (the tensor-core kernel), L2 flushed, and gives the
+    two decode calls (the rows kernel), warm, as ``decode_ms``."""
     from paddle_tpu_torch.ops.hopper import grouped_gemm as gg
     E, bm, d, ffn = cfg["experts"], cfg["block_m"], cfg["d"], cfg["ffn"]
     iters = cfg["timing_iters"]
     flush = _flush_buffer(torch, device)
     layer = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
                  max_abs_err=0.0, by=set())
+    decode_ms, Ms = 0.0, {}
     for call, rows in (("decode", cfg["max_batch"]),
                        ("mixed", cfg["budget"] + cfg["max_batch"])):
         cap_pad = _moe_cap_pad(cfg, rows)
-        M = E * cap_pad
+        M = Ms[call] = E * cap_pad
         be = torch.arange(E, dtype=torch.int32, device=device
                           ).repeat_interleave(cap_pad // bm)
         for name, (K, N) in (("ffn1", (d, ffn)), ("ffn2", (ffn, d))):
@@ -947,16 +948,23 @@ def phase_gmm(torch, device, cfg, tag, say):
                     layer[key] += val
                 layer["max_abs_err"] = max(layer["max_abs_err"], err)
                 layer["by"].add(b_by)
+            else:
+                decode_ms += warm[0]
             del lhs, rhs, got, l3, r3, fns
     del flush
     say(f"{tag} gmm one layer's ffn1 + ffn2 at a mixed call, L2 flushed: "
         f"kernel {layer['ms']:.4f} ms, plain {layer['plain_ms']:.4f} ms, "
         f"bmm {layer['library_ms']:.4f} ms, bound {layer['bound_ms']:.4f} "
-        f"ms")
+        f"ms; its two decode calls, warm: kernel {decode_ms:.4f} ms")
     return dict(
         name="gmm", route="cuda",
         source="paddle_tpu_torch/csrc/grouped_gemm.cu",
         replaces="paddle_tpu/ops/pallas/grouped_gemm.py:65",
+        timed=f"one layer's ffn1 + ffn2 at a mixed call (M {Ms['mixed']}, "
+        f"the 3xTF32 tile kernel), L2 flushed, CUDA events per call; "
+        f"decode_ms: its two decode calls (M {Ms['decode']}, the rows "
+        f"kernel), warm, profiler device time",
+        decode_ms=decode_ms,
         max_abs_err=layer["max_abs_err"], ms=layer["ms"],
         plain_ms=layer["plain_ms"], bound_ms=layer["bound_ms"],
         bound_by="bytes" if layer["by"] == {"bytes"} else "operations",
@@ -1392,7 +1400,9 @@ def phase_train_kernels(torch, device, cfg, tag, say):
                 st or ld for _, st, ld in report.values()),
                 f"{key} spills or is missing: {report}")
     common = dict(route="cuda", source="paddle_tpu_torch/csrc/"
-                  "flash_attention.cu", plain_batch=pb)
+                  "flash_attention.cu", plain_batch=pb,
+                  timed=f"[{B}, {T}, {nh}, {hd}] bf16 causal, warm, CUDA "
+                  f"events per call")
     # max_abs_err: the bf16 slice shape's (out; the largest of dq, dk, dv)
     rows["flash_attention_fwd"] = dict(
         name="flash_attention_fwd",
@@ -1448,6 +1458,8 @@ def phase_train_kernels(torch, device, cfg, tag, say):
         name="fused_rms_norm", route="cuda",
         source="paddle_tpu_torch/csrc/fused_norm.cu",
         replaces="paddle_tpu/ops/pallas/fused_norm.py:105",
+        timed=f"a layer's two calls at [{B * T}, {H}] bf16, warm, CUDA "
+        f"events",
         max_abs_err=max(errs), bound_by="bytes", **norm)
     del x, r, w, y, z, ry, rz
 
@@ -1514,6 +1526,7 @@ def phase_train_kernels(torch, device, cfg, tag, say):
         name="fused_adamw", route="cuda",
         source="paddle_tpu_torch/csrc/fused_adamw.cu",
         replaces="paddle_tpu/ops/pallas/fused_adamw.py:67",
+        timed="a step's 12 calls, warm, CUDA events",
         max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
         bound_by=b_by, library_ms=lib_ms)
     return rows
@@ -1848,6 +1861,8 @@ def phase_bert_kernels(torch, device, cfg, tag, say):
         name="fused_layer_norm", route="cuda",
         source="paddle_tpu_torch/csrc/fused_norm.cu",
         replaces="paddle_tpu/ops/pallas/fused_norm.py:201",
+        timed=f"a layer's two calls at [{R}, {H}] float32 with the "
+        f"residual, warm, profiler device time",
         max_abs_err=ln_err, bound_by="bytes", **ln)
     say(f"{tag} fused_layer_norm a layer's two calls: kernel "
         f"{ln['ms']:.4f} ms, plain {ln['plain_ms']:.4f} ms, library "
@@ -1900,6 +1915,8 @@ def phase_bert_kernels(torch, device, cfg, tag, say):
         name="fused_dropout", route="cuda",
         source="paddle_tpu_torch/csrc/fused_norm.cu",
         replaces="paddle_tpu/ops/pallas/fused_norm.py:304",
+        timed=f"a layer's three forward calls (2 x [{R}, {H}] + [{R}, "
+        f"{FF}]) float32, warm, profiler device time",
         max_abs_err=0.0, bound_by="bytes", **drop)
     say(f"{tag} fused_dropout a layer's three forward calls (2 x [{R}, "
         f"{H}] + [{R}, {FF}]): kernel {drop['ms']:.4f} ms, plain "
@@ -2190,38 +2207,10 @@ def run(device, cfg, seed=0, say=print, card=None):
                               "fused_dropout", "fused_adamw")]
 
 
-def run_kernels(device, cfg, seed=0, say=print, card=None):
-    """Phases 1, 2, 8 and phase 10's profile alone: the serving kernels
-    timed and a decode- and a mixed-sized call of each model profiled
-    (``--kernels-only``; with ``--root`` over another checkout, for A/B
-    runs of two commits in one call)."""
-    import torch
-    torch.backends.cuda.matmul.allow_tf32 = False
-    card = card or card_line()
-    tag = f"[{card}]"
-    from paddle_tpu_torch.ops.hopper import _build
-    import paddle_tpu_torch
-    say(f"{tag} package: {paddle_tpu_torch.__file__}")
-    if device.type == "cuda":
-        _build.build_all()
-    phase_kernels(torch, device, cfg, tag, say)
-    phase_gmm(torch, device, cfg, tag, say)
-    tsm = build_model(torch, device, cfg, seed)
-    tsm_moe = build_moe_model(torch, device, cfg, seed, tsm._embed_np)
-    phase_profile(torch, device, cfg, tsm, tsm_moe, tag, say)
-
-
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--kernels-only", action="store_true",
-                    help="run phases 1, 2, 8 and phase 10's profile only, "
-                    "and print no kernels or contract line")
-    ap.add_argument("--root", help="import paddle_tpu_torch from this "
-                    "checkout (with --kernels-only: time another commit)")
     args = ap.parse_args(argv)
-    if args.root:
-        sys.path.insert(0, os.path.abspath(args.root))
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2235,15 +2224,6 @@ def main(argv=None):
     t0 = time.perf_counter()
     card = card_line()
     print(f"card: {card}")
-    if args.kernels_only:
-        try:
-            run_kernels(torch.device("cuda"), FULL, seed=args.seed,
-                        card=card)
-        except SmokeFailure as e:
-            print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
-            return 1
-        print(f"[{card}] total {time.perf_counter() - t0:.1f} s")
-        return 0
     try:
         kernels = run(torch.device("cuda"), FULL, seed=args.seed,
                       card=card)

@@ -58,6 +58,8 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # launch count of the CUDA kernel (CPU calls run the plain version and
 # are not counted)
 _LAUNCHES = {"count": 0}
+# the float-pool library once loaded and checked (``_float_lib``)
+_FLOAT_LIB: Dict[str, ctypes.CDLL] = {}
 
 
 def launch_count() -> int:
@@ -79,7 +81,10 @@ class RaggedPlan:
     the host ``kv_lens`` when the plan was built with them (the serving
     path has them before it copies them to the card), else from the table
     width, whose surplus items exit at once on the card. A plan built with
-    ``kv_lens`` serves launches over those lengths only."""
+    ``kv_lens`` is for one step only: it serves launches over those
+    lengths, and ``paged_attention_ragged`` refuses it where the call's
+    lengths are on the host and differ (lengths on the card are not
+    read back to check)."""
 
     def __init__(self, q_lens, kv_lens=None):
         self.q_lens = tuple(int(x) for x in q_lens)
@@ -100,8 +105,7 @@ class RaggedPlan:
             r0 += ql
         return np.asarray(out, np.int32).reshape(-1, 4)
 
-    def split_host(self, tile_q: int, width: int,
-                   span: Optional[int] = None) -> Dict[str, np.ndarray]:
+    def split_host(self, tile_q: int, width: int) -> Dict[str, np.ndarray]:
         """The split-KV work list for tables ``width`` (= MB x block_size)
         positions wide, int32:
 
@@ -110,11 +114,10 @@ class RaggedPlan:
           row's position + 1, within the table), the table width where
           the lengths are not on the host;
         - ``tspan`` [T, 2]: (first item, items) of each tile, items of a
-          tile consecutive, span s covering [s span, (s + 1) span);
+          tile consecutive, span s covering [s SPAN, (s + 1) SPAN);
         - ``items`` [I, 2]: (tile, span);
         - ``order`` [I]: the launch order, heaviest (rows x keys) first;
         - ``row_tile`` [R]: the tile of each packed row."""
-        span = SPAN if span is None else span
         tiles = self.tiles_host(tile_q)
         T = tiles.shape[0]
         if self.kv_lens is None:
@@ -124,11 +127,11 @@ class RaggedPlan:
             seq = tiles[:, 0]
             frontier = np.clip(self.kv_lens[seq] - ql[seq] + tiles[:, 1]
                                + tiles[:, 2], 0, width)
-        nsp = -(-frontier // span)
+        nsp = -(-frontier // SPAN)
         first = np.concatenate([[0], np.cumsum(nsp)[:-1]]).astype(np.int64)
         tile_of = np.repeat(np.arange(T), nsp)
         sp = np.arange(tile_of.shape[0]) - first[tile_of]
-        keys = np.minimum(span, frontier[tile_of] - sp * span)
+        keys = np.minimum(SPAN, frontier[tile_of] - sp * SPAN)
         order = np.argsort(-(tiles[tile_of, 2].astype(np.int64) * keys),
                            kind="stable")
         row_tile = np.repeat(np.arange(T), tiles[:, 2])
@@ -175,6 +178,20 @@ class RaggedPlan:
         return got
 
 
+def _float_lib() -> ctypes.CDLL:
+    """The float-pool library, its kSpan checked against SPAN at first
+    load (the host plan and the kernel must cut spans alike)."""
+    lib = _FLOAT_LIB.get("lib")
+    if lib is None:
+        from ._build import load
+        lib = load("paged_attention")
+        if lib.pt_paged_attention_span() != SPAN:
+            raise RuntimeError("csrc/ragged_split.cuh's kSpan is not "
+                               f"SPAN = {SPAN}")
+        _FLOAT_LIB["lib"] = lib
+    return lib
+
+
 def rows_vectorizable(t: torch.Tensor, strides) -> bool:
     """Whether the kernels may read ``t``'s head_dim vectors four
     elements at a time: head_dim a multiple of 4, the given strides too,
@@ -203,8 +220,8 @@ def paged_attention_ragged(q, kv_pool, block_tables, q_lens, kv_lens,
     block 0); q_lens: static per-sequence row counts; kv_lens: int32
     [n_seq] valid lengths INCLUDING each sequence's new rows. ``plan``
     (a ``RaggedPlan`` of the same q_lens, and of these kv_lens if it was
-    built with lengths) lets callers share the descriptors across
-    launches. ``kv_scales`` [num_blocks, 2, nkv, bs] float32 comes with
+    built with lengths; ValueError where host lengths differ) lets
+    callers share the descriptors across launches. ``kv_scales`` [num_blocks, 2, nkv, bs] float32 comes with
     an int8 pool. Returns [R, nh, hd]."""
     q_lens = tuple(int(x) for x in q_lens)
     R, nh, hd = q.shape
@@ -224,6 +241,18 @@ def paged_attention_ragged(q, kv_pool, block_tables, q_lens, kv_lens,
     if quant and tuple(kv_scales.shape) != tuple(kv_pool.shape[:4]):
         raise ValueError(f"kv_scales must be {tuple(kv_pool.shape[:4])}, "
                          f"got {tuple(kv_scales.shape)}")
+    # lengths already on the host size the split-KV work items and hold
+    # a plan built with lengths to them; lengths on the card are never
+    # read back
+    if isinstance(kv_lens, torch.Tensor):
+        host_lens = None if kv_lens.is_cuda else kv_lens.numpy()
+    else:
+        host_lens = np.asarray(kv_lens)
+    if plan is not None and plan.q_lens == q_lens and \
+            plan.kv_lens is not None and host_lens is not None and \
+            not np.array_equal(plan.kv_lens, host_lens.reshape(-1)):
+        raise ValueError("plan was built for other kv_lens: a plan with "
+                         "lengths serves one step only")
     if not q.is_cuda:
         return paged_attention_ragged_reference(
             q, kv_pool, block_tables, q_lens, kv_lens, sm_scale=sm_scale,
@@ -245,7 +274,7 @@ def paged_attention_ragged(q, kv_pool, block_tables, q_lens, kv_lens,
     if not kv_pool.is_contiguous():
         raise ValueError("kv_pool must be contiguous")
     from ._build import check, load
-    lib = load("paged_attention_int8" if quant else "paged_attention")
+    lib = load("paged_attention_int8") if quant else _float_lib()
     # query rows (tile rows x group) one block holds in shared memory
     max_rows = (lib.pt_paged_attention_int8_max_rows if quant
                 else lib.pt_paged_attention_max_rows)(hd)
@@ -256,12 +285,6 @@ def paged_attention_ragged(q, kv_pool, block_tables, q_lens, kv_lens,
     if bt.dim() != 2 or bt.shape[0] != len(q_lens):
         raise ValueError(f"block_tables must be [{len(q_lens)}, MB], got "
                          f"{tuple(bt.shape)}")
-    # lengths already on the host size the split-KV work items; lengths
-    # on the card are never read back
-    if isinstance(kv_lens, torch.Tensor):
-        host_lens = None if kv_lens.is_cuda else kv_lens.numpy()
-    else:
-        host_lens = np.asarray(kv_lens)
     lens = _as_int32(kv_lens, dev).reshape(-1).contiguous()
     if lens.shape[0] != len(q_lens):
         raise ValueError("kv_lens needs one entry per sequence")
@@ -289,9 +312,6 @@ def paged_attention_ragged(q, kv_pool, block_tables, q_lens, kv_lens,
                      float(scale), int(rows_vectorizable(kv_pool, ())),
                      stream)
         else:
-            if lib.pt_paged_attention_span() != SPAN:
-                raise RuntimeError("csrc/ragged_split.cuh's kSpan is not "
-                                   f"SPAN = {SPAN}")
             tables, n_tiles, n_items, qlens_dev = plan.split_tables(
                 tile_q, bt.shape[1] * bs, dev)
             # each item's partial (acc [max_rows, hd], then m, l)

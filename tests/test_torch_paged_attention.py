@@ -174,3 +174,26 @@ def test_split_items_cover_each_visible_key_once(tile_q, host_lens):
     assert all(a >= b for a, b in zip(rows_keys, rows_keys[1:]))
     if not host_lens:
         np.testing.assert_array_equal(h["frontier"], width)
+
+
+@pytest.mark.parametrize("lens_as", ["numpy", "tensor"])
+def test_plan_with_lengths_is_refused_for_other_lengths(lens_as):
+    """A plan built with host kv_lens sizes its split-KV items from them,
+    so it serves one step only: a call whose host lengths differ (a
+    decode step later) raises instead of leaving the newest keys past
+    the last span; the same lengths, and a plan built without lengths,
+    are taken."""
+    q_lens, kv_lens = (1, 3), (130, 9)
+    q, pool, bt, lens = _case(5, 4, 4, 16, 4, q_lens, kv_lens, 40)
+    q, pool = torch.from_numpy(q), torch.from_numpy(pool)
+    as_arg = (lambda a: a) if lens_as == "numpy" else torch.from_numpy
+    plan = tpa.RaggedPlan(q_lens, lens)
+    want = tpa.paged_attention_ragged_reference(q, pool, bt, q_lens, lens)
+    got = tpa.paged_attention_ragged(q, pool, bt, q_lens, as_arg(lens),
+                                     plan=plan)
+    torch.testing.assert_close(got, want, atol=0, rtol=0)
+    with pytest.raises(ValueError, match="other kv_lens"):
+        tpa.paged_attention_ragged(q, pool, bt, q_lens, as_arg(lens + 1),
+                                   plan=plan)
+    tpa.paged_attention_ragged(q, pool, bt, q_lens, as_arg(lens + 1),
+                               plan=tpa.RaggedPlan(q_lens))
