@@ -13,11 +13,12 @@ fails the run:
    shapes the serving path gives it (float32; attention within 1e-4 abs,
    w8a16 within 1e-4 x max|ref|), then time kernel, plain version and
    one PyTorch library call, beside the bytes/FLOP bound of the H100:
-   ragged paged attention over float32 pages (split-KV: bitwise equal
-   across two calls; timed warm and with L2 flushed between calls, the
-   flushed times in the kernels line) and over int8 pages (a mixed
-   step), dense decode attention, and the w8a16 matmul at 1, 8 and 256
-   rows for every projection of the model and its head;
+   ragged paged attention over float32 pages and over int8 pages (the
+   same mixed step through the split-KV body: bitwise equal across two
+   calls; timed warm and with L2 flushed between calls, the flushed
+   times in the kernels line), dense decode attention, and the w8a16
+   matmul at 1, 8, 16 and 256 rows for every projection of the model
+   and its head (bitwise equal across two calls; warm and L2 flushed);
 3. serve 12 greedy requests end to end through
    ``SpeculativeEngine(k=0)`` at the full width of the repo's default
    GPTConfig (vocab 50304, d 1024, 24 layers, 16 heads, FFN 4096, tied
@@ -71,8 +72,9 @@ fails the run:
    backward two batch rows at a time; dq, dk, dv bitwise equal across
    two calls; float32 tail, cross-length and dropout cases within 1e-4
    and their bf16 twins per row within 3e-2; the ptxas report of the
-   wgmma kernels, the gmm tile kernel and the split-KV ragged kernels:
-   registers, and no spills),
+   wgmma kernels, the gmm tile kernel, the split-KV ragged kernels over
+   float and int8 pools and the w8a16 kernels: registers, and no
+   spills),
    the fused RMSNorm at [32768, 4096] bf16 with and without the residual
    (one bf16 ulp; the residual stream bitwise), the fused AdamW over the
    12 leaves of the trainer (m, v, master within 1e-6 x max|ref|); each
@@ -280,6 +282,32 @@ def _flushed_ms(torch, fn, device, iters, flush):
     return sum(a.elapsed_time(b) for a, b in pairs) / iters
 
 
+def _flushed_device_ms(torch, fn, device, iters, flush, keys):
+    """Device ms per call with L2 flushed before each call: the
+    profiler's time of the kernels whose names hold one of ``keys``
+    (the flush and the wait excluded), so unlike ``_flushed_ms`` no
+    launch gap is counted. None when the profiler saw none (or off the
+    card)."""
+    if device.type != "cuda":
+        return None
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for i in range(iters):
+            flush.fill_(float(i))
+            torch.cuda._sleep(1_000_000)
+            fn()
+        torch.cuda.synchronize()
+    us = sum(getattr(e, "self_device_time_total",
+                     getattr(e, "self_cuda_time_total", 0))
+             for e in prof.key_averages() if any(k in e.key for k in keys))
+    return us / 1e3 / iters if us > 0 else None
+
+
+def _fmt(ms):
+    return "not measured" if ms is None else f"{ms:.4f} ms"
+
+
 def _bound(nbytes, flops, flop_s=FP32_FLOP_S):
     t_b, t_f = nbytes / HBM_BYTES_S, flops / flop_s
     return max(t_b, t_f) * 1e3, ("bytes" if t_b >= t_f else "operations")
@@ -400,9 +428,9 @@ def phase_kernels(torch, device, cfg, tag, say):
         source="paddle_tpu_torch/csrc/paged_attention.cu",
         replaces="paddle_tpu/ops/pallas/paged_attention.py:290",
         timed=f"phase 2's mixed step ({R} rows), L2 flushed, CUDA events "
-        f"per call",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=lib_ms)
+        f"per call; warm_ms: back to back, profiler device time",
+        max_abs_err=err, ms=ms, warm_ms=warm[0], plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
 
     # -- the same mixed step over int8 pages ----------------------------
     # the pool quantized as the serving appends write it; trash block 0
@@ -416,38 +444,56 @@ def phase_kernels(torch, device, cfg, tag, say):
     err = float((got - ref).abs().max())
     require(bool(torch.isfinite(got).all()), "int8 ragged kernel: "
             "non-finite")
+    again = pa.paged_attention_ragged(q, qpool, btd, q_lens, lensd,
+                                      plan=plan, kv_scales=scales)
+    same = bool(torch.equal(again, got))
+    del again
     say(f"{tag} paged_attention_ragged int8 pages vs plain: max_abs_err "
-        f"{err:.3e} (tol {TOL_KERNEL}) rows {R} q_lens {q_lens}")
+        f"{err:.3e} (tol {TOL_KERNEL}) rows {R} q_lens {q_lens}; run to "
+        f"run bitwise {same}")
     require(err <= TOL_KERNEL, f"int8 ragged kernel disagrees: {err}")
+    require(same, "int8 ragged kernel: two launches differ")
     # yardstick: sdpa over pages gathered and dequantized beforehand
     kq, vq = pa.gather_pages(qpool, btd, kv_scales=scales)
     kqt, vqt = kq.transpose(1, 2), vq.transpose(1, 2)
-    t_k = _time_ms(torch, lambda: pa.paged_attention_ragged(
-        q, qpool, btd, q_lens, lensd, plan=plan, kv_scales=scales), device,
-        iters)
-    t_p = _time_ms(torch, lambda: pa.paged_attention_ragged_reference(
-        q, qpool, btd, q_lens, lensd, kv_scales=scales), device, iters)
-    t_l = _time_ms(torch, lambda: F.scaled_dot_product_attention(
-        qp, kqt, vqt, attn_mask=lmask), device, iters)
-    ms, plain_ms, lib_ms = _device(t_k, t_p, t_l)
+    fns = (lambda: pa.paged_attention_ragged(
+        q, qpool, btd, q_lens, lensd, plan=plan, kv_scales=scales),
+        lambda: pa.paged_attention_ragged_reference(
+        q, qpool, btd, q_lens, lensd, kv_scales=scales),
+        lambda: F.scaled_dot_product_attention(qp, kqt, vqt,
+                                               attn_mask=lmask))
+    t_k, t_p, t_l = (_time_ms(torch, f, device, iters) for f in fns)
+    warm = _device(t_k, t_p, t_l)
+    flush = _flush_buffer(torch, device)
+    ms, plain_ms, lib_ms = (_flushed_ms(torch, f, device, iters, flush)
+                            for f in fns)
+    dev_ms = _flushed_device_ms(torch, fns[0], device, iters, flush,
+                                ("span_kernel", "combine_kernel"))
+    del flush, fns
     # bound: as above with hd int8 bytes + one f32 scale per (position,
     # head, K|V)
     nbytes = (2 * sum(q_lens) * H * hd * 4 + kv_pos * H * (hd + 4) * 2
               + bt.nbytes + kv_lens.nbytes)
     b_ms, b_by = _bound(nbytes, flops)
-    say(f"{tag} paged_attention_ragged int8 pages device time: kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa over dequantized "
-        f"gathered pages {lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}; "
-        f"{nbytes} B, {flops} flop); wall per call: kernel {t_k[1]:.4f}, "
-        f"plain {t_p[1]:.4f}, sdpa {t_l[1]:.4f} ms")
+    say(f"{tag} paged_attention_ragged (int8 pages) time per call, L2 "
+        f"flushed (CUDA events): kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+        f"ms, sdpa over dequantized gathered pages {lib_ms:.4f} ms; warm "
+        f"(profiler device time, back to back): kernel {warm[0]:.4f}, "
+        f"plain {warm[1]:.4f}, sdpa {warm[2]:.4f} ms; bound {b_ms:.4f} ms "
+        f"({b_by}; {nbytes} B, {flops} flop); warm wall per call: kernel "
+        f"{t_k[1]:.4f}, plain {t_p[1]:.4f}, sdpa {t_l[1]:.4f} ms; kernel "
+        f"device time L2 flushed (profiler, no launch gap) "
+        f"{_fmt(dev_ms)}")
     rows["paged_attention_ragged_int8"] = dict(
         name="paged_attention_ragged_int8", route="cuda",
         source="paddle_tpu_torch/csrc/paged_attention_int8.cu",
         replaces="paddle_tpu/ops/pallas/paged_attention.py:231",
-        timed=f"phase 2's mixed step ({R} rows) over int8 pages, warm, "
-        f"profiler device time",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=lib_ms)
+        timed=f"phase 2's mixed step ({R} rows) over int8 pages, L2 "
+        f"flushed, CUDA events per call; warm_ms: back to back, profiler "
+        f"device time; flushed_device_ms: L2 flushed, profiler device time",
+        max_abs_err=err, ms=ms, warm_ms=warm[0], flushed_device_ms=dev_ms,
+        plain_ms=plain_ms,
+        bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
     del qpool, scales, kq, vq, kqt, vqt
 
     # -- dense decode attention: the oracle's decode shapes ------------
@@ -498,65 +544,88 @@ def phase_kernels(torch, device, cfg, tag, say):
 
 
 def phase_w8a16(torch, device, cfg, tag, say):
-    """The w8a16 kernel against its plain version at 1, 8 and 256 rows for
-    every projection of a layer and the head; each timed beside its
-    bound, the plain version and torch.matmul over the weight dequantized
-    beforehand. The kernels-line row sums one layer's four projections
-    at 8 rows (a decode step)."""
+    """The w8a16 kernel against its plain version at 1, 8, 16 (a verify
+    batch) and 256 rows for every projection of a layer and the head,
+    and bitwise equal from run to run; each timed warm (profiler, back to
+    back) and with L2 flushed (CUDA events: a served model's weights do
+    not fit the L2) beside its bound, the plain version and torch.matmul
+    over the weight dequantized beforehand. The kernels-line row sums one
+    layer's four projections at 8 rows (a decode step): ``ms`` and the
+    plain and library times L2 flushed, ``warm_ms`` the kernel warm."""
     from paddle_tpu_torch.ops.hopper import int8_matmul as im
     d, ffn, V = cfg["d"], cfg["ffn"], cfg["vocab"]
     shapes = {"qkv": (d, 3 * d), "out_proj": (d, d), "ffn1": (d, ffn),
               "ffn2": (ffn, d), "head": (d, V)}
     iters = cfg["timing_iters"]
-    layer = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0,
-                 max_abs_err=0.0, by=set())
+    flush = _flush_buffer(torch, device)
+    layer = dict(ms=0.0, warm_ms=0.0, device_ms=0.0, plain_ms=0.0,
+                 library_ms=0.0, bound_ms=0.0, max_abs_err=0.0, by=set())
     for name, (K, N) in shapes.items():
         gen = torch.Generator().manual_seed(K * 7 + N)
         w = torch.randint(-127, 128, (K, N), generator=gen,
                           dtype=torch.int8).to(device)
         wscale = torch.rand(N, generator=gen).to(device) / 127.0
         wdeq = w.float() * wscale          # the library call's operand
-        for M in (1, 8, 256):
+        for M in (1, 8, 16, 256):
             x = torch.randn((M, K), generator=gen).to(device)
             got = im.w8a16_matmul(x, w)
             ref = im.w8a16_matmul_reference(x, w)
             err = float((got - ref).abs().max())
             scale = float(ref.abs().max())
+            same = bool(torch.equal(im.w8a16_matmul(x, w), got))
             require(err <= TOL_W8A16 * scale, f"w8a16 {name} M {M} "
                     f"disagrees: {err} vs max|ref| {scale}")
-            t_k = _time_ms(torch, lambda: im.w8a16_matmul(x, w), device,
-                           iters)
-            t_p = _time_ms(torch, lambda: im.w8a16_matmul_reference(x, w),
-                           device, iters)
-            t_l = _time_ms(torch, lambda: torch.matmul(x, wdeq), device,
-                           iters)
-            ms, plain_ms, lib_ms = _device(t_k, t_p, t_l)
+            require(same, f"w8a16 {name} M {M}: two launches differ")
+            fns = (lambda: im.w8a16_matmul(x, w),
+                   lambda: im.w8a16_matmul_reference(x, w),
+                   lambda: torch.matmul(x, wdeq))
+            t_k, t_p, t_l = (_time_ms(torch, f, device, iters) for f in fns)
+            warm = _device(t_k, t_p, t_l)
+            ms, plain_ms, lib_ms = (_flushed_ms(torch, f, device, iters,
+                                                flush) for f in fns)
+            dev_ms = _flushed_device_ms(torch, fns[0], device, iters, flush,
+                                        ("w8a16_",))
             nbytes = M * K * 4 + K * N + M * N * 4
             b_ms, b_by = _bound(nbytes, 2 * M * K * N)
             say(f"{tag} w8a16_matmul {name} M {M} K {K} N {N}: max_abs_err "
-                f"{err:.3e} (tol {TOL_W8A16 * scale:.3e}); device time "
-                f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, matmul over "
-                f"the dequantized weight {lib_ms:.4f} ms, bound {b_ms:.4f} "
-                f"ms ({b_by}; {nbytes} B); wall kernel {t_k[1]:.4f} ms")
+                f"{err:.3e} (tol {TOL_W8A16 * scale:.3e}), run to run "
+                f"bitwise {same}; L2 flushed (CUDA events): kernel {ms:.4f} "
+                f"ms, plain {plain_ms:.4f} ms, matmul over the dequantized "
+                f"weight {lib_ms:.4f} ms; warm (profiler, back to back): "
+                f"kernel {warm[0]:.4f}, plain {warm[1]:.4f}, matmul "
+                f"{warm[2]:.4f} ms; bound {b_ms:.4f} ms ({b_by}; {nbytes} "
+                f"B); warm wall kernel {t_k[1]:.4f} ms; kernel device time "
+                f"L2 flushed (profiler, no launch gap) {_fmt(dev_ms)}")
             if M == 8 and name != "head":
-                for key, val in (("ms", ms), ("plain_ms", plain_ms),
+                layer["device_ms"] = (None if dev_ms is None or
+                                      layer["device_ms"] is None else
+                                      layer["device_ms"] + dev_ms)
+                for key, val in (("ms", ms), ("warm_ms", warm[0]),
+                                 ("plain_ms", plain_ms),
                                  ("library_ms", lib_ms),
                                  ("bound_ms", b_ms)):
                     layer[key] += val
                 layer["max_abs_err"] = max(layer["max_abs_err"], err)
                 layer["by"].add(b_by)
+            del fns
         del w, wdeq
-    say(f"{tag} w8a16_matmul one layer's 4 projections at M 8: kernel "
-        f"{layer['ms']:.4f} ms, plain {layer['plain_ms']:.4f} ms, matmul "
-        f"{layer['library_ms']:.4f} ms, bound {layer['bound_ms']:.4f} ms")
+    del flush
+    say(f"{tag} w8a16_matmul one layer's 4 projections at M 8, L2 flushed: "
+        f"kernel {layer['ms']:.4f} ms, plain {layer['plain_ms']:.4f} ms, "
+        f"matmul {layer['library_ms']:.4f} ms, bound {layer['bound_ms']:.4f} "
+        f"ms; warm: kernel {layer['warm_ms']:.4f} ms; kernel device time L2 "
+        f"flushed (profiler) {_fmt(layer['device_ms'])}")
     return dict(
         name="w8a16_matmul", route="cuda",
         source="paddle_tpu_torch/csrc/int8_matmul.cu",
         replaces="paddle_tpu/ops/pallas/int8_matmul.py:61",
-        timed="one layer's 4 projections at 8 rows, warm, profiler device "
-        "time",
+        timed="one layer's 4 projections at 8 rows, L2 flushed, CUDA "
+        "events per call; warm_ms: back to back, profiler device time; "
+        "flushed_device_ms: L2 flushed, profiler device time",
         max_abs_err=layer["max_abs_err"], ms=layer["ms"],
-        plain_ms=layer["plain_ms"], bound_ms=layer["bound_ms"],
+        warm_ms=layer["warm_ms"], flushed_device_ms=layer["device_ms"],
+        plain_ms=layer["plain_ms"],
+        bound_ms=layer["bound_ms"],
         bound_by="bytes" if layer["by"] == {"bytes"} else "operations",
         library_ms=layer["library_ms"])
 
@@ -1385,17 +1454,23 @@ def phase_train_kernels(torch, device, cfg, tag, say):
         require(len(report) == 12 and not any(
             st or ld for _, st, ld in report.values()),
             f"the wgmma flash kernels spill or are missing: {report}")
-        # the redesigned serving kernels: the 3xTF32 gmm tile kernel and
-        # the split-KV ragged kernel (float32 / bf16 x three head widths
-        # of the span kernel, x two of the combine kernel)
+        # the redesigned serving kernels: the 3xTF32 gmm tile kernel, the
+        # split-KV ragged kernels over float and int8 pools (q float32 /
+        # bf16 x three head widths of the span kernel, x two of the
+        # combine kernel) and the w8a16 kernels (x float32 / bf16: the
+        # FMA kernel at 1, 2, 4 and 8 rows a block, the tensor-core one at
+        # 16 and 32)
         built = _build.build_all()
         for src, key, n in (("grouped_gemm", "gmm_tile_kernel", 1),
                             ("paged_attention", "span_kernel", 6),
-                            ("paged_attention", "combine_kernel", 4)):
+                            ("paged_attention", "combine_kernel", 4),
+                            ("paged_attention_int8", "span_kernel", 6),
+                            ("paged_attention_int8", "combine_kernel", 4),
+                            ("int8_matmul", "w8a16_", 12)):
             report = _ptxas_report(built[src].ptxas, key)
             for name, (regs, st, ld) in sorted(report.items()):
-                say(f"{tag} ptxas {name}: {regs} registers, spill stores "
-                    f"{st} B, spill loads {ld} B")
+                say(f"{tag} ptxas {src} {name}: {regs} registers, spill "
+                    f"stores {st} B, spill loads {ld} B")
             require(len(report) == n and not any(
                 st or ld for _, st, ld in report.values()),
                 f"{key} spills or is missing: {report}")
@@ -1546,7 +1621,8 @@ def _ptxas_report(text, key):
         if cur is None:
             continue
         k = re.search(r"(flash_[a-z]+_wgmma)ILi(\d+)ELb(\d)", cur)
-        t = re.search(r"(span_kernel|combine_kernel)I\w*?Li(\d+)E", cur)
+        t = re.search(r"(span_kernel|combine_kernel|w8a16_rows_kernel|"
+                      r"w8a16_tc_kernel)I\w*?Li(\d+)E", cur)
         name = (f"{k.group(1)}<{k.group(2)},{k.group(3)}>" if k else
                 f"{t.group(1)}<{'bf16' if 'bfloat16' in cur else 'f32'},"
                 f"{t.group(2)}>" if t else

@@ -1,5 +1,6 @@
-// Shared online-softmax attention body for the Hopper attention kernels
-// (paged_attention.cu, decode_attention.cu).
+// Online-softmax attention body of decode_attention.cu, and the types,
+// loads and limits that the split-KV ragged body (ragged_split.cuh)
+// shares with it.
 //
 // One thread block scores a small set of query rows (one query tile of a
 // sequence times the query heads of ONE kv head) against the keys at
@@ -123,8 +124,7 @@ __host__ inline int max_block_rows(int hd) {
 //   cvt(raw)          those 4 elements as floats, once the loads landed
 //   load1(which, p, d) one element as a float (unaligned heads)
 // RowsKV serves float32/bf16 rows: `at(which, p)` points at position p's
-// head_dim vector. Quantized sources (paged_attention.cuh PagedKVQ) keep
-// the int8 payload and its scale in Raw and dequantize in cvt.
+// head_dim vector.
 template <typename T, class Addr>
 struct RowsKV {
   Addr at;

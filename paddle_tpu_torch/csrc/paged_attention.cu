@@ -39,39 +39,33 @@
 // them, else from the table width, whose surplus spans exit at once) and
 // shared by every layer.
 //
-// paged_attention_int8.cu (int8 pools) keeps the first design
-// (paged_attention.cuh).
+// paged_attention_int8.cu runs the same body over int8 pools.
 //
-// Not yet done (later PRs): tensor cores for long prefill tiles, the
-// int8 pool on this body.
+// Not yet done (later PRs): tensor cores for long prefill tiles.
 #include "ragged_split.cuh"
 
 // tables, ws: see pt::split::launch. dtype: pt::kF32 or pt::kBF16 (q,
-// pool and out alike).
+// pool and out alike). scales: null (the int8 library's argument).
 extern "C" int pt_paged_attention_split(
     int dtype, const void* q, long long q_sr, long long q_sh,
-    const void* pool, const int* bt, int mb, const int* q_lens,
-    const int* kv_lens, const int* tables, int n_tiles, int n_items,
-    void* ws, void* out, int R, int nh, int nkv, int hd, int bs,
-    int max_rows, float scale, void* stream) {
+    const void* pool, const float* scales, const int* bt, int mb,
+    const int* q_lens, const int* kv_lens, const int* tables, int n_tiles,
+    int n_items, void* ws, void* out, int R, int nh, int nkv, int hd,
+    int bs, int max_rows, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (hd < 1 || hd > pt::kMaxHd || nkv < 1 || nh % nkv || max_rows < 1 ||
-      max_rows > pt::split::max_rows(hd))
-    return (int)cudaErrorInvalidValue;
-  if (dtype == pt::kF32)
-    return pt::split::launch_hd<float, float>(
-        q, q_sr, q_sh, pool, bt, mb, q_lens, kv_lens, tables, n_tiles,
-        n_items, ws, out, R, nh, nkv, hd, bs, max_rows, scale, s);
   if (dtype == pt::kBF16)
-    return pt::split::launch_hd<__nv_bfloat16, __nv_bfloat16>(
-        q, q_sr, q_sh, pool, bt, mb, q_lens, kv_lens, tables, n_tiles,
-        n_items, ws, out, R, nh, nkv, hd, bs, max_rows, scale, s);
-  return (int)cudaErrorInvalidValue;
+    return pt::split::entry<__nv_bfloat16>(
+        dtype, q, q_sr, q_sh, pool, scales, bt, mb, q_lens, kv_lens, tables,
+        n_tiles, n_items, ws, out, R, nh, nkv, hd, bs, max_rows, scale, s);
+  return pt::split::entry<float>(
+      dtype, q, q_sr, q_sh, pool, scales, bt, mb, q_lens, kv_lens, tables,
+      n_tiles, n_items, ws, out, R, nh, nkv, hd, bs, max_rows, scale, s);
 }
 
-// The most query rows (tile rows x g) one block holds at head width hd.
+// The most query rows (tile rows x g) one block holds at head width hd
+// (sized for float32 pages, so it holds for bf16 ones too).
 extern "C" int pt_paged_attention_max_rows(int hd) {
-  return pt::split::max_rows(hd);
+  return pt::split::max_rows_hd<float>(hd);
 }
 
 // Key positions per span (the host plan cuts its items by it).

@@ -12,6 +12,11 @@ version ``w8a16_matmul_reference``. The CUDA path never falls back. The
 Pallas module's tiling conditions (K and N multiples of its block sizes)
 are TPU limits: the kernel takes any K and N.
 
+One launch a call: where column strips and row tiles leave SMs idle, the
+kernel splits K over a thread-block cluster of up to 8 blocks and sums
+the splits inside the launch; ``w8a16_tiling`` chooses the row tile and
+the split on the host from the shapes and the SM count alone.
+
 Gradient: the CUDA path is a ``torch.autograd.Function`` whose backward
 is the plain contraction ``g @ w.float().T`` — the JAX package's
 ``_w8a16_bwd`` is an XLA contraction, not a Pallas kernel. The int8
@@ -20,6 +25,7 @@ weight gets no gradient.
 from __future__ import annotations
 
 import ctypes
+from typing import Tuple
 
 import torch
 
@@ -43,31 +49,79 @@ def w8a16_matmul_reference(x, w_int8):
     return x.float() @ w_int8.float()
 
 
+# the kernel's tiling (csrc/int8_matmul.cu, checked at library load):
+# output columns a block, K positions a ring stage, and the most blocks
+# of one cluster (the K splits of a column strip); rows a block:
+# ``row_tile``
+BLOCK_N, BLOCK_K, MAX_SPLITS = 64, 128, 8
+_LIB = {}
+
+
+def row_tile(M: int) -> int:
+    """Rows a block of the kernel holds for an M-row call: 1, 2, 4 or 8
+    up to 8 rows (decode; fp32 FMA), 16 up to 16 (a verify batch), else
+    32 (the tensor cores). Up to 32 rows, one row tile: each weight byte
+    is read once."""
+    for t in (1, 2, 4, 8, 16):
+        if M <= t:
+            return t
+    return 32
+
+
+def w8a16_tiling(M: int, K: int, N: int, sms: int) -> Tuple[int, int, int]:
+    """(rows a block, splits, per): the kernel's tiling of an [M, K] x
+    [K, N] call on a card of ``sms`` SMs. Split z takes K tiles (of
+    BLOCK_K positions) [z per, min(tiles, (z + 1) per)). Enough splits for
+    about one block an SM (at most MAX_SPLITS, a cluster), each owning at
+    least one tile; 1 where the column strips and row tiles alone fill
+    the SMs."""
+    tm = row_tile(M)
+    blocks = -(-N // BLOCK_N) * -(-M // tm)
+    k_tiles = -(-K // BLOCK_K)
+    want = 1 if blocks >= sms else -(-sms // blocks)
+    splits = max(1, min(MAX_SPLITS, k_tiles, want))
+    per = -(-k_tiles // splits)
+    return tm, -(-k_tiles // per), per
+
+
+def _lib():
+    """The library, its tiling checked against this module's at first
+    load (the host split and the kernel must cut K alike)."""
+    lib = _LIB.get("lib")
+    if lib is None:
+        from ._build import load
+        lib = load("int8_matmul")
+        got = (lib.pt_w8a16_block_n(), lib.pt_w8a16_block_k(),
+               lib.pt_w8a16_max_splits())
+        want = (BLOCK_N, BLOCK_K, MAX_SPLITS)
+        if got != want:
+            raise RuntimeError(f"csrc/int8_matmul.cu tiles by {got}, this "
+                               f"module by {want}")
+        fn = lib.pt_w8a16_matmul
+        vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+        fn.restype = ci
+        fn.argtypes = [ci, vp, ll, vp, vp, ci, ci, ci, ci, ci, ci, vp]
+        _LIB["lib"] = lib
+    return lib
+
+
 def _launch(x, w_int8):
     M, K = x.shape
     N = w_int8.shape[1]
-    from ._build import check, load, sm_count
-    lib = load("int8_matmul")
+    from ._build import check, sm_count
     out = torch.empty((M, N), dtype=torch.float32, device=x.device)
     if M == 0 or N == 0:
         return out
-    vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.pt_w8a16_splits.restype = ci
-    lib.pt_w8a16_splits.argtypes = [ci, ci, ci, ci]
-    splits = lib.pt_w8a16_splits(M, K, N, sm_count(x.device))
-    # partial tiles of a K split (summed in split order by the library)
-    ws = torch.empty((splits, M, N), dtype=torch.float32,
-                     device=x.device) if splits > 1 else None
-    fn = lib.pt_w8a16_matmul
-    fn.restype = ci
-    fn.argtypes = [ci, vp, ll, vp, vp, vp, ci, ci, ci, ci, ci, vp]
-    vec = int(N % 4 == 0 and w_int8.data_ptr() % 4 == 0)
+    if K == 0:
+        return out.zero_()
+    lib = _lib()
+    tm, splits, per = w8a16_tiling(M, K, N, sm_count(x.device))
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        err = fn(_DTYPES[x.dtype], x.data_ptr(), x.stride(0),
-                 w_int8.data_ptr(), out.data_ptr(),
-                 None if ws is None else ws.data_ptr(), M, K, N, splits,
-                 vec, stream)
+        err = lib.pt_w8a16_matmul(_DTYPES[x.dtype], x.data_ptr(),
+                                  x.stride(0), w_int8.data_ptr(),
+                                  out.data_ptr(), M, K, N, tm, splits, per,
+                                  stream)
     check(err, "w8a16_matmul")
     _LAUNCHES["count"] += 1
     return out

@@ -13,16 +13,16 @@ phase entry points (``paged_attention``, ``paged_attention_multi``,
 
 Dispatch: a CUDA tensor launches the hand-written kernel in
 ``csrc/paged_attention.cu`` — ``csrc/paged_attention_int8.cu`` for an int8
-pool with ``kv_scales`` — or raises; a CPU tensor takes the plain PyTorch
-version ``paged_attention_ragged_reference``. The CUDA path never falls
-back.
+pool with ``kv_scales``, the same split-KV body over int8 pages — or
+raises; a CPU tensor takes the plain PyTorch version
+``paged_attention_ragged_reference``. The CUDA path never falls back.
 
 Host descriptors: each sequence's rows are cut into tiles of ``tile_q``
 rows; a ``RaggedPlan`` holds, per tile, (sequence, query offset, real
-rows, first packed row). For float pools it also cuts each tile's
-visible keys into split-KV work items of ``SPAN`` absolute key
-positions, heaviest first; the kernel merges a row's items in span
-order. The positions follow on the device from ``kv_lens``, so a
+rows, first packed row), and cuts each tile's visible keys into split-KV
+work items of ``SPAN`` absolute key positions, heaviest first; the
+kernel merges a row's items in span order. Float and int8 pools launch
+from the same work list. The positions follow on the device from ``kv_lens``, so a
 serving step builds one plan and every layer's launch reuses it
 (``PagedRaggedView`` in inference/paged_cache.py). The kernel writes
 straight into the packed output — the Pallas path's pad/unpad gathers
@@ -31,13 +31,14 @@ do not exist here.
 Int8 pools (``kv_scales=``, the JAX module's quantized path): the pool
 holds int8 payload and ``kv_scales`` ``[num_blocks, 2, nkv, block_size]``
 float32 holds one scale per (block, K|V, kv head, position); the kernel
-dequantizes in registers, the plain version in ``gather_pages``.
+dequantizes staged elements where it reads them, the plain version in
+``gather_pages``.
 """
 from __future__ import annotations
 
 import ctypes
 import math
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -50,16 +51,16 @@ NEG_INF = -1e30
 # the H100 a prefill tile is bound by CUDA-core arithmetic, and narrower
 # tiles put more blocks on the 132 SMs (chip_smoke.py times both)
 DEFAULT_TILE_Q_CAP = 16
-# key positions per split-KV work item of the float-pool kernel (kSpan of
-# csrc/ragged_split.cuh): spans start at absolute multiples of it
+# key positions per split-KV work item (kSpan of csrc/ragged_split.cuh):
+# spans start at absolute multiples of it
 SPAN = 128
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 # launch count of the CUDA kernel (CPU calls run the plain version and
 # are not counted)
 _LAUNCHES = {"count": 0}
-# the float-pool library once loaded and checked (``_float_lib``)
-_FLOAT_LIB: Dict[str, ctypes.CDLL] = {}
+# the libraries once loaded and checked (``_lib``), by source name
+_LIBS: Dict[str, ctypes.CDLL] = {}
 
 
 def launch_count() -> int:
@@ -77,7 +78,7 @@ class RaggedPlan:
     ``tiles_host`` cuts each sequence's rows into query tiles (a function
     of the static ``q_lens`` and the tile width only). ``split_host`` cuts
     each tile's visible keys into work items of ``SPAN`` absolute key
-    positions for the split-KV kernel of float pools; it sizes them from
+    positions for the split-KV kernel (any pool type); it sizes them from
     the host ``kv_lens`` when the plan was built with them (the serving
     path has them before it copies them to the card), else from the table
     width, whose surplus items exit at once on the card. A plan built with
@@ -141,18 +142,6 @@ class RaggedPlan:
                     items=i32(np.stack([tile_of, sp], 1).reshape(-1, 2)),
                     order=i32(order), row_tile=i32(row_tile))
 
-    def device_tables(self, tile_q: int, device) -> Tuple[torch.Tensor,
-                                                          torch.Tensor]:
-        """(tiles [T, 4], q_lens) on ``device`` (the int8 pool kernel)."""
-        key = (int(tile_q), str(device))
-        got = self._dev.get(key)
-        if got is None:
-            tiles = torch.from_numpy(self.tiles_host(tile_q)).to(device)
-            qlens = torch.tensor(self.q_lens, dtype=torch.int32,
-                                 device=device)
-            got = self._dev[key] = (tiles, qlens)
-        return got
-
     def split_tables(self, tile_q: int, width: int, device):
         """(packed tables, tiles, items, q_lens) on ``device``, one int32
         tensor (one copy to the card a batch): each launched block's item
@@ -178,25 +167,35 @@ class RaggedPlan:
         return got
 
 
-def _float_lib() -> ctypes.CDLL:
-    """The float-pool library, its kSpan checked against SPAN at first
-    load (the host plan and the kernel must cut spans alike)."""
-    lib = _FLOAT_LIB.get("lib")
+def _lib(quant: bool) -> ctypes.CDLL:
+    """The float-pool or int8-pool library, its kSpan checked against
+    SPAN at first load (the host plan and the kernel must cut spans
+    alike)."""
+    name = "paged_attention_int8" if quant else "paged_attention"
+    lib = _LIBS.get(name)
     if lib is None:
         from ._build import load
-        lib = load("paged_attention")
+        lib = load(name)
         if lib.pt_paged_attention_span() != SPAN:
-            raise RuntimeError("csrc/ragged_split.cuh's kSpan is not "
+            raise RuntimeError(f"csrc/{name}.cu's kSpan is not "
                                f"SPAN = {SPAN}")
-        _FLOAT_LIB["lib"] = lib
+        ci = ctypes.c_int
+        lib.pt_paged_attention_max_rows.restype = ci
+        lib.pt_paged_attention_max_rows.argtypes = [ci]
+        fn = lib.pt_paged_attention_split
+        fn.restype = ci
+        vp, ll = ctypes.c_void_p, ctypes.c_longlong
+        fn.argtypes = [ci, vp, ll, ll, vp, vp, vp, ci, vp, vp, vp, ci, ci,
+                       vp, vp, ci, ci, ci, ci, ci, ci, ctypes.c_float, vp]
+        _LIBS[name] = lib
     return lib
 
 
 def rows_vectorizable(t: torch.Tensor, strides) -> bool:
-    """Whether the kernels may read ``t``'s head_dim vectors four
+    """Whether the decode kernel may read ``t``'s head_dim vectors four
     elements at a time: head_dim a multiple of 4, the given strides too,
     and the base aligned to four elements (16 bytes for float32, 8 for
-    bfloat16, 4 for an int8 pool)."""
+    bfloat16)."""
     align = 4 * t.element_size()
     return t.shape[-1] % 4 == 0 and t.data_ptr() % align == 0 and \
         all(s % 4 == 0 for s in strides)
@@ -230,7 +229,7 @@ def paged_attention_ragged(q, kv_pool, block_tables, q_lens, kv_lens,
                          f"{sum(q_lens)}")
     if R == 0:
         return q
-    nkv, bs = kv_pool.shape[2], kv_pool.shape[3]
+    nkv = kv_pool.shape[2]
     if nh % nkv:
         raise ValueError(f"query heads {nh} are not a multiple of the "
                          f"pool's kv heads {nkv}")
@@ -257,7 +256,6 @@ def paged_attention_ragged(q, kv_pool, block_tables, q_lens, kv_lens,
         return paged_attention_ragged_reference(
             q, kv_pool, block_tables, q_lens, kv_lens, sm_scale=sm_scale,
             kv_scales=kv_scales)
-    g = nh // nkv
     dev = q.device
     if kv_pool.device != dev or (quant and kv_scales.device != dev):
         raise ValueError("q, kv_pool and kv_scales must be on the same "
@@ -273,14 +271,6 @@ def paged_attention_ragged(q, kv_pool, block_tables, q_lens, kv_lens,
         raise ValueError("q's head_dim axis must be contiguous")
     if not kv_pool.is_contiguous():
         raise ValueError("kv_pool must be contiguous")
-    from ._build import check, load
-    lib = load("paged_attention_int8") if quant else _float_lib()
-    # query rows (tile rows x group) one block holds in shared memory
-    max_rows = (lib.pt_paged_attention_int8_max_rows if quant
-                else lib.pt_paged_attention_max_rows)(hd)
-    if max_rows < g:
-        raise ValueError(f"head_dim {hd} with GQA group {g} does not fit "
-                         f"one block (head_dim <= 256)")
     bt = _as_int32(block_tables, dev).contiguous()
     if bt.dim() != 2 or bt.shape[0] != len(q_lens):
         raise ValueError(f"block_tables must be [{len(q_lens)}, MB], got "
@@ -289,47 +279,49 @@ def paged_attention_ragged(q, kv_pool, block_tables, q_lens, kv_lens,
     if lens.shape[0] != len(q_lens):
         raise ValueError("kv_lens needs one entry per sequence")
     scale = sm_scale if sm_scale is not None else 1.0 / math.sqrt(hd)
+    lib = _lib(quant)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        out = _launch(lib, q, kv_pool, kv_scales, bt, lens, q_lens,
+                      host_lens, plan, tile_q, scale, stream)
+    _LAUNCHES["count"] += 1
+    return out
+
+
+def _launch(lib, q, kv_pool, kv_scales, bt, lens, q_lens, host_lens, plan,
+            tile_q, scale, stream):
+    """One launch of ``lib``'s split-KV kernel, for either pool type: the
+    tile width, the plan's work list on q's device, the partials'
+    workspace and the output (returned). bt, lens: int32 on q's device;
+    host_lens: the lengths on the host, or None."""
+    R, nh, hd = q.shape
+    nkv, bs = kv_pool.shape[2], kv_pool.shape[3]
+    g = nh // nkv
+    # query rows (tile rows x group) one block holds in shared memory
+    max_rows = lib.pt_paged_attention_max_rows(hd)
+    if max_rows < g:
+        raise ValueError(f"head_dim {hd} with GQA group {g} does not fit "
+                         f"one block (head_dim <= 256)")
     if tile_q is None:
         tile_q = min(DEFAULT_TILE_Q_CAP, max(q_lens))
     tile_q = max(1, min(int(tile_q), max_rows // g))
     if plan is None or plan.q_lens != q_lens:
         plan = RaggedPlan(q_lens, host_lens)
-    out = torch.empty((R, nh, hd), dtype=q.dtype, device=dev)
-    vp, ll, ci = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        if quant:
-            tiles, qlens_dev = plan.device_tables(tile_q, dev)
-            fn = lib.pt_paged_attention_ragged_int8
-            fn.restype = ci
-            fn.argtypes = [ci, vp, ll, ll, vp, vp, vp, ci, vp, vp, vp, ci,
-                           vp, ci, ci, ci, ci, ci, ctypes.c_float, ci, vp]
-            err = fn(_DTYPES[q.dtype], q.data_ptr(), q.stride(0),
-                     q.stride(1), kv_pool.data_ptr(), kv_scales.data_ptr(),
-                     bt.data_ptr(), bt.shape[1], qlens_dev.data_ptr(),
-                     lens.data_ptr(), tiles.data_ptr(), tiles.shape[0],
-                     out.data_ptr(), nh, nkv, hd, bs, tile_q * g,
-                     float(scale), int(rows_vectorizable(kv_pool, ())),
-                     stream)
-        else:
-            tables, n_tiles, n_items, qlens_dev = plan.split_tables(
-                tile_q, bt.shape[1] * bs, dev)
-            # each item's partial (acc [max_rows, hd], then m, l)
-            ws = torch.empty(nkv * n_items * tile_q * g * (hd + 2),
-                             dtype=torch.float32, device=dev)
-            fn = lib.pt_paged_attention_split
-            fn.restype = ci
-            fn.argtypes = [ci, vp, ll, ll, vp, vp, ci, vp, vp, vp, ci, ci,
-                           vp, vp, ci, ci, ci, ci, ci, ci, ctypes.c_float,
-                           vp]
-            err = fn(_DTYPES[q.dtype], q.data_ptr(), q.stride(0),
-                     q.stride(1), kv_pool.data_ptr(), bt.data_ptr(),
-                     bt.shape[1], qlens_dev.data_ptr(), lens.data_ptr(),
-                     tables.data_ptr(), n_tiles, n_items, ws.data_ptr(),
-                     out.data_ptr(), R, nh, nkv, hd, bs, tile_q * g,
-                     float(scale), stream)
+    tables, n_tiles, n_items, qlens_dev = plan.split_tables(
+        tile_q, bt.shape[1] * bs, q.device)
+    # each item's partial (acc [max_rows, hd], then m, l)
+    ws = torch.empty(nkv * n_items * tile_q * g * (hd + 2),
+                     dtype=torch.float32, device=q.device)
+    out = torch.empty((R, nh, hd), dtype=q.dtype, device=q.device)
+    from ._build import check
+    err = lib.pt_paged_attention_split(
+        _DTYPES[q.dtype], q.data_ptr(), q.stride(0), q.stride(1),
+        kv_pool.data_ptr(),
+        None if kv_scales is None else kv_scales.data_ptr(), bt.data_ptr(),
+        bt.shape[1], qlens_dev.data_ptr(), lens.data_ptr(),
+        tables.data_ptr(), n_tiles, n_items, ws.data_ptr(), out.data_ptr(),
+        R, nh, nkv, hd, bs, tile_q * g, float(scale), stream)
     check(err, "paged_attention_ragged")
-    _LAUNCHES["count"] += 1
     return out
 
 

@@ -280,6 +280,104 @@ def test_int8_ragged_kernel_matches_plain_version(name, qdtype):
     torch.testing.assert_close(got.float(), ref, **tol)
 
 
+INT8_SPLIT = {
+    # name: (nh, nkv, hd, bs, q_lens, kv_lens, MB, trash_rows, q dtype,
+    #        tile_q)
+    # long decode rows: 65, 24 and 3 spans
+    "decode_long_rows": (4, 4, 64, 16, (1, 1, 1), (8200, 3000, 300), 513,
+                         (), "float32", None),
+    # 48-position pages: the span edges at 256 and 512 fall mid-page
+    "span_edge_mid_page": (4, 4, 64, 48, (40, 1), (300, 530), 12, (),
+                           "float32", 16),
+    # tile rows at 248..263: for the first 8, the span [256, 264) holds
+    # only keys the causal mask hides
+    "masked_span": (4, 4, 64, 16, (16, 1), (264, 9), 17, (), "float32",
+                    16),
+    "gqa_g4_hd128": (16, 4, 128, 16, (1, 20, 3), (700, 300, 3), 44, (),
+                     "float32", None),
+    "gqa_g4_hd256": (4, 1, 256, 16, (1, 5), (400, 70), 25, (), "float32",
+                     None),
+    "bf16_q_gqa_g4": (16, 4, 64, 16, (1, 20, 3), (700, 300, 3), 44, (),
+                      "bfloat16", None),
+    # hd % 16 != 0: 4-byte copies; hd % 4 != 0: plain loads
+    "hd40_4_byte_copies": (4, 2, 40, 16, (1, 7), (300, 150), 20, (),
+                           "float32", None),
+    "hd30_plain_loads": (4, 2, 30, 16, (1, 3), (40, 70), 5, (), "float32",
+                         None),
+    # row 0 at t = 0 through an all-trash table: block 0, zero scales
+    "all_trash_row_zero_scales": (4, 4, 64, 16, (1, 2, 1), (1, 200, 9), 13,
+                                  (0,), "float32", None),
+}
+
+
+def _int8_pool(pool):
+    """The pool quantized as the serving appends write it; trash block 0
+    keeps zero scales."""
+    qp, sc = _quant_rows(pool)
+    qp[0], sc[0] = 0, 0.0
+    return qp, sc
+
+
+@pytest.mark.parametrize("host_lens", [True, False])
+@pytest.mark.parametrize("name", sorted(INT8_SPLIT))
+def test_int8_split_kv_matches_plain_version(name, host_lens):
+    """The int8 pool on the split-KV body against the plain version
+    (float32 q within TOL: both sides dequantize the same bytes, the
+    kernel with each key's scale factored out of its dot product; bf16 q
+    within its rounding), finite, and bitwise equal across two calls.
+    host_lens: spans sized from the host lengths or the table width."""
+    _need_cuda()
+    nh, nkv, hd, bs, q_lens, kv_lens, MB, trash, dt, tile_q = \
+        INT8_SPLIT[name]
+    q, pool, bt, lens = _ragged(14, nh, nkv, hd, bs, q_lens, kv_lens, MB,
+                                trash)
+    qp, sc = _int8_pool(pool)
+    q = q.to(getattr(torch, dt))
+    dev_lens = torch.from_numpy(lens).cuda()
+    plan = tpa.RaggedPlan(q_lens, lens if host_lens else None)
+    before = tpa.launch_count()
+    got = tpa.paged_attention_ragged(q, qp, bt, q_lens, dev_lens,
+                                     tile_q=tile_q, plan=plan, kv_scales=sc)
+    assert tpa.launch_count() == before + 1
+    again = tpa.paged_attention_ragged(q, qp, bt, q_lens, dev_lens,
+                                       tile_q=tile_q, plan=plan,
+                                       kv_scales=sc)
+    assert torch.equal(got, again)
+    ref = tpa.paged_attention_ragged_reference(q.float(), qp, bt, q_lens,
+                                               lens, kv_scales=sc)
+    assert torch.isfinite(got).all()
+    tol = TOL if dt == "float32" else dict(atol=1e-2, rtol=1e-2)
+    torch.testing.assert_close(got.float(), ref, **tol)
+    for s in trash:          # zero scales: zero keys and values
+        r0 = sum(q_lens[:s])
+        assert not got[r0:r0 + q_lens[s]].any()
+
+
+def test_int8_ragged_rows_do_not_depend_on_the_rest_of_the_step():
+    """The int8 twin of the float test: one sequence's rows alone, inside
+    a mixed step, at another tile width and with spans sized from the
+    table width give the same bits."""
+    _need_cuda()
+    nh, nkv, hd, bs, MB = 8, 2, 64, 16, 40
+    q_lens = (50, 1, 0, 128, 1)
+    kv_lens = (560, 610, 7, 384, 1)
+    q, pool, bt, lens = _ragged(15, nh, nkv, hd, bs, q_lens, kv_lens, MB,
+                                ())
+    qp, sc = _int8_pool(pool)
+    mixed = tpa.paged_attention_ragged(q, qp, bt, q_lens, lens,
+                                       kv_scales=sc)
+    for s in (0, 1, 3):
+        r0 = sum(q_lens[:s])
+        rows = q[r0:r0 + q_lens[s]]
+        want = mixed[r0:r0 + q_lens[s]]
+        one = ((q_lens[s],), lens[s:s + 1], bt[s:s + 1])
+        assert torch.equal(tpa.paged_attention_ragged(
+            rows, qp, one[2], one[0], one[1], kv_scales=sc), want)
+        assert torch.equal(tpa.paged_attention_ragged(
+            rows, qp, one[2], one[0], torch.from_numpy(one[1]).cuda(),
+            tile_q=5, kv_scales=sc), want)
+
+
 W8A16 = {
     # name: (M, K, N, x dtype, x row stride padding)
     "decode_qkv": (8, 1024, 3072, "float32", 0),
@@ -288,6 +386,21 @@ W8A16 = {
     "odd_widths": (5, 300, 77, "float32", 0),      # 1-byte weight loads
     "strided_x": (8, 512, 256, "float32", 64),
     "bfloat16_x": (8, 1024, 512, "bfloat16", 0),
+    # every row tile (1, 2, 4, 8, 16 rows; 16-row tiles past 16), odd K
+    # and N (zero-filled tails, 1-byte weight loads), x rows of 4-byte and
+    # of odd bf16 strides (4-byte copies, plain loads)
+    "m2_odd_k_odd_n": (2, 129, 33, "float32", 0),
+    "m7": (7, 1024, 1024, "float32", 0),
+    "m9_odd_k": (9, 1001, 3072, "float32", 0),
+    "verify_m16_ffn2": (16, 4096, 1024, "float32", 0),
+    "m17_odd_n": (17, 1024, 1027, "float32", 0),
+    "m64_ffn1": (64, 1024, 4096, "float32", 0),
+    "x_stride_4_bytes": (8, 512, 256, "float32", 1),
+    "bf16_odd_x_stride": (16, 512, 256, "bfloat16", 3),
+    "bf16_m256_qkv": (256, 1024, 3072, "bfloat16", 0),
+    # the head: N 50304, one split
+    "head_m1": (1, 1024, 50304, "float32", 0),
+    "head_m8": (8, 1024, 50304, "float32", 0),
 }
 
 

@@ -197,3 +197,48 @@ def test_plan_with_lengths_is_refused_for_other_lengths(lens_as):
                                    plan=plan)
     tpa.paged_attention_ragged(q, pool, bt, q_lens, as_arg(lens + 1),
                                plan=tpa.RaggedPlan(q_lens))
+
+
+class _RecordingLib:
+    """Stands in for a kernel library on the CPU: records the arguments of
+    each ``pt_paged_attention_split`` call and reports success."""
+
+    def __init__(self, max_rows):
+        self.calls = []
+        self.pt_paged_attention_max_rows = lambda hd: max_rows
+        self.pt_paged_attention_split = lambda *a: self.calls.append(a) or 0
+
+
+@pytest.mark.parametrize("host_lens", [True, False])
+def test_int8_pool_launches_from_the_split_work_list(host_lens):
+    """The int8 pool goes through the float pool's launch path: the same
+    plan, the same packed work list (split_tables) and workspace, with
+    only the pool pointer and its scales added."""
+    q_lens, kv_lens = (20, 1, 0, 3), (300, 700, 5, 130)
+    q, pool, bt, lens = _case(6, 8, 2, 16, 16, q_lens, kv_lens, 44)
+    q, pool = torch.from_numpy(q), torch.from_numpy(pool)
+    qpool = torch.zeros(pool.shape, dtype=torch.int8)
+    scales = torch.ones(pool.shape[:4])
+    btt, lt = torch.from_numpy(bt), torch.from_numpy(lens)
+    plan = tpa.RaggedPlan(q_lens, lens if host_lens else None)
+    got = {}
+    for name, p, sc in (("float", pool, None), ("int8", qpool, scales)):
+        lib = _RecordingLib(max_rows=128)
+        out = tpa._launch(lib, q, p, sc, btt, lt, q_lens,
+                          lens if host_lens else None, plan, None, 0.25, 0)
+        assert out.shape == q.shape and len(lib.calls) == 1
+        got[name] = lib.calls[0]
+    f, i = got["float"], got["int8"]
+    # argument 4: the pool, 5: its scales (null for a float pool)
+    assert f[4] == pool.data_ptr() and i[4] == qpool.data_ptr()
+    assert f[5] is None and i[5] == scales.data_ptr()
+    # every other argument alike but the workspace and output pointers
+    # (13, 14): the tables tensor of the plan's cache (10), its tile and
+    # item counts, the shapes and the tile rows
+    assert f[:4] == i[:4] and f[6:13] == i[6:13] and f[15:] == i[15:]
+    tile_q = min(tpa.DEFAULT_TILE_Q_CAP, max(q_lens))
+    tables, n_tiles, n_items, _ = plan.split_tables(tile_q, 44 * 16, "cpu")
+    assert f[10] == tables.data_ptr() and (f[11], f[12]) == (n_tiles,
+                                                             n_items)
+    h = plan.split_host(tile_q, 44 * 16)
+    assert n_items == h["items"].shape[0] and n_tiles == h["tiles"].shape[0]

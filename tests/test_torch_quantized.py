@@ -157,6 +157,34 @@ def test_w8a16_plain_matches_pallas(M):
            w.astype(np.float32).T)
 
 
+@pytest.mark.parametrize("sms", [132, 16, 1])
+@pytest.mark.parametrize("M,K,N", [
+    (1, 1024, 3072), (8, 1024, 1024), (8, 4096, 1024), (16, 1024, 4096),
+    (8, 1024, 50304), (256, 1024, 3072), (64, 1024, 1024), (17, 300, 77),
+    (2, 127, 5), (9, 129, 64), (1, 100000, 64), (1, 1, 1), (33, 512, 64)])
+def test_w8a16_tiling(M, K, N, sms):
+    """The host's tiling of a w8a16 call: row tiles of 1, 2, 4 or 8 rows
+    (the FMA kernel) up to 8 rows, 16 up to 16, else 32 (the tensor-core
+    kernel); every K split owns at least
+    one K position, together they cover K exactly once, a cluster holds
+    at most MAX_SPLITS blocks, and a call whose column strips and row
+    tiles already fill the SMs takes one split."""
+    tm, splits, per = tim.w8a16_tiling(M, K, N, sms)
+    assert tm == min(t for t in (1, 2, 4, 8, 16, 32) if t >= min(M, 32))
+    assert 1 <= splits <= tim.MAX_SPLITS and per >= 1
+    span = per * tim.BLOCK_K
+    owned = [max(0, min(K, (z + 1) * span) - z * span)
+             for z in range(splits)]
+    assert min(owned) >= 1 and sum(owned) == K
+    blocks = -(-N // tim.BLOCK_N) * -(-M // tm)
+    if blocks >= sms:
+        assert splits == 1
+    else:   # as many as one block an SM asks for, as K and a cluster allow
+        k_tiles = -(-K // tim.BLOCK_K)
+        want = min(tim.MAX_SPLITS, k_tiles, -(-sms // blocks))
+        assert splits == -(-k_tiles // -(-k_tiles // want))
+
+
 @pytest.mark.parametrize("rows", [256, 257])
 def test_quantized_matmul_matches_jax(rows):
     """256 rows take the w8a16 path on both sides, 257 the dequantized
