@@ -512,35 +512,104 @@ def phase_kernels(torch, device, cfg, tag, say):
                             torch.tensor([0, 5], dtype=torch.int32,
                                          device=device))
     require(not bool(z[0].any()), "decode kernel: length 0 not zeros")
+    # the ragged kernel's decode rows over a pool holding the same cache
+    # (its blocks shuffled): the same split-KV body, bit for bit
+    MBd = S // bs
+    bt_d = rng.permutation(np.arange(1, 1 + B * MBd)).reshape(B, MBd)
+    pool_d = pa.scatter_pages(kc, vc, bt_d, 1 + B * MBd)
+    bt_d = torch.from_numpy(bt_d.astype(np.int32)).to(device)
+    paged = pa.paged_attention_ragged(qd, pool_d, bt_d, (1,) * B, lens)
+    as_paged = bool(torch.equal(paged, got))
+    same = bool(torch.equal(da.decode_attention(qd, kc, vc, lens), got))
+    del pool_d, paged
     say(f"{tag} decode_attention vs plain: max_abs_err {err:.3e} "
-        f"(tol {TOL_KERNEL}) B {B} S {S}")
+        f"(tol {TOL_KERNEL}) B {B} S {S}; bitwise equal to the ragged "
+        f"kernel's decode rows over the same K/V in pages: {as_paged}; run "
+        f"to run bitwise {same}")
     require(err <= TOL_KERNEL, f"decode kernel disagrees: {err}")
-    dmask = (torch.arange(S, device=device)[None, :]
-             < lens[:, None])[:, None, None]
-    t_k = _time_ms(torch, lambda: da.decode_attention(qd, kc, vc, lens),
-                   device, iters)
-    t_p = _time_ms(torch, lambda: da.decode_attention_reference(
-        qd, kc, vc, lens), device, iters)
-    t_l = _time_ms(torch, lambda: F.scaled_dot_product_attention(
-        qd[:, :, None], cache[0], cache[1], attn_mask=dmask), device,
-        iters)
-    ms, plain_ms, lib_ms = _device(t_k, t_p, t_l)
-    tot = int(lens.sum())
-    nbytes = 2 * B * H * hd * 4 + tot * H * hd * 2 * 4 + B * 4
-    b_ms, b_by = _bound(nbytes, tot * 4 * hd * H)
-    say(f"{tag} decode_attention device time: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms, bound {b_ms:.4f} ms "
-        f"({b_by}; {nbytes} B); wall per call: kernel {t_k[1]:.4f}, plain "
-        f"{t_p[1]:.4f}, sdpa {t_l[1]:.4f} ms")
+    require(as_paged, "decode kernel: not bitwise the ragged kernel's "
+            "decode rows")
+    require(same, "decode kernel: two launches differ")
+    t = decode_timings(torch, device, qd, cache, lens, iters)
+    # the same widths at one long row (64 spans; 67 MB of K/V, above L2)
+    SL = 8192
+    cache_l = torch.randn((2, 1, H, SL, hd), generator=torch.Generator(
+        ).manual_seed(5)).to(device)
+    ql = torch.randn((1, H, hd), generator=torch.Generator(
+        ).manual_seed(6)).to(device)
+    lens_l = torch.full((1,), SL, dtype=torch.int32, device=device)
+    kl, vl = cache_l[0].transpose(1, 2), cache_l[1].transpose(1, 2)
+    err_l = float((da.decode_attention(ql, kl, vl, lens_l) -
+                   da.decode_attention_reference(ql, kl, vl, lens_l)
+                   ).abs().max())
+    say(f"{tag} decode_attention one long row vs plain: max_abs_err "
+        f"{err_l:.3e} (tol {TOL_KERNEL}) B 1 S {SL}")
+    require(err_l <= TOL_KERNEL, f"decode kernel disagrees at one long "
+            f"row: {err_l}")
+    tl = decode_timings(torch, device, ql, cache_l, lens_l, iters)
+    del cache_l, kl, vl
+    for what, tt in ((f"{B} rows over {S} positions", t),
+                     (f"one row of {SL} positions", tl)):
+        say(f"{tag} decode_attention, {what}: L2 flushed (CUDA events): "
+            f"kernel {tt['ms']:.4f} ms, plain {tt['plain_ms']:.4f} ms, sdpa "
+            f"{tt['library_ms']:.4f} ms; kernel device time L2 flushed "
+            f"(profiler, no launch gap) {_fmt(tt['flushed_device_ms'])}; "
+            f"warm (profiler device time, back to back): kernel "
+            f"{tt['warm_ms']:.4f}, plain {tt['warm_plain_ms']:.4f}, sdpa "
+            f"{tt['warm_library_ms']:.4f} ms; bound {tt['bound_ms']:.4f} ms "
+            f"({tt['bound_by']}; {tt['bytes']} B); warm wall per call: "
+            f"kernel {tt['wall_ms']:.4f} ms")
     rows["decode_attention"] = dict(
         name="decode_attention", route="cuda",
         source="paddle_tpu_torch/csrc/decode_attention.cu",
         replaces="paddle_tpu/ops/pallas/decode_attention.py:86",
-        timed=f"{B} rows over {S} positions, warm, profiler device time",
-        max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=lib_ms)
+        timed=f"{B} rows over {S} positions, L2 flushed, CUDA events per "
+        f"call (span and combine launches); plain_ms and library_ms "
+        f"likewise; warm_ms: back to back, profiler device time; "
+        f"flushed_device_ms: L2 flushed, profiler device time of both "
+        f"kernels; long_*: one row of {SL} positions, L2 flushed, CUDA "
+        f"events",
+        max_abs_err=max(err, err_l), ms=t["ms"], warm_ms=t["warm_ms"],
+        flushed_device_ms=t["flushed_device_ms"], plain_ms=t["plain_ms"],
+        bound_ms=t["bound_ms"], bound_by=t["bound_by"],
+        library_ms=t["library_ms"], long_ms=tl["ms"],
+        long_bound_ms=tl["bound_ms"], long_library_ms=tl["library_ms"])
     rows["w8a16_matmul"] = phase_w8a16(torch, device, cfg, tag, say)
     return rows
+
+
+def decode_timings(torch, device, q, cache, lens, iters):
+    """``decode_attention`` over the [B, S, H, hd] views of ``cache`` [2,
+    B, H, S, hd] at ``lens``, its plain version and one sdpa call: each L2
+    flushed (CUDA events per call) and warm (profiler device time, back
+    to back); the kernel's L2-flushed device time (profiler: the span
+    and the combine kernels, named decode_*); the bytes bound (q read and
+    out written once, each row's valid K/V once)."""
+    from paddle_tpu_torch.ops.hopper import decode_attention as da
+    F = torch.nn.functional
+    B, H, S, hd = cache.shape[1:]
+    kc, vc = cache[0].transpose(1, 2), cache[1].transpose(1, 2)
+    dmask = (torch.arange(S, device=device)[None, :]
+             < lens[:, None])[:, None, None]
+    fns = (lambda: da.decode_attention(q, kc, vc, lens),
+           lambda: da.decode_attention_reference(q, kc, vc, lens),
+           lambda: F.scaled_dot_product_attention(
+               q[:, :, None], cache[0], cache[1], attn_mask=dmask))
+    t_k, t_p, t_l = (_time_ms(torch, f, device, iters) for f in fns)
+    warm = _device(t_k, t_p, t_l)
+    flush = _flush_buffer(torch, device)
+    ms, plain_ms, lib_ms = (_flushed_ms(torch, f, device, iters, flush)
+                            for f in fns)
+    dev_ms = _flushed_device_ms(torch, fns[0], device, iters, flush,
+                                ("decode_",))
+    tot = int(lens.clamp(0, S).sum())
+    nbytes = 2 * B * H * hd * 4 + tot * H * hd * 2 * 4 + B * 4
+    b_ms, b_by = _bound(nbytes, tot * 4 * hd * H)
+    del flush
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                flushed_device_ms=dev_ms, warm_ms=warm[0],
+                warm_plain_ms=warm[1], warm_library_ms=warm[2],
+                wall_ms=t_k[1], bound_ms=b_ms, bound_by=b_by, bytes=nbytes)
 
 
 def phase_w8a16(torch, device, cfg, tag, say):
@@ -1455,9 +1524,9 @@ def phase_train_kernels(torch, device, cfg, tag, say):
             st or ld for _, st, ld in report.values()),
             f"the wgmma flash kernels spill or are missing: {report}")
         # the redesigned serving kernels: the 3xTF32 gmm tile kernel, the
-        # split-KV ragged kernels over float and int8 pools (q float32 /
-        # bf16 x three head widths of the span kernel, x two of the
-        # combine kernel) and the w8a16 kernels (x float32 / bf16: the
+        # split-KV kernels over float and int8 pools and dense caches (q
+        # float32 / bf16 x three head widths of each span kernel, x two of
+        # the paged combine kernel, x one of the dense one) and the w8a16 kernels (x float32 / bf16: the
         # FMA kernel at 1, 2, 4 and 8 rows a block, the tensor-core one at
         # 16 and 32)
         built = _build.build_all()
@@ -1466,6 +1535,9 @@ def phase_train_kernels(torch, device, cfg, tag, say):
                             ("paged_attention", "combine_kernel", 4),
                             ("paged_attention_int8", "span_kernel", 6),
                             ("paged_attention_int8", "combine_kernel", 4),
+                            ("decode_attention", "decode_span_kernel", 6),
+                            ("decode_attention", "decode_combine_kernel",
+                             2),
                             ("int8_matmul", "w8a16_", 12)):
             report = _ptxas_report(built[src].ptxas, key)
             for name, (regs, st, ld) in sorted(report.items()):
@@ -1621,11 +1693,12 @@ def _ptxas_report(text, key):
         if cur is None:
             continue
         k = re.search(r"(flash_[a-z]+_wgmma)ILi(\d+)ELb(\d)", cur)
-        t = re.search(r"(span_kernel|combine_kernel|w8a16_rows_kernel|"
-                      r"w8a16_tc_kernel)I\w*?Li(\d+)E", cur)
+        t = re.search(r"(decode_span_kernel|decode_combine_kernel|"
+                      r"span_kernel|combine_kernel|w8a16_rows_kernel|"
+                      r"w8a16_tc_kernel)I\w*?(?:Li(\d+)E|E)", cur)
         name = (f"{k.group(1)}<{k.group(2)},{k.group(3)}>" if k else
-                f"{t.group(1)}<{'bf16' if 'bfloat16' in cur else 'f32'},"
-                f"{t.group(2)}>" if t else
+                f"{t.group(1)}<{'bf16' if 'bfloat16' in cur else 'f32'}"
+                f"{',' + t.group(2) if t.group(2) else ''}>" if t else
                 "gmm_tile_kernel" if "gmm_tile_kernel" in cur else cur)
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)

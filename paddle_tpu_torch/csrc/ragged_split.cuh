@@ -1,22 +1,27 @@
-// Split-KV ragged paged attention body for Hopper (sm_90a): the kernel of
-// paged_attention.cu (float32 and bf16 pools) and paged_attention_int8.cu
-// (int8 pools with per-position scales). See those sources for what it
-// computes and why it is laid out so.
+// Split-KV attention body for Hopper (sm_90a): the kernel of
+// paged_attention.cu (float32 and bf16 pools), paged_attention_int8.cu
+// (int8 pools with per-position scales) and decode_attention.cu (dense
+// float32 / bf16 caches). See those sources for what they compute and
+// why it is laid out so.
 //
 // Work items: (query tile, span) x kv head. A span is kSpan key positions
 // aligned to ABSOLUTE positions ([s kSpan, (s + 1) kSpan)), cut at the
 // tile's causal frontier. One block scores every query row of its tile
 // (tile rows x the g query heads of its kv head) against the span's keys
-// and writes each row's partial online-softmax state (m, l, acc) to a
-// workspace slot; combine_kernel merges a row's spans in span order.
+// (span_body) and writes each row's partial online-softmax state (m, l,
+// acc) to a workspace slot; merge_spans merges a row's spans in span
+// order. The paged kernels take their items from the host plan and their
+// K/V rows through the block table (PagedSrc); the dense decode kernel
+// makes (row, span) items from its grid and reads its rows through the
+// cache's strides (its DenseSrc).
 //
 // Inside a block the span streams through a ring of NS shared-memory
 // stages of kCh positions (K and V in the pool's own element type, each
 // position's page row copied by cp.async: 16 bytes a copy where the rows
 // allow it, 4 bytes otherwise, plain loads below that; each row padded
 // by 16 bytes, so the 32 lanes reading 32 keys' rows hit distinct banks).
-// The pool row of every position of the span is computed once from the
-// block table.
+// A paged block computes the pool row of every position of its span once
+// from the block table.
 //
 // Every row's arithmetic is fixed by key positions alone: the row's warp
 // (row mod kSWarps) gives lane j the key at chunk offset j and sums its
@@ -157,32 +162,65 @@ struct Partials {
   }
 };
 
-// One thread's part in staging a span's chunks: chunk c -> ring stage
-// c % stages (K at the stage's start, V after it, then an int8 pool's
-// scales), each position's page row (its pool row from row_s) by
-// cp.async copies of `copy` bytes, or plain loads (kCopySync); positions
-// past k_hi are not copied (never read). Where a row's copies divide the
-// block, a thread keeps one column of copies. An int8 pool's K and V
-// scales of a position (scales[row], scales[row + v_srow]) are copied by
-// 4-byte cp.async into the same stage, in the same group.
+// Where a span's K/V rows come from: Src::krow(p) points at the head_dim
+// vector of K at span position p (absolute position k_lo + p), and
+// vrow(k, p, u) at element u of V's, given k = krow(p) + u; kscale(p)
+// and vscale(ks) at an int8 pool's scales of it; prepare(tid), called by
+// every thread before the block's first barrier, fills what the source
+// keeps in shared memory. PagedSrc reads a pool [num_blocks, 2, nkv, bs,
+// hd] through the span's pool rows (row_s, which prepare computes from
+// the block table), V a fixed offset after K; DenseSrc in
+// decode_attention.cu reads a dense cache through its strides.
 template <typename P>
-struct Stager {
+struct PagedSrc {
   const P* pool;
   const float* scales;
-  const int64_t* row_s;
+  int64_t* row_s;         // pool row (element offset / hd) of K at p
+  int64_t v_srow;         // V's row is v_srow rows after K's
+  int64_t v_off;          // v_srow hd
+  int hd;
+  const int* bt_row;      // the sequence's block table row
+  int k_lo, n, kvh, nkv, bs;
+  __device__ __forceinline__ void prepare(int tid) const {
+    for (int p = tid; p < n; p += kSThreads) {
+      const int pos = k_lo + p;
+      row_s[p] = ((int64_t)bt_row[pos / bs] * 2 * nkv + kvh) * bs + pos % bs;
+    }
+  }
+  __device__ __forceinline__ const P* krow(int p) const {
+    return pool + row_s[p] * hd;
+  }
+  __device__ __forceinline__ const P* vrow(const P* k, int, int) const {
+    return k + v_off;
+  }
+  __device__ __forceinline__ const float* kscale(int p) const {
+    return scales + row_s[p];
+  }
+  __device__ __forceinline__ const float* vscale(const float* ks) const {
+    return ks + v_srow;
+  }
+};
+
+// One thread's part in staging a span's chunks: chunk c -> ring stage
+// c % stages (K at the stage's start, V after it, then an int8 pool's
+// scales), each position's K and V rows (from src) by cp.async copies of
+// `copy` bytes, or plain loads (kCopySync); positions past k_hi are not
+// copied (never read). Where a row's copies divide the block, a thread
+// keeps one column of copies. An int8 pool's K and V scales of a
+// position are copied by 4-byte cp.async into the same stage, in the
+// same group.
+template <typename P, class Src>
+struct Stager {
+  Src src;
   unsigned char* ring;
-  int64_t v_off, v_srow;
   int ld, stage, hd, copy, k_lo, k_hi, stages, tid;
   int epu, per_row, u_col, p_first, p_step;
   bool col;
-  __device__ Stager(const P* pool_, const float* scales_,
-                    const int64_t* row_s_, unsigned char* ring_,
-                    int64_t v_srow_, int ld_, int stage_, int hd_,
-                    int copy_, int k_lo_, int k_hi_, int stages_, int tid_)
-      : pool(pool_), scales(scales_), row_s(row_s_), ring(ring_),
-        v_off(v_srow_ * hd_), v_srow(v_srow_), ld(ld_), stage(stage_),
-        hd(hd_), copy(copy_), k_lo(k_lo_), k_hi(k_hi_), stages(stages_),
-        tid(tid_) {
+  __device__ Stager(const Src& src_, unsigned char* ring_, int ld_,
+                    int stage_, int hd_, int copy_, int k_lo_, int k_hi_,
+                    int stages_, int tid_)
+      : src(src_), ring(ring_), ld(ld_), stage(stage_), hd(hd_),
+        copy(copy_), k_lo(k_lo_), k_hi(k_hi_), stages(stages_), tid(tid_) {
     epu = copy == kCopySync ? 1 : copy / (int)sizeof(P);
     per_row = hd / epu;
     col = copy != kCopySync && kSThreads % per_row == 0;
@@ -194,51 +232,65 @@ struct Stager {
     return reinterpret_cast<P*>(
         ring + (c % stages) * stage_bytes(ld, sizeof(P), kQuant<P>));
   }
-  __device__ __forceinline__ void row(P* dst, const P* src) const {
+  // elements u .. of span position p into stage row dst
+  __device__ __forceinline__ void row(P* dst, int p, int u) const {
+    const P* k = src.krow(p) + u;
+    const P* v = src.vrow(k, p, u);
     if (copy == kCopy16) {
-      cp_async16(dst, src);
-      cp_async16(dst + stage, src + v_off);
+      cp_async16(dst, k);
+      cp_async16(dst + stage, v);
     } else {
-      cp_async4(dst, src);
-      cp_async4(dst + stage, src + v_off);
+      cp_async4(dst, k);
+      cp_async4(dst + stage, v);
     }
   }
   __device__ __forceinline__ void issue(int c) const {
     const int c0 = k_lo + c * kCh;
     const int nk = min(kCh, k_hi - c0);
-    const int64_t* rows_c = row_s + (c0 - k_lo);
+    const int pc = c0 - k_lo;   // span position of the chunk's first key
     P* ks = stage_at(c);
     if constexpr (kQuant<P>) {
       float* sc = reinterpret_cast<float*>(ks + 2 * stage);
       if (tid < nk) {   // kSThreads >= kCh: one position a thread
-        const float* src = scales + rows_c[tid];
+        const float* sk = src.kscale(pc + tid);
         if (copy != kCopySync) {
-          cp_async4(sc + tid, src);
-          cp_async4(sc + kCh + tid, src + v_srow);
+          cp_async4(sc + tid, sk);
+          cp_async4(sc + kCh + tid, src.vscale(sk));
         } else {
-          sc[tid] = src[0];
-          sc[kCh + tid] = src[v_srow];
+          sc[tid] = sk[0];
+          sc[kCh + tid] = *src.vscale(sk);
         }
       }
     }
     if (col) {
       for (int p = p_first; p < nk; p += p_step)
-        row(ks + p * ld + u_col, pool + rows_c[p] * hd + u_col);
+        row(ks + p * ld + u_col, pc + p, u_col);
     } else if (copy != kCopySync) {
       for (int i = tid; i < nk * per_row; i += kSThreads) {
         const int p = i / per_row, u = (i - p * per_row) * epu;
-        row(ks + p * ld + u, pool + rows_c[p] * hd + u);
+        row(ks + p * ld + u, pc + p, u);
       }
     } else {
       for (int i = tid; i < nk * hd; i += kSThreads) {
         const int p = i / hd, d = i - p * hd;
-        const P* src = pool + rows_c[p] * hd + d;
-        ks[p * ld + d] = src[0];
-        ks[stage + p * ld + d] = src[v_off];
+        const P* k = src.krow(pc + p) + d;
+        ks[p * ld + d] = k[0];
+        ks[stage + p * ld + d] = src.vrow(k, pc + p, d)[0];
       }
     }
   }
 };
+
+// The ring's first NS - 1 chunks of nch, one cp.async group each (empty
+// groups past nch), so that chunk c is waited for by cp_wait<NS - 2>.
+template <int NS, class St>
+__device__ __forceinline__ void prime(const St& st, int nch) {
+#pragma unroll
+  for (int c = 0; c < NS - 1; ++c) {
+    if (c < nch) st.issue(c);
+    cp_commit();
+  }
+}
 
 // What one warp keeps of a chunk: the staged K/V rows (and an int8
 // pool's scales), the chunk's first position and live keys, and how
@@ -441,6 +493,140 @@ __device__ __forceinline__ void score_rows(const Chunk<P>& ch, int r0,
   __syncwarp();   // p_w is read before the next row group writes it
 }
 
+// A block's shared memory (smem_bytes): the ring, each warp's
+// probabilities [kRB, kCh], the span's pool rows [kSpan] (int64; paged
+// sources only), then q, acc [rows, hd], m, l and the row positions
+// [rows]. All 16-byte aligned up to q: the ring's stages are a multiple
+// of 16 bytes, p_s 2 KB, row_s 1 KB.
+struct Layout {
+  unsigned char* ring;
+  float *p_s, *q_s, *acc_s, *m_s, *l_s;
+  int64_t* row_s;
+  int* qpos_s;
+  __device__ Layout(unsigned char* smem, int stages, int rows, int hd,
+                    int ld, int psize, bool quant) {
+    ring = smem;
+    p_s = reinterpret_cast<float*>(smem +
+                                   stages * stage_bytes(ld, psize, quant));
+    row_s = reinterpret_cast<int64_t*>(p_s + kSWarps * kRB * kCh);
+    q_s = reinterpret_cast<float*>(row_s + kSpan);
+    acc_s = q_s + rows * hd;
+    m_s = acc_s + rows * hd;
+    l_s = m_s + rows;
+    qpos_s = reinterpret_cast<int*>(l_s + rows);
+  }
+};
+
+// The work item's body, shared by the paged and the dense kernels: the
+// block's `rows` query rows (n = rows / g consecutive query rows from
+// q row row0, each with the g heads of kv head kvh; row r at position
+// pos0 + r / g) against span positions [k_lo, k_hi) from src, each
+// row's partial (m, l, acc) written to workspace slot (kvh, item, r).
+// RBC caps the rows a warp scores together (a row's bits do not depend
+// on its group). EARLY: the ring's first NS - 1 chunks are issued before
+// q is read, so their loads overlap it (the dense kernel, whose source
+// needs no preparing); else after q, acc, m and l are written,
+// src.prepare has run and the block is synchronised (the paged kernels).
+template <typename T, typename P, int NT, int NS, int RBC, bool EARLY,
+          class Src>
+__device__ __forceinline__ void span_body(
+    const Layout& L, const Src& src, const T* __restrict__ q, int64_t q_sr,
+    int64_t q_sh, int64_t row0, int rows, int g, int kvh, int pos0,
+    int k_lo, int k_hi, const Partials& part, int item, int hd, float scale,
+    int ld, int copy) {
+  const int nch = k_hi > k_lo ? (k_hi - k_lo + kCh - 1) / kCh : 0;
+  // K read 16 elements a lane (int8 rows copied 16 bytes at a time), 4
+  // (4-element aligned rows) or 1
+  const int vw = kQuant<P> && copy == kCopy16       ? 16
+                 : hd % 4 == 0 && ld % 4 == 0 ? 4
+                                                    : 1;
+  const int stage = kCh * ld;   // elements of K (or V) a stage
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  if constexpr (EARLY)
+    prime<NS>(Stager<P, Src>(src, L.ring, ld, stage, hd, copy, k_lo, k_hi,
+                             NS, tid),
+              nch);
+  for (int i = tid; i < rows * hd; i += kSThreads) {
+    const int r = i / hd, d = i - r * hd;
+    const int64_t row = row0 + r / g, head = kvh * g + r % g;
+    L.q_s[i] = to_f(q[row * q_sr + head * q_sh + d]);
+    L.acc_s[i] = 0.f;
+  }
+  src.prepare(tid);
+  for (int r = tid; r < rows; r += kSThreads) {
+    L.m_s[r] = kNegInf;
+    L.l_s[r] = 0.f;
+    L.qpos_s[r] = pos0 + r / g;
+  }
+  if constexpr (!EARLY) __syncthreads();
+  // the loop's Stager is made here, not before q is read: its fields live
+  // across the loads above otherwise, which cost the int8 span kernel
+  // ~2.5% on an H100
+  const Stager<P, Src> st(src, L.ring, ld, stage, hd, copy, k_lo, k_hi, NS,
+                          tid);
+  if constexpr (!EARLY) prime<NS>(st, nch);
+  float* p_w = L.p_s + warp * kRB * kCh;
+  // this warp's rows: warp + kSWarps i
+  const int mine = rows > warp ? (rows - warp + kSWarps - 1) / kSWarps : 0;
+  for (int c = 0; c < nch; ++c) {
+    cp_wait<NS - 2>();
+    // chunk c landed; chunk c - 1's stage is consumed (at c = 0 and
+    // EARLY: q, acc, m, l and the positions are written)
+    __syncthreads();
+    if (c + NS - 1 < nch) st.issue(c + NS - 1);
+    cp_commit();
+    Chunk<P> ch;
+    ch.ks = st.stage_at(c);
+    ch.vs = ch.ks + stage;
+    ch.sc = reinterpret_cast<const float*>(ch.vs + stage);
+    ch.c0 = k_lo + c * kCh;
+    ch.nv = min(kCh, k_hi - ch.c0);
+    ch.ld = ld;
+    ch.hd = hd;
+    ch.vw = vw;
+    // row groups of up to RBM rows (2 at the widest heads, for registers)
+    constexpr int RBW = NT <= 4 ? kRB : 2;
+    constexpr int RBM = RBW < RBC ? RBW : RBC;
+    for (int i = 0; i < mine; i += RBM) {
+      const int left = mine - i, r0 = warp + kSWarps * i;
+      if constexpr (RBM >= 4) {
+        if (left >= 4) {
+          score_rows<4, NT>(ch, r0, L.q_s, L.acc_s, L.m_s, L.l_s, L.qpos_s,
+                            p_w, scale, lane);
+          continue;
+        }
+        if (left == 3) {
+          score_rows<3, NT>(ch, r0, L.q_s, L.acc_s, L.m_s, L.l_s, L.qpos_s,
+                            p_w, scale, lane);
+          continue;
+        }
+      }
+      if constexpr (RBM >= 2) {
+        if (left >= 2) {
+          score_rows<2, NT>(ch, r0, L.q_s, L.acc_s, L.m_s, L.l_s, L.qpos_s,
+                            p_w, scale, lane);
+          continue;
+        }
+      }
+      score_rows<1, NT>(ch, r0, L.q_s, L.acc_s, L.m_s, L.l_s, L.qpos_s, p_w,
+                        scale, lane);
+    }
+  }
+  cp_wait<0>();
+  __syncthreads();
+
+  // this span's partial state of every row
+  for (int i = tid; i < rows * hd; i += kSThreads) {
+    const int r = i / hd, d = i - r * hd;
+    part.acc[part.slot(kvh, item, r) * hd + d] = L.acc_s[i];
+  }
+  for (int r = tid; r < rows; r += kSThreads) {
+    const int64_t sl = part.slot(kvh, item, r);
+    part.ml[2 * sl] = L.m_s[r];
+    part.ml[2 * sl + 1] = L.l_s[r];
+  }
+}
+
 // launch[2 b], launch[2 b + 1] = (slot, sequence, query offset, rows),
 // (first packed row, span, 0, 0): block b's work item, heaviest first.
 // grid (n_items, nkv), kSThreads threads. copy: kCopy16 / kCopy4 /
@@ -469,113 +655,89 @@ __global__ void __launch_bounds__(kSThreads, 2)
   const int frontier = max(0, min(pos0 + n, mb * bs));
   const int k_lo = lb.y * kSpan;
   const int k_hi = min(k_lo + kSpan, frontier);
-  const int nch = k_hi > k_lo ? (k_hi - k_lo + kCh - 1) / kCh : 0;
-  const int* bt_row = bt + (int64_t)seq * mb;
-
   const int ld = row_ld(hd, sizeof(P), copy);
-  // K read 16 elements a lane (int8 rows copied 16 bytes at a time), 4
-  // (4-element aligned rows) or 1
-  const int vw = kQuant<P> && copy == kCopy16       ? 16
-                 : hd % 4 == 0 && ld % 4 == 0 ? 4
-                                                    : 1;
-  const int stage = kCh * ld;   // elements of K (or V) a stage
-  // 16-byte aligned: the ring (stages of a multiple of 16 bytes), p_s
-  // (2 KB), row_s (1 KB), q_s
-  unsigned char* ring = smem_raw;
-  float* p_s = reinterpret_cast<float*>(
-      smem_raw + NS * stage_bytes(ld, sizeof(P), kQuant<P>));
-  int64_t* row_s = reinterpret_cast<int64_t*>(p_s + kSWarps * kRB * kCh);
-  float* q_s = reinterpret_cast<float*>(row_s + kSpan);
-  float* acc_s = q_s + rows * hd;
-  float* m_s = acc_s + rows * hd;
-  float* l_s = m_s + rows;
-  int* qpos_s = reinterpret_cast<int*>(l_s + rows);
+  const Layout L(smem_raw, NS, rows, hd, ld, sizeof(P), kQuant<P>);
+  // pool rows of K at the span's positions; V's are nkv bs rows further
+  const int64_t v_srow = (int64_t)nkv * bs;
+  const PagedSrc<P> src{pool, scales, L.row_s, v_srow, v_srow * hd, hd,
+                        bt + (int64_t)seq * mb, k_lo, k_hi - k_lo, kvh, nkv,
+                        bs};
+  span_body<T, P, NT, NS, kRB, false>(L, src, q, q_sr, q_sh, row0, rows, g,
+                                      kvh, pos0, k_lo, k_hi, part, item, hd,
+                                      scale, ld, copy);
+}
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  for (int i = tid; i < rows * hd; i += kSThreads) {
-    const int r = i / hd, d = i - r * hd;
-    const int64_t row = row0 + r / g, head = kvh * g + r % g;
-    q_s[i] = to_f(q[row * q_sr + head * q_sh + d]);
-    acc_s[i] = 0.f;
-  }
-  // pool row (element offset / hd) of K at each span position; V's is
-  // nkv bs rows further
-  for (int p = tid; p < k_hi - k_lo; p += kSThreads) {
-    const int pos = k_lo + p;
-    row_s[p] = ((int64_t)bt_row[pos / bs] * 2 * nkv + kvh) * bs + pos % bs;
-  }
-  for (int r = tid; r < rows; r += kSThreads) {
-    m_s[r] = kNegInf;
-    l_s[r] = 0.f;
-    qpos_s[r] = pos0 + r / g;
-  }
-  __syncthreads();
-  const Stager<P> st(pool, scales, row_s, ring, (int64_t)nkv * bs, ld,
-                    stage, hd, copy, k_lo, k_hi, NS, tid);
+// The span-order merge of one (row, query head), by one warp: lane's
+// head elements d0 + 32 u (d0 = lane + the warp's part offset) of the
+// partials in slots (kvh, first + k, r), k < n, into out_row. m = max
+// m_s (exact in any order: the lanes take 32 spans' maxima at a time),
+// then l = sum l_s e^(m_s - m) and acc likewise, added in span order; a
+// row that saw no key (l == 0, or n == 0) gives zeros. acc is loaded KB
+// spans a batch, so a row's spans cost n / KB round trips (the ragged
+// kernels' rows hold a few spans; a long dense row up to S / kSpan). A
+// row's bits depend on neither NT nor KB. n is warp-uniform.
+template <typename T, int NT, int KB>
+__device__ __forceinline__ void merge_spans(const Partials& part, int kvh,
+                                            int first, int n, int r,
+                                            int d0, int hd,
+                                            T* __restrict__ out_row) {
+  static_assert(KB >= 1 && KB <= 32, "a batch's weights sit in one warp");
+  const int lane = threadIdx.x & 31;
+  float m = kNegInf;
+  for (int k0 = 0; k0 < n; k0 += 32)
+    if (k0 + lane < n)
+      m = fmaxf(m, part.ml[2 * part.slot(kvh, first + k0 + lane, r)]);
 #pragma unroll
-  for (int c = 0; c < NS - 1; ++c) {
-    if (c < nch) st.issue(c);
-    cp_commit();
-  }
-  float* p_w = p_s + warp * kRB * kCh;
-  // this warp's rows: warp + kSWarps i
-  const int mine = rows > warp ? (rows - warp + kSWarps - 1) / kSWarps : 0;
-  for (int c = 0; c < nch; ++c) {
-    cp_wait<NS - 2>();
-    __syncthreads();   // chunk c landed; chunk c - 1's stage is consumed
-    if (c + NS - 1 < nch) st.issue(c + NS - 1);
-    cp_commit();
-    Chunk<P> ch;
-    ch.ks = st.stage_at(c);
-    ch.vs = ch.ks + stage;
-    ch.sc = reinterpret_cast<const float*>(ch.vs + stage);
-    ch.c0 = k_lo + c * kCh;
-    ch.nv = min(kCh, k_hi - ch.c0);
-    ch.ld = ld;
-    ch.hd = hd;
-    ch.vw = vw;
-    // row groups of up to RBM rows (2 at the widest heads, for registers)
-    constexpr int RBM = NT <= 4 ? kRB : 2;
-    for (int i = 0; i < mine; i += RBM) {
-      const int left = mine - i, r0 = warp + kSWarps * i;
-      if constexpr (RBM >= 4) {
-        if (left >= 4) {
-          score_rows<4, NT>(ch, r0, q_s, acc_s, m_s, l_s, qpos_s, p_w,
-                            scale, lane);
-          continue;
-        }
-        if (left == 3) {
-          score_rows<3, NT>(ch, r0, q_s, acc_s, m_s, l_s, qpos_s, p_w,
-                            scale, lane);
-          continue;
+  for (int o = 16; o; o >>= 1)
+    m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  float l = 0.f, acc[NT];
+#pragma unroll
+  for (int u = 0; u < NT; ++u) acc[u] = 0.f;
+  for (int k0 = 0; k0 < n; k0 += 32) {
+    // lane j: span k0 + j's weight e^(m_s - m) and l_s
+    float wj = 0.f, lj = 0.f;
+    if (k0 + lane < n) {
+      const int64_t sl = part.slot(kvh, first + k0 + lane, r);
+      wj = expf(part.ml[2 * sl] - m);
+      lj = part.ml[2 * sl + 1];
+    }
+    const int nk = min(32, n - k0);
+    for (int j0 = 0; j0 < nk; j0 += KB) {
+      float a[KB][NT];
+#pragma unroll
+      for (int j = 0; j < KB; ++j) {
+        const int64_t sl = part.slot(kvh, first + k0 + j0 + j, r);
+#pragma unroll
+        for (int u = 0; u < NT; ++u) {
+          const int d = d0 + 32 * u;
+          a[j][u] = j0 + j < nk && d < hd ? part.acc[sl * hd + d] : 0.f;
         }
       }
-      if (left >= 2)
-        score_rows<2, NT>(ch, r0, q_s, acc_s, m_s, l_s, qpos_s, p_w, scale,
-                          lane);
-      else
-        score_rows<1, NT>(ch, r0, q_s, acc_s, m_s, l_s, qpos_s, p_w, scale,
-                          lane);
+#pragma unroll
+      for (int j = 0; j < KB; ++j) {
+        const float w = __shfl_sync(0xffffffffu, wj, (j0 + j) & 31);
+        const float ls = __shfl_sync(0xffffffffu, lj, (j0 + j) & 31);
+        if (j0 + j < nk) {
+          l += ls * w;
+#pragma unroll
+          for (int u = 0; u < NT; ++u) {
+            const int d = d0 + 32 * u;
+            if (d < hd) acc[u] += a[j][u] * w;
+          }
+        }
+      }
     }
   }
-  cp_wait<0>();
-  __syncthreads();
-
-  // this span's partial state of every row
-  for (int i = tid; i < rows * hd; i += kSThreads) {
-    const int r = i / hd, d = i - r * hd;
-    part.acc[part.slot(kvh, item, r) * hd + d] = acc_s[i];
-  }
-  for (int r = tid; r < rows; r += kSThreads) {
-    const int64_t sl = part.slot(kvh, item, r);
-    part.ml[2 * sl] = m_s[r];
-    part.ml[2 * sl + 1] = l_s[r];
+  const float inv = l == 0.f ? 1.f : l;
+#pragma unroll
+  for (int u = 0; u < NT; ++u) {
+    const int d = d0 + 32 * u;
+    if (d < hd) out_row[d] = from_f<T>(acc[u] / inv);
   }
 }
 
 // One warp per (packed row, query head, part of NT x 32 head elements):
-// merge the row's spans in span order, m = max m_s, l = sum l_s
-// e^(m_s - m), acc likewise; a row that saw no key (l == 0) gives zeros.
+// merge_spans over the row's tile's items, 8 / NT spans a batch.
 // tspan[t] = (first item, items) of tile t; row_tile[i] = the tile of
 // packed row i.
 template <typename T, int NT>
@@ -595,28 +757,8 @@ __global__ void __launch_bounds__(kSThreads)
   const int t = row_tile[i];
   const int r = (i - tiles[t].w) * g + h % g;
   const int2 fs = tspan[t];
-  float m = kNegInf;
-  for (int k = 0; k < fs.y; ++k)
-    m = fmaxf(m, part.ml[2 * part.slot(kvh, fs.x + k, r)]);
-  float l = 0.f, acc[NT];
-#pragma unroll
-  for (int u = 0; u < NT; ++u) acc[u] = 0.f;
-  for (int k = 0; k < fs.y; ++k) {
-    const int64_t sl = part.slot(kvh, fs.x + k, r);
-    const float w = expf(part.ml[2 * sl] - m);
-    l += part.ml[2 * sl + 1] * w;
-#pragma unroll
-    for (int u = 0; u < NT; ++u) {
-      const int d = d0 + 32 * u;
-      if (d < hd) acc[u] += part.acc[sl * hd + d] * w;
-    }
-  }
-  const float inv = l == 0.f ? 1.f : l;
-#pragma unroll
-  for (int u = 0; u < NT; ++u) {
-    const int d = d0 + 32 * u;
-    if (d < hd) out[((int64_t)i * nh + h) * hd + d] = from_f<T>(acc[u] / inv);
-  }
+  merge_spans<T, NT, 8 / NT>(part, kvh, fs.x, fs.y, r, d0, hd,
+                             out + ((int64_t)i * nh + h) * hd);
 }
 
 // tables: launch [n_items][8], tiles [n_tiles][4], tspan [n_tiles][2],

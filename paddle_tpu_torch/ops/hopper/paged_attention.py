@@ -191,16 +191,6 @@ def _lib(quant: bool) -> ctypes.CDLL:
     return lib
 
 
-def rows_vectorizable(t: torch.Tensor, strides) -> bool:
-    """Whether the decode kernel may read ``t``'s head_dim vectors four
-    elements at a time: head_dim a multiple of 4, the given strides too,
-    and the base aligned to four elements (16 bytes for float32, 8 for
-    bfloat16)."""
-    align = 4 * t.element_size()
-    return t.shape[-1] % 4 == 0 and t.data_ptr() % align == 0 and \
-        all(s % 4 == 0 for s in strides)
-
-
 def _as_int32(x, device) -> torch.Tensor:
     if isinstance(x, torch.Tensor):
         return x.to(device=device, dtype=torch.int32)
@@ -380,6 +370,24 @@ def gather_pages(kv_pool, block_tables, kv_scales=None):
     v = pages[:, :, 1].transpose(2, 3)
     B, MB, bs, nkv, hd = k.shape
     return (k.reshape(B, MB * bs, nkv, hd), v.reshape(B, MB * bs, nkv, hd))
+
+
+def scatter_pages(k, v, block_tables, num_blocks):
+    """``gather_pages`` in reverse: a pool [num_blocks, 2, nkv, bs, hd]
+    whose pages named in ``block_tables`` [B, MB] hold the dense K/V
+    [B, MB * bs, nkv, hd]; every other page is zeros."""
+    bt = torch.as_tensor(block_tables, device=k.device).long()
+    B, MB = bt.shape
+    S, nkv, hd = k.shape[1:]
+    if k.shape != v.shape or k.shape[0] != B or S % MB:
+        raise ValueError(f"K/V {tuple(k.shape)} / {tuple(v.shape)} do not "
+                         f"fill {B} rows of {MB} pages")
+    bs = S // MB
+    pool = torch.zeros((num_blocks, 2, nkv, bs, hd), dtype=k.dtype,
+                       device=k.device)
+    pool[bt, 0] = k.reshape(B, MB, bs, nkv, hd).transpose(2, 3)
+    pool[bt, 1] = v.reshape(B, MB, bs, nkv, hd).transpose(2, 3)
+    return pool
 
 
 def paged_attention_ragged_reference(q, kv_pool, block_tables, q_lens,

@@ -169,26 +169,94 @@ def test_ragged_rows_do_not_depend_on_the_rest_of_the_step():
             tile_q=5), want)
 
 
-@pytest.mark.parametrize("nh,nkv,hd,S,lens", [
-    (4, 4, 64, 32, [0, 1, 17, 32]),
-    (8, 2, 64, 300, [5, 300, 0]),
-    (16, 16, 64, 1024, [64, 1000, 513, 1024]),
-    (4, 4, 30, 40, [3, 40]),          # scalar-load path
-])
-def test_decode_kernel_matches_plain_version(nh, nkv, hd, S, lens):
-    _need_cuda()
-    rng = np.random.RandomState(S)
-    cache = torch.from_numpy(rng.randn(2, len(lens), nkv, S, hd).astype(
-        np.float32)).cuda()
-    q = torch.from_numpy(rng.randn(len(lens), nh, hd).astype(
-        np.float32)).cuda()
+DECODE = {
+    # name: (nh, nkv, hd, S, lens, layout)
+    "small": (4, 4, 64, 32, [0, 1, 17, 32], "cache"),
+    "gqa_s300": (8, 2, 64, 300, [5, 300, 0], "cache"),
+    "oracle_widths": (16, 16, 64, 1024, [64, 1000, 513, 1024], "cache"),
+    "scalar_loads": (4, 4, 30, 40, [3, 40], "cache"),    # 4-byte copies
+    "one_row_8200_keys": (4, 4, 64, 8200, [8200], "cache"),  # 65 spans
+    # lengths at span edges, 0 and past S; S not a multiple of 128
+    "span_edges_s1000": (16, 16, 64, 1000, [0, 1, 128, 129, 1000, 1500],
+                         "cache"),
+    "gqa_8_2_hd128": (8, 2, 128, 300, [300, 129, 7], "cache"),
+    "gqa_32_8_hd128": (32, 8, 128, 1000, [1000, 640, 1], "cache"),
+    "hd256": (8, 4, 256, 300, [300, 200, 0], "cache"),
+    # q with row stride 3 nh hd and head stride 2 hd
+    "strided_q": (8, 2, 64, 300, [299, 128, 33], "strided_q"),
+    # K and V two tensors of different layouts
+    "separate_kv": (8, 2, 64, 300, [300, 256, 1], "separate"),
+    # 2080 span blocks, more than the card holds at once; both rows end
+    # in a partial last span
+    "many_long_spans": (16, 16, 64, 8200, [8200, 5000], "cache"),
+}
+
+
+def _decode_inputs(seed, B, nh, nkv, hd, S, layout, dtype=torch.float32):
+    """q [B, nh, hd] and the caches [B, S, nkv, hd]: the serving model's
+    transposed views of one [2, B, nkv, S, hd] cache, or (layout
+    "separate") K contiguous and V a view of a [B, nkv, S, hd] tensor;
+    "strided_q" takes q from a wider tensor."""
+    g = torch.Generator().manual_seed(seed)
+    cache = torch.randn((2, B, nkv, S, hd), generator=g).to("cuda", dtype)
     kc, vc = cache[0].transpose(1, 2), cache[1].transpose(1, 2)
+    if layout == "separate":
+        kc = kc.contiguous()
+        vc = torch.randn((B, nkv, S, hd), generator=g).to(
+            "cuda", dtype).transpose(1, 2)
+    if layout == "strided_q":
+        q = torch.randn((B, 3 * nh, 2 * hd), generator=g).to(
+            "cuda", dtype)[:, :nh, :hd]
+    else:
+        q = torch.randn((B, nh, hd), generator=g).to("cuda", dtype)
+    return q, kc, vc
+
+
+@pytest.mark.parametrize("name", sorted(DECODE))
+def test_decode_kernel_matches_plain_version(name):
+    _need_cuda()
+    nh, nkv, hd, S, lens, layout = DECODE[name]
+    q, kc, vc = _decode_inputs(S, len(lens), nh, nkv, hd, S, layout)
     before = tda.launch_count()
     got = tda.decode_attention(q, kc, vc, lens)
     assert tda.launch_count() == before + 1
     torch.testing.assert_close(
         got, tda.decode_attention_reference(q, kc, vc, lens), **TOL)
     assert not got[np.asarray(lens) == 0].any()
+    assert torch.equal(tda.decode_attention(q, kc, vc, lens), got)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("nh,nkv,hd,S,lens", [
+    (16, 16, 64, 1024, [64, 1000, 513, 1024, 0]),
+    (32, 8, 128, 1008, [1, 129, 1008, 1500, 640]),
+    (8, 4, 256, 304, [300, 128]),
+    # 1280 span blocks, more than the card holds at once
+    (16, 16, 64, 2048, [2048, 1500, 777, 2000, 0]),
+])
+def test_decode_kernel_equals_ragged_decode_rows_bitwise(nh, nkv, hd, S,
+                                                         lens, dtype):
+    """The dense kernel's rows are the ragged kernel's decode rows over a
+    pool holding the same K/V, bit for bit: one split-KV body, the same
+    spans and the same span-order merge (the ragged call sees lengths
+    clamped to S, as the dense one does)."""
+    _need_cuda()
+    q, kc, vc = _decode_inputs(hd, len(lens), nh, nkv, hd, S, "cache",
+                               getattr(torch, dtype))
+    # the same K/V in shuffled pages of 16 (page 0 stays trash)
+    B, MB = len(lens), S // 16
+    bt = np.random.RandomState(S).permutation(np.arange(
+        1, 1 + B * MB)).reshape(B, MB).astype(np.int32)
+    pool = tpa.scatter_pages(kc, vc, bt, 1 + B * MB)
+    kg, vg = tpa.gather_pages(pool, bt)
+    assert torch.equal(kg, kc) and torch.equal(vg, vc)
+    dense = tda.decode_attention(q, kc, vc, lens)
+    assert torch.equal(tda.decode_attention(q, kc, vc, lens), dense)
+    clamped = np.minimum(lens, S).astype(np.int32)
+    for kv_lens in (clamped, torch.from_numpy(clamped).cuda()):
+        paged = tpa.paged_attention_ragged(q, pool, bt, (1,) * len(lens),
+                                           kv_lens)
+        assert torch.equal(paged, dense)
 
 
 def test_bfloat16_kernels_match_plain_version():
@@ -203,13 +271,21 @@ def test_bfloat16_kernels_match_plain_version():
     ref = tpa.paged_attention_ragged_reference(q.float(), pool.float(), bt,
                                                (1, 20, 2), lens)
     torch.testing.assert_close(got.float(), ref, atol=1e-2, rtol=1e-2)
-    cache = torch.randn((2, 3, 2, 70, 64), device="cuda").bfloat16()
-    qd = torch.randn((3, 8, 64), device="cuda").bfloat16()
-    kc, vc = cache[0].transpose(1, 2), cache[1].transpose(1, 2)
-    got = tda.decode_attention(qd, kc, vc, [70, 1, 33])
-    ref = tda.decode_attention_reference(qd.float(), kc.float(), vc.float(),
-                                         [70, 1, 33])
-    torch.testing.assert_close(got.float(), ref, atol=1e-2, rtol=1e-2)
+    # decode: (nh, nkv, hd, S, lens, layout); hd 31 takes plain loads
+    # (62-byte rows), hd 30 4-byte copies
+    for nh, nkv, hd, S, lens, layout in (
+            (8, 2, 64, 70, [70, 1, 33], "cache"),
+            (4, 4, 64, 8200, [8200], "cache"),
+            (32, 8, 128, 1000, [1000, 0, 129, 1200], "strided_q"),
+            (8, 4, 256, 300, [300, 128], "separate"),
+            (4, 2, 31, 40, [40, 3], "cache"),
+            (4, 2, 30, 40, [40, 3], "cache")):
+        qd, kc, vc = _decode_inputs(hd + S, len(lens), nh, nkv, hd, S,
+                                    layout, torch.bfloat16)
+        got = tda.decode_attention(qd, kc, vc, lens)
+        ref = tda.decode_attention_reference(qd.float(), kc.float(),
+                                             vc.float(), lens)
+        torch.testing.assert_close(got.float(), ref, atol=1e-2, rtol=1e-2)
 
 
 def test_slice_on_cuda_matches_cpu_and_launches_once_per_layer():

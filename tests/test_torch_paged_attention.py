@@ -105,6 +105,28 @@ def test_gather_pages_is_exact():
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
 
 
+def test_scatter_pages_inverts_gather_pages():
+    """scatter_pages writes dense K/V into the named pages of a fresh
+    pool, which the JAX package's gather_pages reads back exactly; pages
+    no table names stay zeros."""
+    rng = np.random.RandomState(4)
+    B, MB, bs, nkv, hd = 3, 4, 8, 2, 16
+    k, v = (rng.randn(B, MB * bs, nkv, hd).astype(np.float32)
+            for _ in range(2))
+    bt = rng.permutation(np.arange(2, 2 + B * MB)).reshape(B, MB).astype(
+        np.int32)
+    pool = tpa.scatter_pages(torch.from_numpy(k), torch.from_numpy(v), bt,
+                             2 + B * MB)
+    assert pool.shape == (2 + B * MB, 2, nkv, bs, hd)
+    assert not pool[:2].any()
+    jk, jv = jpa.gather_pages(jnp.asarray(pool.numpy()), jnp.asarray(bt))
+    np.testing.assert_array_equal(np.asarray(jk), k)
+    np.testing.assert_array_equal(np.asarray(jv), v)
+    with pytest.raises(ValueError):
+        tpa.scatter_pages(torch.from_numpy(k[:, :-1]),
+                          torch.from_numpy(v[:, :-1]), bt, 2 + B * MB)
+
+
 @pytest.mark.parametrize("tile_q", [1, 2, 4, 64])
 def test_tile_descriptors_match_pallas_layout(tile_q):
     q_lens = (1, 5, 0, 3, 8)
