@@ -111,7 +111,25 @@ fails the run:
    full width (batch 2, hidden dropout 0.1, attention dropout 0, the
    same weights and seeds): loss within 1e-5 relative, every gradient
    within 1e-3 x max|g| with cosine >= 0.9999;
-18. print the kernels line, the card line and, last, the contract line.
+18. (run after phase 11, while the dense model is resident) fork-shared
+   parallel decoding at the same width over phase 3's pool shape:
+   phase 11's 4 prompts each submitted with n=4, every branch emitting
+   phase 4's greedy tokens up to the first near-tie, parallel.groups 4,
+   branches 12, prefill_tokens_saved 3 x the prompts' lengths, the
+   ragged kernel 24 times per model call; the lane oracle (a top-k
+   group seeded S against 4 lone submits seeded branch_lane_seed(S, i),
+   equal up to the first draw within TOL_LANE of a CDF edge, at least
+   two branches distinct); a 2-page + 5-token prompt's group after 3
+   decode tokens on a float pool and on an int8 pool with the prefix
+   cache (full pages shared by all 4 tables, 4 distinct tails, engine
+   and deep pool audits); a greedy int8 group against the lone int8
+   stream up to its near-tie; best-of n=3 at page capacity (one
+   winner, 2 CANCELLED, the pool whole after release); fork_stream
+   under k=4 speculation against phase 4's tokens and a stateful
+   grammar mask over the whole vocabulary under top-k speculation;
+   then, printed only, one group against 4 lone submits at equal pool
+   bytes;
+19. print the kernels line, the card line and, last, the contract line.
 Every number printed carries the card's name and power limit; each row
 of the kernels line says in ``timed`` which call it timed and how.
 """
@@ -152,6 +170,14 @@ BOUND_TRAIN_COS = 0.999
 BOUND_BERT_LOSS = 1e-5
 BOUND_BERT_GRAD = 1e-3
 BOUND_BERT_COS = 0.9999
+# the lane oracle (phase 18): a group's branch and its lone submit draw
+# the same uniforms, but their probability rows differ in the last bits
+# (cuBLAS may pick another kernel, hence another summation order, for
+# another batch composition); a draw whose uniform lies within this of an
+# edge of its token's CDF interval may go either way, and the streams
+# part from there. Hidden rows of two paths agree to ~1e-6 relative
+# (phase 4), so the CDF edges move by far less than this.
+TOL_LANE = 1e-4
 HBM_BYTES_S = 3.35e12      # H100 SXM HBM3
 FP32_FLOP_S = 67e12        # H100 SXM float32 outside the tensor cores
 TF32_FLOP_S = 494.7e12     # H100 SXM TF32 tensor cores, dense
@@ -168,6 +194,11 @@ FULL = dict(vocab=50304, d=1024, layers=24, heads=16, ffn=4096,
             # MoE serving (Mixtral-8x7B's routing) and speculation
             experts=8, top_k=2, capacity_factor=1.25, block_m=8,
             draft_layers=6, spec_k=4, moe_spec_k=2, spec_requests=4,
+            # parallel decoding: branches a group, the lane seed and
+            # top-k, the grammar mask's modulus, the equal-bytes bench's
+            # prompt in pages (bench_extra.py:2476-2530)
+            par_n=4, lane_seed=777, lane_top_k=50, mask_mod=7,
+            par_prompt_blocks=6,
             # training: bench.py's Llama-2-7B proxy (bench.py:58-61)
             train_vocab=32000, train_hidden=4096, train_ffn=11008,
             train_heads=32, train_kv_heads=32, train_layers=2,
@@ -1276,6 +1307,374 @@ def phase_spec(torch, device, cfg, tsm, tsm_moe, prompts, toks, first_small,
     return out
 
 
+# -- phase 18: fork-shared parallel decoding ------------------------------
+def _serve_groups(eng, want, n_new, on_round=None, lanes=None):
+    """Step ``eng`` until every stream of ``want`` ({rid: n}: a group id
+    and its branch count, or a lone rid and 1) has ``n_new`` tokens,
+    releasing each stream once it has them. Returns ({rid: member rids},
+    {rid: tokens}, rounds); ``lanes`` gets each stream's RNG lane."""
+    members, done, rounds = {}, {}, 0
+    while True:
+        for gid, n in want.items():
+            g = eng.group(gid) if n > 1 else {"rids": [gid]}
+            if gid not in members and g is not None and \
+                    len(g["rids"]) == n:
+                members[gid] = list(g["rids"])
+        for rids in members.values():
+            for r in rids:
+                if r not in done and r in eng._by_rid and \
+                        len(eng.generated(r)) >= n_new:
+                    done[r] = eng.generated(r)[:n_new]
+                    if lanes is not None:
+                        lanes[r] = eng._by_rid[r].lane
+                    eng.release(r)
+        if len(members) == len(want) and \
+                all(r in done for rids in members.values() for r in rids):
+            return members, done, rounds
+        rounds += 1
+        require(rounds < 100 * n_new, "parallel serving did not converge")
+        eng.step()
+        if on_round is not None:
+            on_round(eng)
+
+
+def _draw_recorder(tsm):
+    """Wrap ``tsm.sample`` to record, per RNG lane, the CDF interval
+    [lo, hi) of every token drawn on it (the float64 CDF the sampler
+    searches). Returns the {lane: [(lo, hi)]} dict; ``del tsm.sample``
+    unwraps."""
+    draws = {}
+    sample = tsm.sample
+
+    def recording(logits, mode="greedy", temperature=1.0, top_k=None,
+                  rng=None, rng_rows=None, logit_mask=None):
+        toks, probs = sample(logits, mode, temperature, top_k, rng,
+                             rng_rows, logit_mask)
+        if rng_rows is not None and probs is not None:
+            flat = probs.reshape(-1, probs.shape[-1]).astype(np.float64)
+            flat = flat / flat.sum(axis=-1, keepdims=True)
+            for i, (r, t) in enumerate(zip(rng_rows, toks.reshape(-1))):
+                if r is not None:
+                    cdf = np.cumsum(flat[i])
+                    draws.setdefault(r, []).append(
+                        (float(cdf[t - 1]) if t > 0 else 0.0,
+                         float(cdf[t])))
+        return toks, probs
+    tsm.sample = recording
+    return draws
+
+
+def _first_edge_draw(seed, *intervals):
+    """Index of the first draw of the lane seeded ``seed`` whose uniform
+    lies within TOL_LANE of an edge of its token's CDF interval in any of
+    the runs ``intervals`` ([(lo, hi)] each), else the draws' count."""
+    n = min(len(iv) for iv in intervals)
+    u = np.random.RandomState(seed).random_sample(n)
+    for j in range(n):
+        if any(min(u[j] - iv[j][0], iv[j][1] - u[j]) < TOL_LANE
+               for iv in intervals):
+            return j
+    return n
+
+
+def _near_tie(torch, device, cfg, core, tsm, prompt, stream, **engine_kw):
+    """First step of ``stream`` (greedy from ``prompt``) whose top-two
+    logit gap is below TOL_REL x max|logits| (phase 4's near-tie rule),
+    teacher-forcing the stream through a paged engine over ``core``."""
+    h, _ = teacher_force(torch, device, cfg, core, tsm, [prompt], [stream],
+                         **engine_kw)
+    lg = tsm.logits(h)
+    top2 = lg.topk(2, dim=-1).values[0]
+    gap = (top2[:, 0] - top2[:, 1]).cpu().numpy()
+    small = np.flatnonzero(gap < TOL_REL * float(lg.abs().max()))
+    return int(small[0]) if small.size else len(stream)
+
+
+def phase_parallel(torch, device, cfg, tsm, prompts, toks, first_small,
+                   tag, say):
+    """Fork-shared parallel decoding at full width over phase 3's pool
+    shape: greedy groups against phase 4's tokens, the lane oracle,
+    shared pages on float and int8 pools, best-of, fork_stream and a
+    grammar mask under speculation, and a group against lone submits.
+    Returns the ragged launch count of the greedy groups' run."""
+    from paddle_tpu_torch.inference import (SpeculativeEngine,
+                                            branch_lane_seed,
+                                            register_logit_mask)
+    from paddle_tpu_torch.ops.hopper import paged_attention as pa
+    n_new, n, L = cfg["new_tokens"], cfg["par_n"], cfg["layers"]
+    bs, S = cfg["block_size"], cfg["lane_seed"]
+    prompts = prompts[:cfg["spec_requests"]]
+
+    def engine(model=tsm, draft=None, k=0, **kw):
+        kw = dict(dict(max_batch=cfg["max_batch"], block_size=bs,
+                       num_blocks=cfg["num_blocks"],
+                       chunk_tokens=cfg["chunk_tokens"],
+                       prefill_token_budget=cfg["budget"]), **kw)
+        return SpeculativeEngine(model, draft, k=k, **kw)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+
+    # 1. greedy groups: every branch is phase 4's greedy stream
+    calls = []
+    hook = tsm.core.register_forward_pre_hook(
+        lambda m, a: calls.append(a[0].shape[1]))
+    eng = engine()
+    pa.reset_launch_count()
+    sync()
+    t0 = time.perf_counter()
+    gids = [eng.submit(p, n=n) for p in prompts]
+    members, done, rounds = _serve_groups(eng, {g: n for g in gids}, n_new)
+    sync()
+    secs = time.perf_counter() - t0
+    hook.remove()
+    launches = pa.launch_count()
+    ps = eng.engine.parallel_stats
+    saved = (n - 1) * sum(len(p) for p in prompts)
+    say(f"{tag} parallel greedy: {len(gids)} groups of n={n} x {n_new} "
+        f"tokens in {secs:.3f} s = {len(done) * n_new / secs:.2f} "
+        f"tokens/s; {rounds} rounds, {len(calls)} model calls; "
+        f"parallel.groups {ps.groups}, branches {ps.branches}, "
+        f"prefill_tokens_saved {ps.prefill_tokens_saved} (= {n - 1} x "
+        f"{sum(len(p) for p in prompts)}), shared_blocks "
+        f"{ps.shared_blocks}; ragged launches {launches} (= {L} x "
+        f"{len(calls)} model calls); preemptions "
+        f"{sum(o.preemptions for o in eng.outcomes)}")
+    require(ps.groups == len(gids) and ps.branches == (n - 1) * len(gids)
+            and ps.prefill_tokens_saved == saved,
+            f"parallel counts {ps.as_dict()} (want groups {len(gids)}, "
+            f"branches {(n - 1) * len(gids)}, saved {saved})")
+    for i, gid in enumerate(gids):
+        u = first_small[i]
+        bad = [r for r in members[gid] if done[r][:u] != toks[i][:u]]
+        require(not bad, f"group {gid}: branches {bad} differ from phase "
+                f"4's greedy tokens before the first near-tie ({u})")
+    if device.type == "cuda":
+        require(launches == L * len(calls) > 0,
+                f"ragged launches {launches} != {L} x {len(calls)} model "
+                f"calls")
+    eng.check_invariants()
+    del eng
+
+    # 2. the lane oracle: a seeded group == n lone lane-seeded submits
+    samp = dict(sampling="top_k", top_k=cfg["lane_top_k"], temperature=1.0)
+    p = prompts[0]
+    runs = {}
+    for label in ("group", "lone"):
+        eng = engine(**samp)
+        draws = _draw_recorder(tsm)
+        lanes = {}
+        if label == "group":
+            want = {eng.submit(p, n=n, seed=S): n}
+        else:
+            want = {eng.submit(p, seed=branch_lane_seed(S, i)): 1
+                    for i in range(n)}
+        members, done, _ = _serve_groups(eng, want, n_new, lanes=lanes)
+        del tsm.sample
+        order = [r for rids in members.values() for r in rids]
+        runs[label] = [(done[r], draws[lanes[r]]) for r in order]
+        del eng
+    agree = []
+    for i, ((sg, dg), (sl, dl)) in enumerate(zip(runs["group"],
+                                                runs["lone"])):
+        j = _first_edge_draw(branch_lane_seed(S, i), dg, dl)
+        agree.append((sum(a == b for a, b in zip(sg, sl)), j))
+        require(sg[:j] == sl[:j],
+                f"lane oracle: branch {i} differs from its lone submit "
+                f"before draw {j}, the first within {TOL_LANE} of a CDF "
+                f"edge")
+    distinct = len({tuple(s) for s, _ in runs["group"]})
+    say(f"{tag} parallel lane oracle (top_k {cfg['lane_top_k']}, seed "
+        f"{S}): per branch (tokens equal to its lone submit of {n_new}, "
+        f"first draw within {TOL_LANE} of a CDF edge): {agree}; "
+        f"{distinct} distinct branch streams")
+    require(distinct >= 2, "the lane oracle's branches never diverged")
+
+    # 3-4. shared pages on a float pool and on an int8 pool with the
+    # prefix cache: 2 full pages + 5 tokens, 3 decode tokens
+    p37 = [int(t) for t in np.random.RandomState(cfg["lane_seed"]).randint(
+        0, cfg["vocab"], 2 * bs + 5)]
+    for label, kw in (("float", {}),
+                      ("int8 + prefix", dict(kv_dtype="int8",
+                                             prefix_cache=True))):
+        use = {}
+        for mode in ("group", "lone"):
+            eng = engine(**samp, **kw)
+            if mode == "group":
+                rids = [eng.submit(p37, n=n, seed=S)]
+                while len((eng.group(rids[0]) or {"rids": []})["rids"]) < n:
+                    eng.step()
+                rids = eng.group(rids[0])["rids"]
+            else:
+                rids = [eng.submit(p37, seed=branch_lane_seed(S, i))
+                        for i in range(n)]
+            slots = lambda: [eng._by_rid[r].slot for r in rids]  # noqa
+            while not all(s is not None and
+                          int(eng.engine.lens[s]) >= len(p37) + 3
+                          for s in slots()):
+                eng.step()
+            pe = eng.engine
+            use[mode] = (pe.cache.blocks_in_use,
+                         pe.cache.share_report(slots()))
+            if mode == "group":
+                rep = use[mode][1]
+                nf = len(p37) // bs
+                full = pe.cache.seq_blocks[slots()[0]][:nf]
+                tails = {pe.cache.seq_blocks[s][nf] for s in slots()}
+                require(all(rep["multiplicity"][b] == n and
+                            rep["refcount"][b] >= n for b in full),
+                        f"{label}: full prompt pages {full} not shared by "
+                        f"the {n} branches: {rep}")
+                require(len(tails) == n, f"{label}: tail pages {tails} "
+                        f"are not distinct: the COW split did not run")
+                eng.check_invariants()
+                pe.cache.check_invariants(lens=pe.lens, active=pe.active,
+                                          deep=True)
+            del eng
+        say(f"{tag} parallel shared pages ({label} pool, prompt "
+            f"{len(p37)} tokens, 3 decode tokens): group of {n} uses "
+            f"{use['group'][0]} blocks, bytes_saved "
+            f"{use['group'][1]['bytes_saved']} B; {n} lone streams use "
+            f"{use['lone'][0]} blocks; audits held (deep)")
+
+    # 4. a greedy int8 group == the lone int8 stream, to the near-tie
+    q = dict(kv_dtype="int8", prefix_cache=True)
+    out = {}
+    for mode in ("group", "lone"):
+        eng = engine(**q)
+        want = {eng.submit(p, n=n if mode == "group" else 1):
+                n if mode == "group" else 1}
+        members, done, _ = _serve_groups(eng, want, n_new)
+        out[mode] = [done[r] for rids in members.values() for r in rids]
+        del eng
+    lone = out["lone"][0]
+    u = _near_tie(torch, device, cfg, tsm.core, tsm, p, lone, dtype="int8",
+                  prefix_cache=True)
+    agree = [sum(a == b for a, b in zip(s, lone)) for s in out["group"]]
+    say(f"{tag} parallel int8 pages + prefix cache: greedy group vs lone "
+        f"int8 stream, tokens equal {agree} of {n_new}; first near-tie "
+        f"step {u}")
+    require(all(s[:u] == lone[:u] for s in out["group"]),
+            "int8 group differs from the lone int8 stream before the "
+            "first near-tie")
+
+    # 5. best-of: the first member at page capacity wins
+    mb = -(-len(prompts[1]) // bs) + 1
+    eng = engine(max_blocks_per_seq=mb, **samp, seed=S)
+    fresh = eng.engine.free_blocks
+    gid = eng.submit(prompts[1], n=3, seed=S, best_of=True)
+    rounds = 0
+    while not (eng.group(gid) or {}).get("done"):
+        rounds += 1
+        require(rounds < 100 * mb * bs, "best-of did not finish")
+        eng.step()
+    eng.step()
+    g = eng.group(gid)
+    st = [o.status for o in eng.outcomes]
+    rs = eng.resilience_stats
+    for r in g["rids"]:
+        eng.release(r)
+    say(f"{tag} parallel best-of n=3 (capacity {mb * bs} tokens): winner "
+        f"{g['winner']} of {g['rids']}; outcomes {st}; cancelled "
+        f"{rs.cancelled}, failed {rs.failed}; free blocks "
+        f"{eng.engine.free_blocks} of {fresh} after release")
+    require(g["winner"] in g["rids"] and st.count("cancelled") == 2 and
+            st.count("finished") == 1, f"best-of outcomes {st}")
+    require(rs.cancelled == 2 and rs.failed == 0,
+            f"best-of resilience counts {rs.as_dict()}")
+    require(eng.engine.free_blocks == fresh,
+            "best-of left pages behind after release")
+    del eng
+
+    # 6. fork_stream and a grammar mask under speculation (k, draft)
+    nd, k = cfg["draft_layers"], cfg["spec_k"]
+    draft = tsm.truncated_draft(nd)
+    eng = engine(draft=draft, k=k)
+    r0 = eng.submit(prompts[0])
+    while len(eng.generated(r0)) < n_new // 4:
+        eng.step()
+    cut = len(eng.generated(r0))
+    r1 = eng.fork_stream(r0)
+    _, done, _ = _serve_groups(eng, {r0: 1, r1: 1}, n_new)
+    u = first_small[0]
+    say(f"{tag} parallel fork_stream under k={k} ({nd}-layer draft): "
+        f"forked at {cut} tokens; source / clone equal to phase 4's "
+        f"tokens {sum(a == b for a, b in zip(done[r0], toks[0]))} / "
+        f"{sum(a == b for a, b in zip(done[r1], toks[0]))} of {n_new}; "
+        f"first near-tie step {u}")
+    require(done[r0][:u] == toks[0][:u] and done[r1][:u] == toks[0][:u],
+            "fork_stream clone or source left phase 4's greedy tokens "
+            "before the first near-tie")
+    eng.check_invariants()
+    del eng
+    mod = cfg["mask_mod"]
+    register_logit_mask(
+        "chip_smoke_mod", lambda ts, V: np.arange(V) % mod == len(ts) % mod)
+    eng = engine(draft=draft, k=k, **samp)
+    gid = eng.submit(prompts[1], n=2, seed=S, logit_mask="chip_smoke_mod")
+    members, done, _ = _serve_groups(eng, {gid: 2}, n_new)
+    plen = len(prompts[1])
+    bad = [(r, i, t) for r, s in done.items() for i, t in enumerate(s)
+           if t % mod != (plen + i) % mod]
+    st = eng.stats
+    say(f"{tag} parallel grammar mask (token id = stream length mod "
+        f"{mod}, vocab {cfg['vocab']}) under top_k {cfg['lane_top_k']}, "
+        f"k={k}: {sum(len(s) for s in done.values())} tokens, "
+        f"{len(bad)} outside the mask; proposed {st.proposed}, accepted "
+        f"{st.accepted}, rolled back {st.rolled_back}")
+    require(not bad, f"tokens outside the grammar mask: {bad[:5]}")
+    require(st.rolled_back > 0, "no rejection: the residual path did "
+            "not run under the mask")
+    eng.check_invariants()
+    del eng, draft
+
+    # 7. printed only: one group against n lone submits at equal pool
+    # bytes (bench_extra.py's bench_serving_parallel at full width)
+    pb = cfg["par_prompt_blocks"]
+    pbench = [int(t) for t in np.random.RandomState(S + 1).randint(
+        0, cfg["vocab"], pb * bs)]
+    bench = dict(max_batch=n, num_blocks=pb + n + 2,
+                 max_blocks_per_seq=pb + 1, prefill_token_budget=None,
+                 sampling="top_k", top_k=10, temperature=1.0, seed=7)
+    eng = engine(**bench)
+    sync()
+    t0 = time.perf_counter()
+    gid = eng.submit(pbench, n=n, seed=S)
+    steps = 0
+    while True:
+        rids = (eng.group(gid) or {"rids": []})["rids"]
+        if len(rids) == n and all(len(eng.generated(r)) >= bs
+                                  for r in rids):
+            break
+        eng.step()
+        steps += 1
+    sync()
+    g_s = time.perf_counter() - t0
+    g_tok = sum(min(len(eng.generated(r)), bs) for r in rids)
+    pool = eng.engine.cache.pool_bytes()
+    del eng
+    eng = engine(**bench)
+    sync()
+    t0 = time.perf_counter()
+    rids = [eng.submit(pbench, seed=branch_lane_seed(S, i))
+            for i in range(n)]
+    for _ in range(steps):
+        eng.step()
+    sync()
+    i_s = time.perf_counter() - t0
+    i_tok = sum(min(len(eng.generated(r)), bs) for r in rids)
+    require(eng.engine.cache.pool_bytes() == pool, "unequal pool bytes")
+    del eng
+    say(f"{tag} parallel vs lone at equal pool bytes ({pool} B, "
+        f"{pb + n + 1} usable blocks, prompt {pb * bs} tokens, {bs} new "
+        f"a stream, {steps} steps each; printed only): group of {n} "
+        f"{g_tok} tokens in {g_s:.3f} s = {g_tok / g_s:.2f} tokens/s; "
+        f"{n} lone submits {i_tok} tokens in {i_s:.3f} s = "
+        f"{i_tok / i_s:.2f} tokens/s")
+    return launches
+
+
 def phase_profile(torch, device, cfg, tsm, tsm_moe, tag, say):
     """Where a model call spends its time: one forward of max_batch rows
     (decode-sized) and one of budget + max_batch rows (mixed-sized, the
@@ -2323,6 +2722,8 @@ def run(device, cfg, seed=0, say=print, card=None):
     phase_profile(torch, device, cfg, tsm, tsm_moe, tag, say)
     phase_spec(torch, device, cfg, tsm, tsm_moe, prompts, toks, first_small,
                tag, say)
+    phase_parallel(torch, device, cfg, tsm, prompts, toks, first_small, tag,
+                   say)
     rows["gmm"]["launches"] = mserve["launches"]["gmm"]
     rows["paged_attention_ragged"]["launches"] = \
         serve["launches"]["paged_attention_ragged"]

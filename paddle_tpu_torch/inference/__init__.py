@@ -10,7 +10,9 @@ from .scheduler import (MIN_PREFILL_SUFFIX_ROWS,  # noqa: F401
 from .serving import (ContinuousBatchingEngine,  # noqa: F401
                       ParallelStats, PrefillStats, PrefixCacheStats,
                       ResilienceStats, SpecDecodeStats, TenantStats)
-from .speculative import SpeculativeEngine, TokenServingModel  # noqa: F401
+from .speculative import (SpeculativeEngine,  # noqa: F401
+                          TokenServingModel, branch_lane_seed,
+                          logit_mask_fn, register_logit_mask)
 from .telemetry import MetricsRegistry, StatsBase  # noqa: F401
 
 __all__ = ["BlockAllocator", "BlockOOM", "ContinuousBatchingEngine",
@@ -21,5 +23,6 @@ __all__ = ["BlockAllocator", "BlockOOM", "ContinuousBatchingEngine",
            "ParallelStats", "PrefillStats", "PrefixCacheStats",
            "RequestOutcome", "ResilienceStats", "SpecDecodeStats",
            "SpeculativeEngine", "StatsBase", "TenantStats",
-           "TokenServingModel", "chain_block_hashes", "chain_hash",
-           "chunked_prefill", "moe_capacity"]
+           "TokenServingModel", "branch_lane_seed", "chain_block_hashes",
+           "chain_hash", "chunked_prefill", "logit_mask_fn",
+           "moe_capacity", "register_logit_mask"]

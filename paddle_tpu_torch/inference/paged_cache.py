@@ -508,6 +508,11 @@ class PagedKVCache:
         # step (mid-prefill slots, slots admitted this very step)
         self._decode_masked: Optional[np.ndarray] = None
         self.peak_blocks_used = 0
+        # block-table references held by the slots, moved by every table
+        # mutation as the reference's per-tenant ``_charge`` moves (a
+        # fork charges each shared block once more, a COW swap is
+        # neutral); tenants are not ported, so it is one counter
+        self.charged_blocks = 0
 
     # -- construction -------------------------------------------------
     @classmethod
@@ -610,7 +615,8 @@ class PagedKVCache:
           7. ``deep``: shared (refcount >= 2), hash-indexed and
              cached-free blocks are fingerprinted (payload and, on int8
              pools, scales) and re-verified while they stay so — an
-             in-place write to such a page trips it.
+             in-place write to such a page trips it;
+          8. ``charged_blocks`` equals the tables' references.
         """
         a = self.allocator
         counts: Dict[int, int] = {}
@@ -628,6 +634,9 @@ class PagedKVCache:
             assert list(row[:len(blocks)]) == [int(b) for b in blocks] \
                 and not row[len(blocks):].any(), \
                 f"slot {slot} device table diverges from seq_blocks"
+        assert self.charged_blocks == sum(counts.values()), \
+            (f"charged blocks {self.charged_blocks} != "
+             f"{sum(counts.values())} table references")
         free_set, cached_set = set(a._free), set(a._cached)
         active_set = {b for b in range(1, self.num_blocks)
                       if a.refcount[b] > 0}
@@ -806,6 +815,7 @@ class PagedKVCache:
             new = self.allocator.alloc(need - len(have))
             self.block_tables[slot, len(have):need] = new
             have.extend(new)
+            self.charged_blocks += len(new)
             self._tables_dirty()
         if write_from is None:
             write_from = int(length) - 1
@@ -827,6 +837,7 @@ class PagedKVCache:
         if keep >= len(have):
             return
         self.release_to_cache(have[keep:])
+        self.charged_blocks -= len(have) - keep
         del have[keep:]
         self.block_tables[slot, keep:] = 0
         self._tables_dirty()
@@ -834,6 +845,7 @@ class PagedKVCache:
     def free_seq(self, slot: int) -> None:
         if self.seq_blocks[slot]:
             self.release_to_cache(self.seq_blocks[slot])
+            self.charged_blocks -= len(self.seq_blocks[slot])
             self.seq_blocks[slot] = []
             self.block_tables[slot, :] = 0
             self._tables_dirty()
@@ -849,8 +861,38 @@ class PagedKVCache:
         for b in shared:   # fresh share epoch for the content audit
             self._audit_fp.pop(int(b), None)
         self.seq_blocks[dst] = list(shared)
+        self.charged_blocks += len(shared)
         self.block_tables[dst, :len(shared)] = shared
         self._tables_dirty()
+
+    def share_report(self, slots) -> dict:
+        """Fork sharing across ``slots`` (a branch group, or any slot
+        set), a pure read:
+
+          shared_blocks   blocks referenced by >= 2 of the slots
+          private_blocks  blocks referenced by exactly one
+          multiplicity    {block: how many of the slots reference it}
+          refcount        {block: allocator refcount} (>= multiplicity;
+                          the prefix cache may hold more references)
+          bytes_saved     pool bytes the sharing avoided: (multiplicity
+                          - 1) block copies over the shared blocks, at
+                          kv_bytes_per_token() x block_size
+        """
+        mult: Dict[int, int] = {}
+        for slot in slots:
+            for b in self.seq_blocks[int(slot)]:
+                mult[int(b)] = mult.get(int(b), 0) + 1
+        shared = sorted(b for b, m in mult.items() if m >= 2)
+        bpb = self.kv_bytes_per_token() * self.block_size
+        return {
+            "shared_blocks": shared,
+            "private_blocks": sorted(b for b, m in mult.items()
+                                     if m == 1),
+            "multiplicity": mult,
+            "refcount": {b: int(self.allocator.refcount[b])
+                         for b in mult},
+            "bytes_saved": sum(mult[b] - 1 for b in shared) * bpb,
+        }
 
     def _copy_block(self, slot: int, bpos: int) -> None:
         """Copy-on-write: give slot a private copy of the block at table
@@ -912,6 +954,7 @@ class PagedKVCache:
                 self.allocator.resurrect(b)
         if matched:
             self.seq_blocks[slot] = list(matched)
+            self.charged_blocks += len(matched)
             self.block_tables[slot, :len(matched)] = matched
             self._tables_dirty()
         return len(matched)

@@ -40,9 +40,18 @@ limit is the BLOCK BUDGET, not slots * max_len:
     per slot in one call (packed beside prefill chunks in token-budget
     mode), and ``rollback`` trims a rejected tail from the history, then
     from the pages.
+  * branch groups (``submit(..., n=4)``): the prompt prefills once and,
+    when its last chunk lands, n-1 branch slots fork over its pages
+    (``PagedKVCache.fork``; the first divergent write COW-splits the
+    shared partial page). The group admits as one unit (n free slots;
+    in token-budget mode the branch slots are reserved while the
+    prompt streams); ``fork_stream`` clones a running stream; ``cancel``
+    stops one (CANCELLED). ``_GroupTable`` holds the records.
 
-Ported later: tenants and weighted fair queuing, branch groups,
-deadlines, fault injection, telemetry collectors and snapshot/restore.
+Ported later: tenants and weighted fair queuing, deadlines, fault
+injection, the numeric guard, telemetry collectors, monitors, the cost
+ledger and snapshot/restore (their parameters raise for any value but
+the default).
 """
 from __future__ import annotations
 
@@ -55,7 +64,8 @@ import torch
 from ..framework.unported import require_defaults
 from .paged_cache import BlockOOM, PagedKVCache, chain_block_hashes
 from .resilience import RequestOutcome
-from .serving import PrefillStats, PrefixCacheStats, ResilienceStats
+from .serving import (ParallelStats, PrefillStats, PrefixCacheStats,
+                      ResilienceStats)
 from .telemetry import MetricsRegistry
 
 __all__ = ["PagedRequest", "PagedServingEngine", "chunked_prefill",
@@ -141,6 +151,13 @@ class PagedRequest:
         self.enqueue_seq = -1
         self.preemptions = 0
         self.max_preemptions: Optional[int] = None
+        # branch groups: ``gid`` is the lead's rid for every member,
+        # ``branch`` the member's index; ``group_n`` > 1 marks a lead
+        # whose branches have not forked yet (the fork resets it, so a
+        # later preemption re-prefills it alone)
+        self.gid: Optional[int] = None
+        self.branch = 0
+        self.group_n = 1
 
     @property
     def history(self) -> np.ndarray:
@@ -183,6 +200,79 @@ class PagedRequest:
         return self._len
 
 
+class _GroupTable:
+    """The engine's branch groups, one record per live group:
+
+      n         branch count the group was admitted for
+      rids      member rids in branch order (rids[0] == gid, the lead's
+                rid; branch rids are minted at fork time)
+      live      members without a terminal outcome yet (the record
+                drops when this empties)
+      reserved  slots held for the pending branches while the lead's
+                prompt streams (token-budget mode): ``prefilling`` with
+                no request and no prefill state; emptied by the fork or
+                by the lead leaving its slot
+      forked    whether the fork has run
+
+    Plain host dicts, as in the reference (``snapshot``/``restore``)."""
+
+    def __init__(self):
+        self.groups: Dict[int, dict] = {}
+        self._by_rid: Dict[int, int] = {}
+
+    def create(self, gid: int, n: int) -> dict:
+        g = {"n": int(n), "rids": [gid], "live": [gid],
+             "reserved": [], "forked": False}
+        self.groups[gid] = g
+        self._by_rid[gid] = gid
+        return g
+
+    def add_branch(self, gid: int, rid: int) -> None:
+        g = self.groups[gid]
+        g["rids"].append(rid)
+        g["live"].append(rid)
+        self._by_rid[rid] = gid
+
+    def gid_of(self, rid: int) -> Optional[int]:
+        return self._by_rid.get(rid)
+
+    def reserved_slots(self) -> set:
+        return {s for g in self.groups.values() for s in g["reserved"]}
+
+    def on_terminal(self, rid: int) -> Optional[dict]:
+        """Retire a member; drop the record once every member is
+        terminal. Returns the record, or None for a non-member."""
+        gid = self._by_rid.get(rid)
+        if gid is None:
+            return None
+        g = self.groups[gid]
+        if rid in g["live"]:
+            g["live"].remove(rid)
+        if not g["live"]:
+            for r in g["rids"]:
+                self._by_rid.pop(r, None)
+            del self.groups[gid]
+        return g
+
+    def snapshot(self) -> dict:
+        return {"groups": [dict(g, gid=gid, rids=list(g["rids"]),
+                                live=list(g["live"]),
+                                reserved=list(g["reserved"]))
+                           for gid, g in self.groups.items()],
+                "by_rid": dict(self._by_rid)}
+
+    def restore(self, rec: dict) -> None:
+        self.groups = {}
+        for g in rec.get("groups", []):
+            self.groups[int(g["gid"])] = {
+                "n": int(g["n"]), "rids": list(g["rids"]),
+                "live": list(g["live"]),
+                "reserved": [int(s) for s in g["reserved"]],
+                "forked": bool(g["forked"])}
+        self._by_rid = {int(r): int(gid)
+                        for r, gid in rec.get("by_rid", {}).items()}
+
+
 class PagedServingEngine:
     def __init__(self, model, max_batch: int, block_size: int,
                  num_blocks: int, max_blocks_per_seq: Optional[int] = None,
@@ -190,9 +280,17 @@ class PagedServingEngine:
                  prefix_cache: bool = False,
                  chunk_tokens: Optional[int] = None,
                  prefill_token_budget: Optional[int] = None,
-                 injector=None, max_preemptions: Optional[int] = None):
-        # the reference's fault injector is not ported
-        require_defaults("PagedServingEngine", injector=(injector, None))
+                 injector=None, max_preemptions: Optional[int] = None,
+                 numeric_guard: Optional[bool] = None,
+                 tenants: Optional[dict] = None,
+                 collector=None, monitor=None, ledger=None):
+        # not ported: the fault injector, the numeric guard, tenants,
+        # the trace collector, the health monitor and the cost ledger
+        require_defaults("PagedServingEngine", injector=(injector, None),
+                         numeric_guard=(numeric_guard, None),
+                         tenants=(tenants, None),
+                         collector=(collector, None),
+                         monitor=(monitor, None), ledger=(ledger, None))
         self.model = model
         self._ragged_plan: Optional[List[dict]] = None
         self.max_batch = int(max_batch)
@@ -203,6 +301,8 @@ class PagedServingEngine:
         self.prefill_stats = PrefillStats()
         self.max_preemptions = max_preemptions
         self.resilience_stats = ResilienceStats()
+        self.parallel_stats = ParallelStats()
+        self.groups = _GroupTable()
         self.outcomes: List[RequestOutcome] = []
         self._step_count = 0
         self.cache = PagedKVCache.for_model(
@@ -215,6 +315,7 @@ class PagedServingEngine:
         self.registry.attach("prefill", self.prefill_stats)
         self.registry.attach("prefix_cache", self.prefix_stats)
         self.registry.attach("resilience", self.resilience_stats)
+        self.registry.attach("parallel", self.parallel_stats)
         self.registry.attach(
             "pool",
             lambda: dict(self.cache.pool_occupancy(tiers_only=True),
@@ -299,8 +400,10 @@ class PagedServingEngine:
         return (1, req.enqueue_seq)
 
     # -- admission ----------------------------------------------------
-    def submit(self, prompt, *,
-               max_preemptions: Optional[int] = None) -> int:
+    def submit(self, prompt, *, max_preemptions: Optional[int] = None,
+               deadline_steps: Optional[int] = None,
+               deadline_s: Optional[float] = None,
+               tenant_id: Optional[str] = None, n: int = 1) -> int:
         """Queue a prompt ([T, d_model] embeddings) and try to admit.
         Returns the request id; when admission succeeded an ``(rid,
         slot, last_hidden)`` event is in ``admitted``. With
@@ -308,7 +411,19 @@ class PagedServingEngine:
         the admitted event fires when the last chunk lands. A prompt
         that can never fit the pool is REJECTED_ADMISSION in
         ``outcomes``. ``max_preemptions`` caps this request's
-        re-prefill retries (overriding the engine default)."""
+        re-prefill retries (overriding the engine default).
+
+        ``n`` > 1 queues a branch group: the prompt prefills once, then
+        n-1 branch slots fork over its pages, each with a fresh rid
+        and its own admitted event carrying the lead's prefill hidden;
+        from then on each branch is a normal slot. Admission waits for
+        n free slots. Returns the lead's rid, the group id.
+        ``deadline_steps``, ``deadline_s`` and ``tenant_id`` are not
+        ported."""
+        require_defaults("PagedServingEngine.submit",
+                         deadline_steps=(deadline_steps, None),
+                         deadline_s=(deadline_s, None),
+                         tenant_id=(tenant_id, None))
         arr = np.asarray(prompt.cpu().numpy() if isinstance(
             prompt, torch.Tensor) else prompt, np.float32)
         if arr.shape[0] == 0:
@@ -317,14 +432,25 @@ class PagedServingEngine:
             raise ValueError(
                 f"prompt length {arr.shape[0]} > per-seq page capacity "
                 f"{self.max_len}")
+        n = int(n)
+        if n < 1:
+            raise ValueError(f"n must be >= 1, got {n}")
+        if n > self.max_batch:
+            raise ValueError(
+                f"n={n} branches exceed max_batch={self.max_batch}")
         req = PagedRequest(self._next_rid, arr)
         self._next_rid += 1
+        if n > 1:
+            req.gid = req.rid
+            req.group_n = n
         req.max_preemptions = (self.max_preemptions
                                if max_preemptions is None
                                else int(max_preemptions))
         # the horizon every serving path must eventually cover: the
-        # prompt plus the first decode token's page
-        need = self.cache.blocks_needed(min(len(req) + 1, self.max_len))
+        # prompt plus the first decode token's page; a group holds the
+        # prompt once plus each extra branch's first COW-split page
+        need = self.cache.blocks_needed(min(len(req) + 1, self.max_len)) \
+            + n - 1
         room = self.cache.num_blocks - 1 - self.watermark_blocks
         if need > room:
             self._record(req, RequestOutcome.REJECTED_ADMISSION,
@@ -332,6 +458,9 @@ class PagedServingEngine:
                          f"first decode token but only {room} can ever "
                          f"be available past the watermark")
             return req.rid
+        if n > 1:
+            self.groups.create(req.rid, n)
+            self.parallel_stats.groups += 1
         req.enqueue_seq = self._next_enqueue_seq
         self._next_enqueue_seq += 1
         self._queue.append(req)
@@ -343,9 +472,12 @@ class PagedServingEngine:
         admission horizon plus the watermark: the whole prompt (plus the
         first decode token's page) in synchronous mode, only the FIRST
         chunk in token-budget mode. Pool pressure stops the pass
-        head-of-line."""
+        head-of-line, and so does a branch group without n free slots
+        (the fork at prefill completion needs them all)."""
         while self._queue and self.free_slots > 0:
             req = self._queue[0]
+            if req.group_n > self.free_slots:
+                return
             if self.prefill_token_budget is None:
                 horizon = min(len(req) + 1, self.max_len)
             else:
@@ -359,7 +491,9 @@ class PagedServingEngine:
                     req.block_hashes(self.cache.block_size))
                 rc = self.cache.allocator.refcount
                 need -= sum(1 for b in matched if rc[b] > 0)
-            draw = max(need, 0) + self.watermark_blocks
+            # the prompt's pages land once however many branches will
+            # reference them; each extra branch needs its first split
+            draw = max(need, 0) + req.group_n - 1 + self.watermark_blocks
             if draw > self.free_blocks:
                 return
             self._queue.popleft()
@@ -410,6 +544,16 @@ class PagedServingEngine:
         self._next_admit_seq += 1
         if req.preemptions > 0:
             self.resilience_stats.retried += 1
+        if req.group_n > 1 and self.prefill_token_budget is not None:
+            # the prompt streams over many steps while admission goes
+            # on: hold the branch slots now (the admission gate saw
+            # group_n free slots)
+            g = self.groups.groups[req.gid]
+            for _ in range(req.group_n - 1):
+                rs = int(np.flatnonzero(~self.active
+                                        & ~self.prefilling)[0])
+                self.prefilling[rs] = True
+                g["reserved"].append(rs)
         return slot
 
     def _register_prefill(self, slot: int, st: dict) -> None:
@@ -431,6 +575,106 @@ class PagedServingEngine:
         self.lens[slot] = len(req)
         self.active[slot] = True
         self.admitted.append((req.rid, slot, last_hidden))
+        self._fork_group(slot, last_hidden)
+
+    def _fork_group(self, slot: int, last_hidden) -> None:
+        """Fork the branch slots of a group lead whose prompt has just
+        landed (after the launch that wrote its last chunk): each branch
+        gets a fresh rid, a copy of the history, a table referencing
+        the lead's prompt pages (``PagedKVCache.fork``) and an admitted
+        event carrying the lead's prefill hidden."""
+        req = self._requests[slot]
+        if req is None or req.group_n <= 1:
+            return
+        g = self.groups.groups.get(req.gid)
+        if g is None or g["forked"]:
+            return
+        T = len(req)
+        reserved = list(g["reserved"])
+        del g["reserved"][:]
+        for i in range(1, req.group_n):
+            if reserved:
+                bslot = reserved.pop(0)
+                self.prefilling[bslot] = False
+            else:
+                bslot = int(np.flatnonzero(~self.active
+                                           & ~self.prefilling)[0])
+            breq = self._branch_request(req, i)
+            self.groups.add_branch(req.gid, breq.rid)
+            self._attach_fork(slot, bslot, breq, T)
+            self.admitted.append((breq.rid, bslot, last_hidden))
+        g["forked"] = True
+        # the lead is a normal slot from here: a later preemption
+        # re-prefills it alone
+        req.group_n = 1
+
+    def _branch_request(self, req: PagedRequest,
+                        branch: int) -> PagedRequest:
+        breq = PagedRequest(self._next_rid, req.history)
+        self._next_rid += 1
+        breq.gid = req.gid
+        breq.branch = branch
+        breq.max_preemptions = req.max_preemptions
+        return breq
+
+    def _attach_fork(self, src: int, bslot: int, breq: PagedRequest,
+                     length: int) -> None:
+        """Seat ``breq`` in ``bslot`` over ``src``'s pages up to
+        ``length`` tokens and count the fork."""
+        self.cache.fork(src, bslot, length)
+        self._requests[bslot] = breq
+        breq.slot = bslot
+        breq.admit_seq = self._next_admit_seq
+        self._next_admit_seq += 1
+        self.lens[bslot] = length
+        self.active[bslot] = True
+        self.parallel_stats.branches += 1
+        self.parallel_stats.prefill_tokens_saved += length
+        self.parallel_stats.shared_blocks += \
+            self.cache.blocks_needed(length)
+
+    def fork_stream(self, rid: int) -> int:
+        """Clone the running stream ``rid`` into a free slot: history
+        copied, pages shared at the current length (the clone's next
+        write splits), fresh rid returned. The source's group grows by
+        the clone (a lone stream gets a group on demand). ValueError
+        when ``rid`` is not active or no slot is free."""
+        slot = next((s for s, r in enumerate(self._requests)
+                     if r is not None and r.rid == rid), None)
+        if slot is None or not self.active[slot]:
+            raise ValueError(f"rid {rid} is not an active stream")
+        # reserved branch slots are prefilling, so never free here
+        free = np.flatnonzero(~self.active & ~self.prefilling)
+        if not free.size:
+            raise ValueError("no free slot to fork into")
+        # buffered decode inputs reach the history before it is copied
+        self._flush_history()
+        req = self._requests[slot]
+        if req.gid is None:
+            req.gid = req.rid
+            self.groups.create(req.rid, 1)["forked"] = True
+            self.parallel_stats.groups += 1
+        g = self.groups.groups[req.gid]
+        breq = self._branch_request(req, len(g["rids"]))
+        g["n"] += 1
+        self.groups.add_branch(req.gid, breq.rid)
+        self._attach_fork(slot, int(free[0]), breq, int(self.lens[slot]))
+        return breq.rid
+
+    def cancel(self, rid: int) -> bool:
+        """Stop one stream early (best-of losers, beam cuts, the
+        caller): its pages are freed, its outcome is CANCELLED. Works on
+        running, mid-prefill and queued requests. False for an unknown
+        or already terminal rid."""
+        req = next((r for r in self._requests
+                    if r is not None and r.rid == rid), None)
+        if req is None:
+            req = next((r for r in self._queue if r.rid == rid), None)
+        if req is None:
+            return False
+        self._fail(req, RequestOutcome.CANCELLED, "cancelled (early stop)")
+        self._try_admit()
+        return True
 
     def _chunk_registrar(self, slot: int, st: dict):
         """``on_chunk`` hook: index every COMPLETED prompt block under
@@ -565,8 +809,9 @@ class PagedServingEngine:
             if s["complete"]:
                 st = self._prefills.pop(s["slot"])
                 self._register_prefill(s["slot"], st)
-                self.admitted.append((s["req"].rid, s["slot"],
-                                      out[0, lo + n - 1:lo + n]))
+                h = out[0, lo + n - 1:lo + n]
+                self.admitted.append((s["req"].rid, s["slot"], h))
+                self._fork_group(s["slot"], h)
             lo += n
         if x is not None:
             return out[0, lo:lo + self.max_batch * L].reshape(
@@ -591,6 +836,9 @@ class PagedServingEngine:
             self.resilience_stats.shed += 1
         elif status == RequestOutcome.REJECTED_ADMISSION:
             self.resilience_stats.rejected += 1
+        elif status == RequestOutcome.CANCELLED:
+            self.resilience_stats.cancelled += 1
+        self.groups.on_terminal(req.rid)
 
     def _fail(self, req: PagedRequest, status: str, reason: str) -> None:
         """Terminal failure of ONE request: free its pages, detach it
@@ -639,6 +887,15 @@ class PagedServingEngine:
             # state settle) before its pages are freed
             self._flush_ragged_plan()
         self._flush_history()
+        req = self._requests[slot]
+        if req is not None and req.group_n > 1:
+            # an unforked lead leaving its slot gives up its branch-slot
+            # reservation; a re-admission reserves afresh
+            g = self.groups.groups.get(req.gid)
+            if g is not None:
+                for rs in g["reserved"]:
+                    self.prefilling[rs] = False
+                del g["reserved"][:]
         self.cache.free_seq(slot)
         self.active[slot] = False
         self.prefilling[slot] = False
@@ -850,9 +1107,19 @@ class PagedServingEngine:
         """Audit engine + pool bookkeeping (PagedKVCache.check_invariants
         for the pool list); raises AssertionError on violation: every
         active or prefilling slot maps to a request that points back at
-        it, queued requests hold no slot and sit in queue order, and
-        every active slot's table covers its length."""
+        it (a reserved branch slot: to none), queued requests hold no
+        slot and sit in queue order, every active slot's table covers
+        its length, and the group records and their shared pages agree
+        (``_audit_groups``)."""
+        reserved = self.groups.reserved_slots()
         for slot in np.flatnonzero(self.active | self.prefilling):
+            if int(slot) in reserved:
+                assert self.prefilling[int(slot)] and \
+                    self._requests[int(slot)] is None and \
+                    int(slot) not in self._prefills and \
+                    self.lens[int(slot)] == 0, \
+                    f"reserved branch slot {int(slot)} inconsistent"
+                continue
             req = self._requests[int(slot)]
             assert req is not None and req.slot == int(slot), \
                 f"slot {int(slot)} active without a matching request"
@@ -867,6 +1134,31 @@ class PagedServingEngine:
         for slot in self._prefills:
             assert self.prefilling[slot], \
                 f"prefill state for non-prefilling slot {slot}"
+        self._audit_groups()
         self.cache.check_invariants(lens=self.lens, active=self.active)
         self.resilience_stats.audits += 1
         return True
+
+    def _audit_groups(self) -> None:
+        """Per live group: the lead heads its members, the live set is
+        a subset of them, only an unforked group reserves slots, and
+        each pool block's multiplicity across the members' tables is
+        covered by its refcount (the prefix cache may hold more)."""
+        by_slot = {r.rid: s for s, r in enumerate(self._requests)
+                   if r is not None}
+        for gid, g in self.groups.groups.items():
+            assert g["rids"][0] == gid, \
+                f"group {gid} lead rid mismatch: {g['rids']}"
+            assert set(g["live"]) <= set(g["rids"]), \
+                f"group {gid} live set exceeds its members"
+            if g["forked"]:
+                assert not g["reserved"], \
+                    f"forked group {gid} still holds reserved slots"
+            slots = [by_slot[r] for r in g["rids"] if r in by_slot]
+            if not slots:
+                continue
+            rep = self.cache.share_report(slots)
+            for b, m in rep["multiplicity"].items():
+                assert rep["refcount"][b] >= m, \
+                    (f"group {gid}: block {b} referenced by {m} member "
+                     f"table(s) but refcount is {rep['refcount'][b]}")

@@ -16,10 +16,19 @@ paddle_tpu/inference/speculative.py).
   (``PagedServingEngine.rollback``). ``k=0`` serves plain token-ID paged
   decode. ``submit(token_ids)``, ``step() -> {rid: [tokens]}``,
   ``tokens(rid)``, ``release(rid)``.
+* Parallel decoding: ``submit(..., n=4)`` serves a branch group over
+  shared prompt pages; ``seed`` gives branch i the RNG lane
+  ``branch_lane_seed(seed, i)`` (the group's streams are those of n
+  lone submits with those seeds), ``best_of`` races the branches (the
+  first to finish wins, the others are cancelled), ``logit_mask`` names
+  a ``register_logit_mask`` grammar applied at every sampling site.
+  ``fork_stream(rid)`` clones a running stream, ``cancel(rid)`` stops
+  one, ``group(gid)`` reads a group's record.
 
 Not ported yet: fault injection, telemetry spans, the cost ledger,
-tenants, branch groups and ``fork_stream``, logit masks, export/import
-of slices, and engine snapshot/restore.
+tenants, deadlines, ``resume``, export/import of slices, and engine
+snapshot/restore (their parameters raise for any value but the
+default).
 """
 from __future__ import annotations
 
@@ -28,12 +37,50 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..framework.unported import require_defaults
 from .paged_cache import BlockOOM, PagedKVCache
 from .resilience import RequestOutcome
 from .scheduler import PagedServingEngine, chunked_prefill
 from .serving import SpecDecodeStats
 
-__all__ = ["TokenServingModel", "SpeculativeEngine", "SpecDecodeStats"]
+__all__ = ["TokenServingModel", "SpeculativeEngine", "SpecDecodeStats",
+           "branch_lane_seed", "register_logit_mask", "logit_mask_fn"]
+
+
+def branch_lane_seed(seed: int, branch: int) -> int:
+    """RNG-lane seed of branch ``branch`` of a group submitted with
+    ``seed``: branch 0 is the seed itself (a lone seeded request is lane
+    0 of a group of one), later branches step by the golden-ratio
+    increment. An n-branch group's streams are those of n lone submits
+    seeded ``branch_lane_seed(seed, i)``."""
+    return (int(seed) + 0x9E3779B9 * int(branch)) % (2 ** 32)
+
+
+# Grammar masks register by name: ``fn(tokens_so_far, vocab_size) ->
+# bool[vocab_size]``, True where the next token is allowed (at least
+# one must be).
+_LOGIT_MASKS: Dict[str, object] = {}
+
+
+def register_logit_mask(name: str, fn) -> None:
+    """Register ``fn(tokens_so_far: List[int], vocab_size: int) ->
+    bool[vocab_size]`` under ``name``. Sampling adds it to the logits on
+    the device (0 allowed, -1e30 banned) before argmax or softmax, on
+    every stream that names it: the first token, draft proposals, the
+    verify sample and the rejection residual."""
+    if not callable(fn):
+        raise ValueError("logit mask must be callable")
+    _LOGIT_MASKS[str(name)] = fn
+
+
+def logit_mask_fn(name: str):
+    """The mask registered under ``name`` (KeyError names a miss)."""
+    try:
+        return _LOGIT_MASKS[name]
+    except KeyError:
+        raise KeyError(
+            f"unknown logit mask {name!r} — register_logit_mask() it "
+            f"before submit") from None
 
 
 class TokenServingModel:
@@ -129,12 +176,24 @@ class TokenServingModel:
 
     def sample(self, logits: torch.Tensor, mode: str = "greedy",
                temperature: float = 1.0, top_k: Optional[int] = None,
-               rng: Optional[np.random.RandomState] = None
+               rng: Optional[np.random.RandomState] = None,
+               rng_rows: Optional[list] = None, logit_mask=None
                ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
         """logits [..., vocab] -> (token ids int64 [...], probs float32
         [..., vocab] or None). Greedy is an on-device argmax; the
         stochastic modes build the distribution on the device and draw
-        per row on the host with ``rng`` (inverse CDF)."""
+        per row on the host with ``rng`` (inverse CDF).
+
+        ``rng_rows``: one RandomState or None per flat row; a row with a
+        lane draws its uniform from it, the others from ``rng`` in row
+        order (so all-None rows draw as the batched path does).
+        ``logit_mask``: bool array of the logits' shape, True where a
+        token is allowed, added on the device as 0 / -1e30 before argmax
+        or softmax."""
+        if logit_mask is not None:
+            neg = np.where(np.asarray(logit_mask, bool), 0.0,
+                           -1e30).astype(np.float32)
+            logits = logits + torch.from_numpy(neg).to(logits.device)
         if mode == "greedy":
             return logits.argmax(dim=-1).cpu().numpy().astype(np.int64), \
                 None
@@ -146,7 +205,15 @@ class TokenServingModel:
             rng = np.random
         flat = p.reshape(-1, p.shape[-1]).astype(np.float64)
         flat = flat / flat.sum(axis=-1, keepdims=True)
-        u = rng.random_sample(flat.shape[0])
+        if rng_rows is None:
+            u = rng.random_sample(flat.shape[0])
+        else:
+            if len(rng_rows) != flat.shape[0]:
+                raise ValueError(
+                    f"rng_rows needs one entry per flat row "
+                    f"({flat.shape[0]}), got {len(rng_rows)}")
+            u = np.array([(rng if r is None else r).random_sample()
+                          for r in rng_rows], np.float64)
         cdf = np.cumsum(flat, axis=-1)
         toks = np.array([np.searchsorted(cdf[i], u[i], side="right")
                          for i in range(flat.shape[0])], np.int64)
@@ -173,9 +240,12 @@ class TokenServingModel:
 class _SpecSeq:
     """Host-side token state of one request: the full stream (prompt +
     every emitted token; the LAST entry is the pending token — emitted
-    to the caller but not yet consumed by the models)."""
+    to the caller but not yet consumed by the models). Branch-group
+    members also carry their group id, branch index, RNG lane and the
+    name of their grammar mask."""
 
-    __slots__ = ("rid", "toks", "prompt_len", "slot", "started")
+    __slots__ = ("rid", "toks", "prompt_len", "slot", "started",
+                 "lane", "gid", "branch", "mask")
 
     def __init__(self, rid: int, prompt: List[int]):
         self.rid = rid
@@ -183,6 +253,10 @@ class _SpecSeq:
         self.prompt_len = len(prompt)
         self.slot: Optional[int] = None
         self.started = False    # first token sampled at admission?
+        self.lane: Optional[np.random.RandomState] = None
+        self.gid: Optional[int] = None
+        self.branch = 0
+        self.mask: Optional[str] = None
 
 
 class SpeculativeEngine:
@@ -223,7 +297,18 @@ class SpeculativeEngine:
                  chunk_tokens: Optional[int] = None,
                  prefill_token_budget: Optional[int] = None,
                  kv_dtype="float32", seed: int = 0,
-                 max_preemptions: Optional[int] = None):
+                 injector=None,
+                 max_preemptions: Optional[int] = None,
+                 numeric_guard: Optional[bool] = None,
+                 tenants: Optional[dict] = None,
+                 collector=None, monitor=None, ledger=None):
+        # the fault injector, numeric guard, tenants, trace collector,
+        # health monitor and cost ledger are not ported
+        require_defaults("SpeculativeEngine", injector=(injector, None),
+                         numeric_guard=(numeric_guard, None),
+                         tenants=(tenants, None),
+                         collector=(collector, None),
+                         monitor=(monitor, None), ledger=(ledger, None))
         if k < 0:
             raise ValueError("k must be >= 0")
         self.target = target
@@ -251,6 +336,9 @@ class SpeculativeEngine:
         # draft slots whose cache could not be (re)built after a
         # draft-pool OOM: they serve unspeculated until a rebuild lands
         self._draft_dirty: set = set()
+        # branch groups by gid: seed, mask, best-of policy and member
+        # rids (the slot-level records live in the engine's _GroupTable)
+        self._groups: Dict[int, dict] = {}
         self.draft_cache: Optional[PagedKVCache] = None
         if self.k > 0:
             # the draft's own float pool: the target's per-sequence page
@@ -266,16 +354,53 @@ class SpeculativeEngine:
 
     # -- submission / events ------------------------------------------
     def submit(self, token_ids, *,
-               max_preemptions: Optional[int] = None) -> int:
+               max_preemptions: Optional[int] = None,
+               deadline_steps: Optional[int] = None,
+               deadline_s: Optional[float] = None,
+               tenant_id: Optional[str] = None,
+               resume: bool = False, n: int = 1,
+               seed: Optional[int] = None, best_of: bool = False,
+               logit_mask: Optional[str] = None) -> int:
         """Queue a token-ID prompt; admission (now or later) samples the
         first token from the prefill's last hidden and prefills the
-        draft cache."""
+        draft cache.
+
+        ``n`` > 1 submits a branch group (the engine's ``submit(n=)``):
+        each branch samples its first token from the shared prefill
+        hidden; the returned rid is the lead's, the group id, and the
+        branch rids appear in ``group(gid)["rids"]`` as they fork.
+        ``seed`` gives branch i the lane ``branch_lane_seed(seed, i)``
+        (a lone request: lane 0); unseeded streams draw from the
+        engine's RandomState. ``best_of``: the first member to finish
+        wins, the others are cancelled. ``logit_mask`` names a
+        registered mask applied to every branch. ``deadline_steps``,
+        ``deadline_s``, ``tenant_id`` and ``resume`` are not ported."""
+        require_defaults("SpeculativeEngine.submit",
+                         deadline_steps=(deadline_steps, None),
+                         deadline_s=(deadline_s, None),
+                         tenant_id=(tenant_id, None),
+                         resume=(resume, False))
         toks = [int(t) for t in np.asarray(token_ids).reshape(-1)]
         if not toks:
             raise ValueError("empty prompt")
+        if best_of and n <= 1:
+            raise ValueError("best_of needs n > 1 branches to race")
+        if logit_mask is not None:
+            logit_mask_fn(logit_mask)   # an unknown name fails now
         rid = self.engine.submit(self.target.embed(toks),
-                                 max_preemptions=max_preemptions)
+                                 max_preemptions=max_preemptions, n=n)
         seq = _SpecSeq(rid, toks)
+        seq.mask = logit_mask
+        if seed is not None:
+            seq.lane = np.random.RandomState(branch_lane_seed(seed, 0))
+        if n > 1:
+            seq.gid = rid
+            self._groups[rid] = {
+                "gid": rid, "n": int(n), "seed": seed,
+                "best_of": bool(best_of), "mask": logit_mask,
+                "prompt": list(toks), "rids": [rid],
+                "next_branch": 1, "done": False, "winner": None,
+                "released": []}
         self._by_rid[rid] = seq
         self._handle_events()
         return rid
@@ -291,8 +416,13 @@ class SpeculativeEngine:
     def release(self, rid: int) -> None:
         """Caller-side finish: free the request's pages (both pools) and
         refill. A request released while still queued leaves the queue
-        too."""
+        too. A group's record drains when its last member is released."""
         seq = self._by_rid.pop(rid)
+        g = self._groups.get(seq.gid) if seq.gid is not None else None
+        if g is not None:
+            g["released"].append(rid)
+            if set(g["rids"]) <= set(g["released"]):
+                del self._groups[seq.gid]
         if seq.slot is not None:
             slot = seq.slot
             self._seqs.pop(slot, None)
@@ -304,6 +434,71 @@ class SpeculativeEngine:
                 if req.rid == rid:
                     self.engine._queue.remove(req)
         self._handle_events()
+
+    def group(self, gid: int) -> Optional[dict]:
+        """A copy of the live branch group's record (None once every
+        member is released): member ``rids`` in branch order, the
+        best-of ``winner``, ``done``, the seed and the mask."""
+        g = self._groups.get(gid)
+        return None if g is None else dict(g)
+
+    def cancel(self, rid: int) -> bool:
+        """Stop one stream early (the engine's ``cancel``: pages freed,
+        CANCELLED outcome); its tokens stay readable until
+        ``release(rid)``. False for an unknown or terminal rid."""
+        ok = self.engine.cancel(rid)
+        self._handle_events()
+        return ok
+
+    def fork_stream(self, rid: int) -> int:
+        """Clone the running stream ``rid`` (the engine's
+        ``fork_stream``: pages shared at the current length, fresh rid,
+        the source's group grows by the clone). The clone copies the
+        token stream with its pending token and the grammar mask; its
+        lane is ``branch_lane_seed(seed, branch)`` in a seeded group, a
+        copy of the source's lane state in an unseeded one, none for a
+        laneless source; its draft cache is rebuilt from the stream.
+        Returns the clone's rid."""
+        seq = self._by_rid[rid]
+        if seq.slot is None:
+            raise ValueError(f"rid {rid} is not an active stream")
+        brid = self.engine.fork_stream(rid)
+        bslot = next(s for s, r in enumerate(self.engine._requests)
+                     if r is not None and r.rid == brid)
+        breq = self.engine._requests[bslot]
+        gid = breq.gid
+        seq.gid = gid
+        g = self._groups.get(gid)
+        if g is None:
+            # a group on demand for a lone stream: seedless (a lone
+            # seeded stream's clones copy its lane state instead)
+            g = {"gid": gid, "n": 1, "seed": None, "best_of": False,
+                 "mask": seq.mask,
+                 "prompt": list(seq.toks[:seq.prompt_len]),
+                 "rids": [rid], "next_branch": 1, "done": False,
+                 "winner": None, "released": []}
+            self._groups[gid] = g
+        g["n"] += 1
+        g["next_branch"] = max(g["next_branch"], breq.branch + 1)
+        g["rids"].append(brid)
+        clone = _SpecSeq(brid, [])
+        clone.toks = list(seq.toks)
+        clone.prompt_len = seq.prompt_len
+        clone.started = True
+        clone.slot = bslot
+        clone.gid = gid
+        clone.branch = breq.branch
+        clone.mask = seq.mask
+        if g["seed"] is not None:
+            clone.lane = np.random.RandomState(
+                branch_lane_seed(g["seed"], breq.branch))
+        elif seq.lane is not None:
+            clone.lane = np.random.RandomState(0)
+            clone.lane.set_state(seq.lane.get_state())
+        self._by_rid[brid] = clone
+        self._seqs[bslot] = clone
+        self._rebuild_draft(bslot)
+        return brid
 
     def _clear_draft_slot(self, slot: int) -> None:
         if self.draft_cache is not None:
@@ -319,10 +514,62 @@ class SpeculativeEngine:
             self._clear_draft_slot(seq.slot)
             seq.slot = None
 
-    def _sample(self, model: TokenServingModel, logits):
+    def _sample(self, model: TokenServingModel, logits,
+                rng_rows: Optional[list] = None, logit_mask=None):
         return model.sample(logits, mode=self.sampling,
                             temperature=self.temperature,
-                            top_k=self.top_k, rng=self._rng)
+                            top_k=self.top_k, rng=self._rng,
+                            rng_rows=rng_rows, logit_mask=logit_mask)
+
+    def _lane_rows(self, slots, L: int) -> Optional[list]:
+        """Per-flat-row lanes of a [max_batch, L]-row sample: row
+        s*L + l draws from slot s's lane, laneless and inactive rows from
+        the engine's RandomState. None when no active stream has a lane
+        (the batched draw)."""
+        if not any(self._seqs[s].lane is not None for s in slots):
+            return None
+        rows: List[Optional[np.random.RandomState]] = \
+            [None] * (self.max_batch * L)
+        for s in slots:
+            lane = self._seqs[s].lane
+            if lane is not None:
+                for pos in range(L):
+                    rows[s * L + pos] = lane
+        return rows
+
+    def _mask_next(self, model: TokenServingModel, slots,
+                   extra: Dict[int, List[int]]):
+        """bool [max_batch, vocab] mask for one next token per slot
+        (the draft roll): row s masks the token after stream(s) +
+        extra[s]. None when no active stream has a mask."""
+        masked = [s for s in slots if self._seqs[s].mask is not None]
+        if not masked:
+            return None
+        V = model.vocab_size
+        m = np.ones((self.max_batch, V), bool)
+        for s in masked:
+            seq = self._seqs[s]
+            m[s] = np.asarray(logit_mask_fn(seq.mask)(
+                list(seq.toks) + list(extra.get(s, [])), V), bool)
+        return m
+
+    def _mask_rows(self, model: TokenServingModel, slots,
+                   drafts: Dict[int, List[int]], L: int):
+        """bool [max_batch, L, vocab] mask for the verify sample: row
+        (s, l) masks the token after stream(s) + drafts[s][:l]. None
+        when no active stream has a mask."""
+        masked = [s for s in slots if self._seqs[s].mask is not None]
+        if not masked:
+            return None
+        V = model.vocab_size
+        m = np.ones((self.max_batch, L, V), bool)
+        for s in masked:
+            seq = self._seqs[s]
+            fn = logit_mask_fn(seq.mask)
+            for pos in range(L):
+                m[s, pos] = np.asarray(
+                    fn(list(seq.toks) + drafts[s][:pos], V), bool)
+        return m
 
     def _handle_events(self) -> None:
         """Reconcile wrapped-engine events: preemptions and failures
@@ -348,9 +595,12 @@ class SpeculativeEngine:
             if seq is not None:
                 self._detach(seq)
                 self.finished.append((rid, len(seq.toks)))
+                self._member_done(seq)
         eng.finished.clear()
         for rid, slot, h in eng.admitted:
             seq = self._by_rid.get(rid)
+            if seq is None:
+                seq = self._adopt_branch(rid)
             # an event is stale when its request was preempted in the
             # same engine step after its prefill landed: the slot is
             # then empty, another request's, or this request's again but
@@ -364,7 +614,14 @@ class SpeculativeEngine:
             if not seq.started:
                 # the prefill did land: its last hidden gives the first
                 # token even when the event is stale
-                tok, _ = self._sample(self.target, self.target.logits(h))
+                m = None
+                if seq.mask is not None:
+                    m = np.asarray(logit_mask_fn(seq.mask)(
+                        list(seq.toks), self.target.vocab_size),
+                        bool)[None]
+                rows = None if seq.lane is None else [seq.lane]
+                tok, _ = self._sample(self.target, self.target.logits(h),
+                                      rng_rows=rows, logit_mask=m)
                 seq.toks.append(int(tok.reshape(-1)[0]))
                 seq.started = True
             if live:
@@ -372,6 +629,45 @@ class SpeculativeEngine:
                 self._seqs[slot] = seq
                 self._rebuild_draft(slot)
         eng.admitted.clear()
+
+    def _adopt_branch(self, rid: int) -> Optional[_SpecSeq]:
+        """First sight of a branch rid the engine's fork minted: its
+        stream state (the prompt, the next branch index, the lane
+        ``branch_lane_seed(seed, branch)``, the group's mask). None for
+        a rid of no live group."""
+        gid = self.engine.groups.gid_of(rid)
+        g = self._groups.get(gid) if gid is not None else None
+        if g is None:
+            return None
+        branch = g["next_branch"]
+        g["next_branch"] = branch + 1
+        g["rids"].append(rid)
+        seq = _SpecSeq(rid, g["prompt"])
+        seq.gid = g["gid"]
+        seq.branch = branch
+        seq.mask = g["mask"]
+        if g["seed"] is not None:
+            seq.lane = np.random.RandomState(
+                branch_lane_seed(g["seed"], branch))
+        self._by_rid[rid] = seq
+        return seq
+
+    def _member_done(self, seq: _SpecSeq) -> None:
+        """A member finished: under ``best_of`` the first to finish
+        wins and every other member still held is cancelled (their
+        outcomes drain on the next ``_handle_events``)."""
+        g = self._groups.get(seq.gid) if seq.gid is not None else None
+        if g is None or not g["best_of"] or g["done"]:
+            return
+        g["done"] = True
+        g["winner"] = seq.rid
+        for rid in list(g["rids"]):
+            if rid != seq.rid and rid in self._by_rid:
+                self.engine.cancel(rid)
+
+    @property
+    def resilience_stats(self):
+        return self.engine.resilience_stats
 
     def check_invariants(self) -> bool:
         """Audit the wrapped engine and BOTH pools; the draft pool also
@@ -460,9 +756,17 @@ class SpeculativeEngine:
                 break
             for slot in full:
                 seq = self._seqs[slot]
+                req = eng._requests[slot]
+                if req is None or req.rid != seq.rid:
+                    # cancelled by a best-of win in this loop (its slot
+                    # may already hold a refill): its outcome drains at
+                    # the loop top
+                    continue
                 self._detach(seq)
                 self.finished.append((seq.rid, len(seq.toks)))
                 eng.release(slot)
+                # best-of: the losers' outcomes drain at the loop top
+                self._member_done(seq)
         slots = sorted(self._seqs)
         if not slots:
             if eng.prefill_token_budget is not None and \
@@ -504,7 +808,10 @@ class SpeculativeEngine:
                     out = self._draft_forward(slots, cur)
                     if j < k_eff:
                         toks, probs = self._sample(
-                            self.draft, self.draft.logits(out[:, -1]))
+                            self.draft, self.draft.logits(out[:, -1]),
+                            rng_rows=self._lane_rows(slots, 1),
+                            logit_mask=self._mask_next(self.draft, slots,
+                                                       drafts))
                         for s in slots:
                             drafts[s].append(int(toks[s]))
                             if probs is not None:
@@ -538,8 +845,10 @@ class SpeculativeEngine:
         if out is None:
             self._handle_events()
             return {}
-        g_toks, g_probs = self._sample(self.target,
-                                       self.target.logits(out))
+        g_toks, g_probs = self._sample(
+            self.target, self.target.logits(out),
+            rng_rows=self._lane_rows(slots, L),
+            logit_mask=self._mask_rows(self.target, slots, drafts, L))
         preempted = set(eng.preempted)
         failed = {oc.rid for oc in eng.outcomes if oc.failed}
 
@@ -558,7 +867,8 @@ class SpeculativeEngine:
                 emitted = d[:n] + [int(g_toks[s, n])]
             else:
                 n, correction = self._reject_sample(d, dprobs[s],
-                                                    g_probs[s])
+                                                    g_probs[s],
+                                                    rng=seq.lane)
                 bonus = int(g_toks[s, k_eff]) if n == k_eff \
                     else correction
                 emitted = d[:n] + [bonus]
@@ -590,14 +900,17 @@ class SpeculativeEngine:
         return emitted_by_rid
 
     def _reject_sample(self, d: List[int], q_rows: List[np.ndarray],
-                       p_rows: np.ndarray) -> Tuple[int, int]:
+                       p_rows: np.ndarray,
+                       rng: Optional[np.random.RandomState] = None
+                       ) -> Tuple[int, int]:
         """Standard speculative rejection sampling: accept proposal d[i]
         with probability min(1, p_i[d_i] / q_i[d_i]); at the first
         rejection draw the correction from normalize(max(p_i - q_i, 0)).
         Returns (n_accepted, correction_token); the correction means
-        something only when n_accepted < len(d). Draws from the engine's
-        RandomState in the JAX package's order."""
-        r = self._rng
+        something only when n_accepted < len(d). Draws from ``rng`` (the
+        stream's lane) or else the engine's RandomState, in the JAX
+        package's order."""
+        r = self._rng if rng is None else rng
         for i, tok in enumerate(d):
             p_i = p_rows[i].astype(np.float64)
             q_i = q_rows[i].astype(np.float64)

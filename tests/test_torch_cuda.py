@@ -1169,3 +1169,111 @@ def test_unmasked_forward_takes_the_flash_kernel():
         ref = core(x, attn_mask=mask)
     assert tfa.launch_count("fwd") == before + 2
     torch.testing.assert_close(got, ref, **TOL_TRAIN)
+
+
+# -- fork-shared parallel decoding on the card ----------------------------
+
+@pytest.mark.parametrize("dtype", ["float32", "int8"])
+def test_cow_split_copies_a_shared_partial_page_on_the_card(dtype):
+    """Slot 1 forks slot 0 at 10 tokens (the third 4-token page partly
+    full); its first write there splits the shared page: the private
+    copy holds the page's payload and, on an int8 pool, its scales,
+    bitwise, in every layer, on the card."""
+    _need_cuda()
+    from paddle_tpu_torch.inference import PagedKVCache
+    c = PagedKVCache(2, 2, 8, 4, 12, 3, dtype=dtype, device="cuda")
+    c.ensure(0, 10)
+    g = torch.Generator(device="cuda").manual_seed(3)
+    for i, p in enumerate(c.pools):
+        if c.quantized:
+            p.copy_(torch.randint(-127, 128, p.shape, generator=g,
+                                  device="cuda", dtype=torch.int32)
+                    .to(torch.int8))
+            c.scales[i].copy_(torch.rand(c.scales[i].shape, generator=g,
+                                         device="cuda"))
+        else:
+            p.copy_(torch.randn(p.shape, generator=g, device="cuda"))
+    c.fork(0, 1, 10)
+    old = c.seq_blocks[0][2]
+    assert c.seq_blocks[1] == c.seq_blocks[0]
+    c.check_invariants(deep=True)
+    c.ensure(1, 11, write_from=10)
+    new = c.seq_blocks[1][2]
+    assert new != old and c.seq_blocks[1][:2] == c.seq_blocks[0][:2]
+    for i, p in enumerate(c.pools):
+        assert p.is_cuda and torch.equal(p[new], p[old])
+        if c.quantized:
+            assert torch.equal(c.scales[i][new], c.scales[i][old])
+    c.check_invariants(deep=True)
+
+
+def test_ragged_launch_over_shared_pages_matches_plain_version():
+    """Rows whose tables reference the same physical pages (a group's
+    prompt pages, each branch's own tail), decode and verify rows beside
+    a prefill chunk, in one launch: the plain version's result within
+    TOL, and a branch row bitwise equal to the same row alone."""
+    _need_cuda()
+    nh, nkv, hd, bs = 8, 2, 64, 16
+    rng = np.random.RandomState(11)
+    NB = 40
+    pool = torch.from_numpy(rng.randn(NB, 2, nkv, bs, hd).astype(
+        np.float32)).cuda()
+    shared = [5, 9, 2, 30]                  # 4 prompt pages, 60 tokens
+    tails = [11, 17, 23]
+    bt = np.zeros((5, 8), np.int32)
+    for r, t in enumerate(tails):
+        bt[r, :4] = shared
+        bt[r, 4] = t
+    bt[3, :4] = shared                      # the lead, still at 60
+    bt[4, :3] = [31, 32, 33]                # an unrelated prefill
+    q_lens = (1, 1, 3, 1, 40)
+    kv_lens = np.asarray([66, 70, 72, 60, 40], np.int32)
+    q = torch.from_numpy(rng.randn(sum(q_lens), nh, hd).astype(
+        np.float32)).cuda()
+    before = tpa.launch_count()
+    got = tpa.paged_attention_ragged(q, pool, bt, q_lens, kv_lens)
+    assert tpa.launch_count() == before + 1
+    ref = tpa.paged_attention_ragged_reference(q, pool, bt, q_lens,
+                                               kv_lens)
+    torch.testing.assert_close(got, ref, **TOL)
+    alone = tpa.paged_attention_ragged(q[1:2], pool, bt[1:2], (1,),
+                                       kv_lens[1:2])
+    assert torch.equal(alone, got[1:2])
+
+
+@pytest.mark.parametrize("kv_dtype", ["float32", "int8"])
+def test_group_served_on_the_card_passes_the_deep_audit(kv_dtype):
+    """A greedy n=3 group beside a lone request under a token budget on
+    the card: the engine audit (group records, refcounts, the deep page
+    fingerprints) holds after every round, the branches emit one
+    stream, every model call launches the ragged kernel once per layer,
+    and a cancelled branch leaves the audit whole."""
+    _need_cuda()
+    D, H, FFN, LAYERS, V = 64, 4, 128, 2, 128
+    rng = np.random.RandomState(5)
+    emb = rng.randn(V, D).astype(np.float32)
+    core = FusedMultiTransformer(D, H, FFN, num_layers=LAYERS,
+                                 device="cuda",
+                                 generator=torch.Generator(
+                                     device="cuda").manual_seed(0))
+    calls = []
+    core.register_forward_pre_hook(lambda m, a: calls.append(1))
+    eng = SpeculativeEngine(TokenServingModel(core, emb), None, k=0,
+                            max_batch=6, block_size=4, num_blocks=60,
+                            chunk_tokens=8, prefill_token_budget=12,
+                            kv_dtype=kv_dtype)
+    greedy = eng.submit(list(rng.randint(0, V, 21)), n=3)
+    lone = eng.submit(list(rng.randint(0, V, 6)))
+    tpa.reset_launch_count()
+    calls.clear()
+    for _ in range(12):
+        eng.step()
+        eng.check_invariants()
+    rids = eng.group(greedy)["rids"]
+    assert len(rids) == 3 and len(eng.generated(lone)) > 0
+    assert len({tuple(eng.generated(r)) for r in rids}) == 1
+    assert tpa.launch_count() == LAYERS * len(calls) > 0
+    eng.cancel(rids[1])
+    eng.step()
+    eng.check_invariants()
+    assert eng.resilience_stats.cancelled == 1

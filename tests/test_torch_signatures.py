@@ -92,12 +92,68 @@ UNPORTED = {
     "MoeServingCore dropout_rate (7th)": lambda: inference.MoeServingCore(
         8, 2, 16, 2, 1, 1.25, 0.1),
 }
+for _name, _value in (("numeric_guard", True), ("tenants", {}),
+                      ("collector", object()), ("monitor", object()),
+                      ("ledger", object())):
+    UNPORTED[f"PagedServingEngine {_name}"] = (
+        lambda n=_name, v=_value: inference.PagedServingEngine(
+            None, 1, 4, 8, **{n: v}))
+for _name, _value in (("injector", object()), ("numeric_guard", False),
+                      ("tenants", {"a": {}}), ("collector", object()),
+                      ("monitor", object()), ("ledger", object())):
+    UNPORTED[f"SpeculativeEngine {_name}"] = (
+        lambda n=_name, v=_value: inference.SpeculativeEngine(
+            None, max_batch=1, block_size=4, num_blocks=8, **{n: v}))
+
+
+def _engines():
+    core = FusedMultiTransformer(8, 2, 16, device="cpu")
+    tsm = inference.TokenServingModel(core, torch.zeros(5, 8))
+    return (inference.PagedServingEngine(core, 2, 4, 8),
+            inference.SpeculativeEngine(tsm, k=0, max_batch=2,
+                                        block_size=4, num_blocks=8))
+
+
+for _name, _value in (("deadline_steps", 3), ("deadline_s", 1.0),
+                      ("tenant_id", "a")):
+    UNPORTED[f"PagedServingEngine.submit {_name}"] = (
+        lambda n=_name, v=_value: _engines()[0].submit(
+            torch.zeros(3, 8), **{n: v}))
+for _name, _value in (("deadline_steps", 3), ("deadline_s", 1.0),
+                      ("tenant_id", "a"), ("resume", True)):
+    UNPORTED[f"SpeculativeEngine.submit {_name}"] = (
+        lambda n=_name, v=_value: _engines()[1].submit(
+            [1, 2, 3], **{n: v}))
 
 
 @pytest.mark.parametrize("case", sorted(UNPORTED))
 def test_unported_parameters_raise(case):
     with pytest.raises(NotImplementedError):
         UNPORTED[case]()
+
+
+@pytest.mark.parametrize("cls,method", [
+    ("PagedServingEngine", "__init__"), ("PagedServingEngine", "submit"),
+    ("PagedServingEngine", "fork_stream"), ("PagedServingEngine", "cancel"),
+    ("SpeculativeEngine", "__init__"), ("SpeculativeEngine", "submit"),
+    ("SpeculativeEngine", "fork_stream"), ("SpeculativeEngine", "cancel"),
+    ("SpeculativeEngine", "group"), ("TokenServingModel", "sample")])
+def test_serving_methods_take_the_reference_parameters(cls, method):
+    """The serving methods' parameters (keyword-only ones included) are
+    the reference's names, kinds and defaults, in order; the port's
+    PagedServingEngine stops before the reference's ragged-step tuning
+    knobs."""
+    ref = importlib.import_module("paddle_tpu.inference")
+    sig = lambda c: [(p.name, p.kind, p.default)  # noqa: E731
+                     for p in inspect.signature(
+                         getattr(getattr(c, cls), method)).parameters
+                     .values()]
+    want, got = sig(ref), sig(inference)
+    if (cls, method) == ("PagedServingEngine", "__init__"):
+        assert [p[0] for p in want[len(got):]] == [
+            "ragged_step", "tile_q", "tile_kv"]
+        want = want[:len(got)]
+    assert got == want
 
 
 def test_positional_calls_bind_the_reference_parameters():

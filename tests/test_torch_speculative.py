@@ -300,3 +300,154 @@ def test_int8_core_truncates_to_an_int8_twin():
     ref = FusedMultiTransformerInt8.from_float(tt.core.truncated(1))
     with torch.no_grad():
         assert torch.equal(twin(x), ref(x))
+
+
+# -- twins of test_mixed_verify.py: verify rows beside prefill chunks ----
+
+def _paged(core, **kw):
+    from paddle_tpu_torch.inference import PagedServingEngine
+    return PagedServingEngine(core, **dict(dict(
+        max_batch=2, block_size=4, num_blocks=32, prefill_token_budget=4),
+        **kw))
+
+
+def test_step_multi_streams_prompts_under_a_budget():
+    """In token-budget mode a verify step advances the prompt and
+    returns None until a slot can verify; the slot completed in a step
+    sits that step out."""
+    _, tt = _models()
+    eng = _paged(tt.core)
+    rng = np.random.default_rng(2)
+    eng.submit(rng.standard_normal((10, D)).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((2, 2, D)).astype(
+        np.float32))
+    assert eng.step_multi(x) is None
+    assert eng.num_prefilling == 1
+    steps = 1
+    while eng.num_prefilling:
+        assert eng.step_multi(x) is None
+        steps += 1
+    assert steps >= 2
+    (rid, slot, h) = eng.admitted.pop()
+    assert h is not None and int(eng.lens[slot]) == 10
+    assert eng.step_multi(x) is not None
+    assert int(eng.lens[slot]) == 12
+    eng.check_invariants()
+
+
+@pytest.mark.parametrize("k", [0, 2])
+def test_spec_budget_streams_match_synchronous(k):
+    """Greedy streams under a prefill token budget (packed ragged steps)
+    equal those of synchronous admission (chunked prefill), for k=0 and
+    a self-drafted k=2."""
+    _, tt = _models()
+    prompts = [list(p) for p in np.random.default_rng(1).integers(
+        0, VOCAB, (5, 11))]
+    cfg = dict(max_batch=3, block_size=4, num_blocks=64,
+               max_blocks_per_seq=6)
+    sync = _serve(SpeculativeEngine(tt, None, k=k, **cfg), prompts, 8)[0]
+    eng = SpeculativeEngine(tt, None, k=k, prefill_token_budget=4, **cfg)
+    assert _serve(eng, prompts, 8)[0] == sync
+    assert eng.engine.prefill_stats.prefill_steps > 0
+    eng.check_invariants()
+
+
+def _mixed_drive(eng, prompts, xs, to_np, wrap):
+    """Submit ``prompts``, run ``step_multi`` over ``xs``; the outputs,
+    the admitted events and the final lengths."""
+    for p in prompts:
+        eng.submit(wrap(p))
+    outs, events = [], []
+    for x in xs:
+        o = eng.step_multi(wrap(x))
+        outs.append(None if o is None else to_np(o).copy())
+        events += [(r, s, to_np(h).copy()) for r, s, h in eng.admitted]
+        eng.admitted.clear()
+    eng.check_invariants()
+    return outs, events, eng.lens.copy()
+
+
+def test_packed_verify_equals_jax_per_phase_calls():
+    """The port packs a step's prefill chunks with the L-row verify into
+    one ragged call; the JAX engine's eager path runs each phase as its
+    own call. Lengths and admitted events equal, hidden rows within
+    1e-4 (summation order)."""
+    jt, tt = _models()
+    rng = np.random.default_rng(3)
+    prompts = [rng.standard_normal((n, D)).astype(np.float32)
+               for n in (10, 6)]
+    xs = [rng.standard_normal((2, 2, D)).astype(np.float32)
+          for _ in range(10)]
+    from paddle_tpu.inference import PagedServingEngine as JaxPaged
+    je = JaxPaged(jt.core, max_batch=2, block_size=4, num_blocks=32,
+                  prefill_token_budget=4, ragged_step=False)
+    jo, jev, jl = _mixed_drive(je, prompts, xs,
+                               lambda t: np.asarray(t.numpy()),
+                               paddle.to_tensor)
+    to, tev, tl = _mixed_drive(_paged(tt.core), prompts, xs,
+                               lambda t: t.numpy(), torch.from_numpy)
+    np.testing.assert_array_equal(tl, jl)
+    assert len(tev) == len(jev) == 2
+    for (ra, sa, ha), (rb, sb, hb) in zip(tev, jev):
+        assert (ra, sa) == (rb, sb)
+        np.testing.assert_allclose(ha, hb, atol=1e-4, rtol=1e-4)
+    for a, b in zip(to, jo):
+        assert (a is None) == (b is None)
+        if a is not None:
+            np.testing.assert_allclose(a, b, atol=1e-4, rtol=1e-4)
+
+
+def test_capacity_error_flushes_planned_chunks():
+    """The over-capacity ValueError fires after the planning pass moved
+    a prefill on: its planned chunk is flushed (pages written) before
+    the error, so the slot's later stream equals the JAX engine's."""
+    jt, tt = _models()
+    rng = np.random.default_rng(8)
+    p_long = rng.standard_normal((10, D)).astype(np.float32)
+    x1 = rng.standard_normal((2, 1, D)).astype(np.float32)
+    xL = rng.standard_normal((2, 2, D)).astype(np.float32)
+
+    def drive(eng, wrap, to_np):
+        eng.submit(wrap(p_long[:6]))
+        while eng.num_prefilling:
+            eng.step_multi(wrap(x1))
+        eng.admitted.clear()
+        while int(eng.lens[0]) < 11:
+            eng.step_multi(wrap(x1))
+        eng.submit(wrap(p_long))
+        with pytest.raises(ValueError):
+            eng.step_multi(wrap(xL))        # 11 + 2 > 12
+        eng.release(0)
+        while eng.num_prefilling:
+            eng.step_multi(wrap(x1))
+        outs = [to_np(eng.step_multi(wrap(x1)))[1].copy()
+                for _ in range(2)]
+        eng.check_invariants()
+        return outs
+
+    from paddle_tpu.inference import PagedServingEngine as JaxPaged
+    je = JaxPaged(jt.core, max_batch=2, block_size=4, num_blocks=32,
+                  max_blocks_per_seq=3, prefill_token_budget=4,
+                  ragged_step="force")
+    ref = drive(je, paddle.to_tensor, lambda t: np.asarray(t.numpy()))
+    got = drive(_paged(tt.core, max_blocks_per_seq=3), torch.from_numpy,
+                lambda t: t.numpy())
+    for a, b in zip(got, ref):
+        np.testing.assert_allclose(a, b, atol=1e-4, rtol=1e-4)
+
+
+def test_mixed_verify_counts_as_mixed_step():
+    _, tt = _models()
+    eng = _paged(tt.core)
+    rng = np.random.default_rng(4)
+    eng.submit(rng.standard_normal((6, D)).astype(np.float32))
+    x = torch.from_numpy(rng.standard_normal((2, 2, D)).astype(
+        np.float32))
+    while eng.num_prefilling:
+        eng.step_multi(x)
+    eng.admitted.clear()
+    eng.step_multi(x)
+    eng.submit(rng.standard_normal((9, D)).astype(np.float32))
+    before = eng.prefill_stats.mixed_steps
+    eng.step_multi(x)
+    assert eng.prefill_stats.mixed_steps == before + 1
