@@ -129,7 +129,33 @@ fails the run:
    grammar mask over the whole vocabulary under top-k speculation;
    then, printed only, one group against 4 lone submits at equal pool
    bytes;
-19. print the kernels line, the card line and, last, the contract line.
+19. (run after phase 18) the serving stack's snapshots, slices, faults,
+   deadlines, tenants and per-phase steps at the same width over phase
+   3's traffic and pool: a snapshot at the first step with a request
+   mid-prefill and a preempted one queued, restored into a fresh engine
+   on the card (every stream phase 3's over all 32 tokens, the
+   scheduling after the cut the uninterrupted run's, the deep audit
+   held; snapshot bytes and times printed), with a queued request whose
+   deadline_steps fails it at the step the rule gives while the other
+   12 are unchanged; on phase 5's int8 pool with the prefix cache, a
+   delta snapshot shipping fewer rows than a full one (base + delta
+   restore the same live pages bitwise) and rehoming into a larger and
+   a smaller pool (cached-free pages dropped); a running request moved
+   to a second engine by export_slice / import_slice and
+   submit(resume=True); a CrashInjector crash at post_prefill re-driven
+   from the last step-boundary snapshot (streams phase 3's); a seeded
+   FaultInjector storm (on a pool with room for all 12 requests and no
+   retry budget, so each eviction is a forced shed: >= 3 sheds and >= 2
+   NaN failures at the schedule's steps and slots, no quarantined page
+   in a later snapshot); a draft-pool OOM and corrupted draft logits
+   under k=4;
+   a quota'd flooder tenant beside two tenants with floors (every flood
+   request rejected or shed at its quota); and phase 3's traffic with
+   ragged_step=False (one launch per layer per chunk and per decode
+   step, as the plan predicts; tokens/s printed only). Streams whose
+   batching differs from phase 3's (5's) are held to its tokens up to
+   their first near-tie, computed here by phase 4's rule;
+20. print the kernels line, the card line and, last, the contract line.
 Every number printed carries the card's name and power limit; each row
 of the kernels line says in ``timed`` which call it timed and how.
 """
@@ -199,6 +225,11 @@ FULL = dict(vocab=50304, d=1024, layers=24, heads=16, ffn=4096,
             # prompt in pages (bench_extra.py:2476-2530)
             par_n=4, lane_seed=777, lane_top_k=50, mask_mod=7,
             par_prompt_blocks=6,
+            # phase 19: the fault storm's seed and step range, the
+            # speculative storm's draft-pool OOM and NaN steps
+            storm_seed=12, storm_steps=40, storm_num_blocks=420,
+            storm_draft_oom=(6, 12),
+            storm_draft_nan=(9,),
             # training: bench.py's Llama-2-7B proxy (bench.py:58-61)
             train_vocab=32000, train_hidden=4096, train_ffn=11008,
             train_heads=32, train_kv_heads=32, train_layers=2,
@@ -1675,6 +1706,496 @@ def phase_parallel(torch, device, cfg, tsm, prompts, toks, first_small,
     return launches
 
 
+# -- phase 19: snapshots, slices, faults, deadlines, tenants, ragged_step -
+def _drive(eng, rids, n_new, done, stop=None, on_round=None, failed=None,
+           limit=2000):
+    """phase_serve's loop from any point: step, then release each rid of
+    ``rids`` that has ``n_new`` tokens (into ``done``); until every rid
+    is done or failed (``failed`` collects failure outcomes) or
+    ``stop(eng)`` after a round. Returns the rounds run."""
+    rounds = 0
+    while True:
+        if failed is not None:
+            for oc in eng.outcomes:
+                if oc.failed:
+                    failed[oc.rid] = oc
+        if all(r in done or (failed is not None and r in failed)
+               for r in rids):
+            return rounds
+        rounds += 1
+        require(rounds < limit, "serving did not converge")
+        eng.step()
+        if on_round is not None:
+            on_round(eng)
+        for r in rids:
+            if r not in done and r in eng._by_rid and \
+                    len(eng.generated(r)) >= n_new:
+                done[r] = eng.generated(r)[:n_new]
+                eng.release(r)
+        if stop is not None and stop(eng):
+            return rounds
+
+
+def _after(n):
+    """A ``_drive`` stop condition that holds after ``n`` rounds."""
+    seen = [0]
+
+    def stop(eng):
+        seen[0] += 1
+        return seen[0] >= n
+    return stop
+
+
+def _counting(tsm):
+    """A forward pre-hook counting ``tsm.core``'s model calls; returns
+    (list of call row counts, hook handle)."""
+    rows = []
+    return rows, tsm.core.register_forward_pre_hook(
+        lambda m, a: rows.append(a[0].shape[0] * a[0].shape[1]))
+
+
+def _upto(streams, ref, first):
+    """Requests whose stream differs from ``ref`` before its first
+    near-tie step ``first``."""
+    return [i for i, (s, t, u) in enumerate(zip(streams, ref, first))
+            if s[:u] != t[:u]]
+
+
+def phase_resilience(torch, device, cfg, tsm, tsm8, prompts, qprompts,
+                     serve, qserve, toks, first_small, tag, say):
+    """Phase 19: the serving stack's snapshots, slices, fault injection,
+    numeric guard, deadlines, tenants and per-phase steps at full width
+    over phase 3's (and phase 5's) traffic and pools. Returns nothing;
+    every check fails the run."""
+    import pickle
+    from paddle_tpu_torch.inference import (CrashInjector, EngineCrash,
+                                            FaultInjector, PagedKVCache,
+                                            RequestOutcome,
+                                            SpeculativeEngine)
+    from paddle_tpu_torch.ops.hopper import paged_attention as pa
+    n_new, L, bs = cfg["new_tokens"], cfg["layers"], cfg["block_size"]
+    ref = serve["streams"]
+
+    def engine(model=tsm, draft=None, k=0, **kw):
+        kw = dict(dict(max_batch=cfg["max_batch"], block_size=bs,
+                       num_blocks=cfg["num_blocks"],
+                       chunk_tokens=cfg["chunk_tokens"],
+                       prefill_token_budget=cfg["budget"]), **kw)
+        return SpeculativeEngine(model, draft, k=k, **kw)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+
+    # near-tie steps of all 12 phase-3 streams (phase 4's rule), for the
+    # checks whose batching differs from phase 3's
+    h12, _ = teacher_force(torch, device, cfg, tsm.core, tsm, prompts, ref)
+    lg = tsm.logits(h12)
+    top2 = lg.topk(2, dim=-1).values
+    gap = (top2[..., 0] - top2[..., 1]).cpu().numpy()
+    tol = TOL_REL * float(lg.abs().max())
+    first12 = [int(np.flatnonzero(g < tol)[0]) if (g < tol).any()
+               else n_new for g in gap]
+    del h12, lg, top2
+    say(f"{tag} resilience: phase 3's streams' first near-tie steps "
+        f"{first12} (of {n_new}; top-two gap < {tol:.3e})")
+
+    # 1. a snapshot in flight (+ a queued request's deadline)
+    dl = 2
+    rows, hook = _counting(tsm)
+    eng = engine()
+    rids = [eng.submit(p) for p in prompts]
+    late = eng.submit(prompts[0], deadline_steps=dl)
+    done, cut = {}, {}
+
+    def at_cut(e):
+        # phase 3's preempted requests re-admit within the step that
+        # evicts them, so the cut is the first step boundary with a
+        # preempted request re-prefilling and requests queued
+        pe = e.engine
+        return any(pe._requests[s].preemptions > 0 for s in pe._prefills) \
+            and pe._queue_len > 0
+    r1 = _drive(eng, rids, n_new, done, stop=at_cut)
+    require(at_cut(eng), "no step boundary with a preempted request "
+            "mid-prefill and requests queued")
+    cut_round = r1
+    sync()
+    t0 = time.perf_counter()
+    snap = eng.snapshot()
+    t_snap = time.perf_counter() - t0
+    blob = pickle.dumps(snap, protocol=pickle.HIGHEST_PROTOCOL)
+    nbytes = len(blob)
+    cut.update(done=dict(done), rows=len(rows),
+               stats=eng.engine.prefill_stats.as_dict())
+    n_blocks = len(snap["engine"]["cache"]["blocks"])
+    r1 += _drive(eng, rids, n_new, done)
+    hook.remove()
+    after1 = dict(rows=len(rows) - cut["rows"],
+                  stats=eng.engine.prefill_stats.as_dict())
+    outs1 = [o.as_dict() for o in eng.outcomes]
+    pre1 = sum(o["preemptions"] for o in outs1)
+    (dead,) = [o for o in eng.outcomes if o.rid == late]
+    require(dead.status == RequestOutcome.FAILED_DEADLINE and
+            dead.step == dl + 1 and "2 steps" in dead.reason,
+            f"the queued request's deadline outcome {dead.as_dict()} "
+            f"(want failed_deadline at step {dl + 1})")
+    require([done[r] for r in rids] == ref, "the run with a deadline "
+            "request left phase 3's streams")
+    counts1 = dict(rounds=r1, model_calls=len(rows),
+                   mixed_steps=after1["stats"]["mixed_steps"],
+                   preemptions=pre1)
+    require(counts1 == serve["counts"], f"the run with a deadline request "
+            f"scheduled {counts1}, phase 3 {serve['counts']}")
+    del eng
+    gc.collect()
+    # restore from the unpickled bytes (the timing is the restore's)
+    snap = pickle.loads(blob)
+    del blob
+    sync()
+    t0 = time.perf_counter()
+    eng = SpeculativeEngine.restore(tsm, None, snap)
+    sync()
+    t_rest = time.perf_counter() - t0
+    eng.check_invariants()
+    rows, hook = _counting(tsm)
+    done2 = dict(cut["done"])
+    _drive(eng, rids, n_new, done2)
+    hook.remove()
+    after2 = dict(rows=len(rows), stats=eng.engine.prefill_stats.as_dict())
+    say(f"{tag} resilience snapshot in flight (round {cut_round}, "
+        f"{int(snap['engine']['prefilling'].sum())} slot(s) mid-prefill, "
+        f"a preempted one among them, {len(snap['engine']['queue'])} "
+        f"queued): {nbytes} B pickled, {n_blocks} pool blocks; snapshot {t_snap:.3f} s, restore (deep audit "
+        f"included) {t_rest:.3f} s; the queued request with deadline_steps"
+        f" {dl}: {dead.status} at step {dead.step}; after the cut, model "
+        f"calls {after1['rows']} / {after2['rows']} (run / restored), "
+        f"stats equal {after1['stats'] == after2['stats']}")
+    require([done2[r] for r in rids] == ref, "the restored run left phase "
+            "3's streams")
+    require(after1 == after2 and
+            [o.as_dict() for o in eng.outcomes] == outs1,
+            f"the restored run scheduled {after2}, the run {after1}")
+    del eng
+
+    # 2-3. the quantized pool: a delta snapshot, rehoming
+    rows, hook = _counting(tsm8)
+    eng = engine(tsm8, kv_dtype="int8", prefix_cache=True,
+                 num_blocks=cfg["q_num_blocks"])
+    qrids = [eng.submit(p) for p in qprompts]
+    qdone = {}
+    _drive(eng, qrids, n_new, qdone,
+           stop=lambda e: e.engine.cache.allocator.num_cached > 0)
+    require(eng.engine.cache.allocator.num_cached > 0,
+            "no cached-free page in the quantized run")
+    qsnap = eng.snapshot()
+    qcut = dict(qdone)
+    base = qsnap["engine"]["cache"]
+    _drive(eng, qrids, n_new, qdone, stop=_after(3))
+    cache = eng.engine.cache
+    sync()
+    t0 = time.perf_counter()
+    delta = cache.snapshot(base=base)
+    t_delta = time.perf_counter() - t0
+    full = cache.snapshot()
+    pay = lambda s: s["payload"].nbytes + s["scale_payload"].nbytes  # noqa
+    require(len(delta["blocks"]) < len(full["blocks"]) and
+            delta["base_blocks"],
+            f"the delta ships {len(delta['blocks'])} rows, the full "
+            f"snapshot {len(full['blocks'])}")
+    a = PagedKVCache.restore(delta, base=base, device=device)
+    b = PagedKVCache.restore(full, device=device)
+    live = torch.tensor(sorted(int(x) for x in full["refcount"]),
+                        device=device)
+    same = all(torch.equal(x[live], y[live]) for x, y in
+               zip(a.pools + a.scales, b.pools + b.scales))
+    say(f"{tag} resilience delta snapshot (int8 pages + scales, prefix "
+        f"cache, 3 rounds after the base): {len(delta['blocks'])} payload "
+        f"rows ({pay(delta)} B) + {len(delta['base_blocks'])} from the "
+        f"base, against {len(full['blocks'])} rows ({pay(full)} B) in a "
+        f"full snapshot; delta taken in {t_delta:.3f} s; base + delta "
+        f"restores the full snapshot's live pages bitwise: {same}")
+    require(same, "base + delta restored other live pages than the full "
+            "snapshot")
+    del a, b, delta, full
+    _drive(eng, qrids, n_new, qdone)
+    hook.remove()
+    qref = qserve["streams"]
+    require([qdone[r] for r in qrids] == qref,
+            "the quantized run with snapshots left phase 5's streams")
+    del eng
+    # near-tie steps of phase 5's streams (its int8 path and pool)
+    hq, _ = teacher_force(torch, device, cfg, tsm8.core, tsm8, qprompts,
+                          qref, dtype="int8", prefix_cache=True)
+    lq = tsm8.logits(hq)
+    top2 = lq.topk(2, dim=-1).values
+    gq = (top2[..., 0] - top2[..., 1]).cpu().numpy()
+    tq = TOL_REL * float(lq.abs().max())
+    firstq = [int(np.flatnonzero(x < tq)[0]) if (x < tq).any()
+              else n_new for x in gq]
+    del hq, lq, top2
+    g = base["geometry"]
+    n_live = sum(1 for n in base["refcount"].values() if n > 0)
+    n_cached = len(base["cached_order"])
+    for nb in (g["num_blocks"] + 90, n_live + 1 + n_cached // 2):
+        s2 = dict(qsnap, engine=dict(qsnap["engine"], config=dict(
+            qsnap["engine"]["config"], num_blocks=nb)))
+        eng = SpeculativeEngine.restore(tsm8, None, s2)
+        c = eng.engine.cache
+        dropped = c.allocator.reclaimed - base["reclaimed"]
+        d = dict(qcut)
+        _drive(eng, qrids, n_new, d)
+        eng.check_invariants()
+        got = [d[r] for r in qrids]
+        say(f"{tag} resilience rehome (int8 + prefix cache, snapshot of "
+            f"{n_live} live + {n_cached} cached-free blocks of "
+            f"{g['num_blocks'] - 1}) into {nb} blocks: {dropped} "
+            f"cached-free page(s) dropped; streams equal to phase 5's "
+            f"{sum(x == y for x, y in zip(got, qref))} of {len(qrids)} "
+            f"(first near-tie steps {firstq})")
+        bad = _upto(got, qref, firstq)
+        require(not bad, f"rehomed into {nb} blocks: streams {bad} left "
+                f"phase 5's before their first near-tie")
+        require((dropped > 0) == (nb < g["num_blocks"]),
+                f"rehome into {nb} blocks dropped {dropped} pages")
+        del eng, c
+    del qsnap, base
+    gc.collect()
+
+    # 4. a slice: one running request moves to a second engine
+    src = engine()
+    rid = src.submit(prompts[0])
+    _drive(src, [rid], n_new, {}, stop=lambda e: len(e.generated(rid)) >= 8)
+    head = src.generated(rid)
+    slc = src.export_slice(rid)
+    src.check_invariants()
+    dst = engine(prefix_cache=True)
+    got = dst.import_slice(slc)
+    rid2 = dst.submit(src.tokens(rid), resume=True)
+    tail = {}
+    _drive(dst, [rid2], n_new - len(head), tail)
+    stream = head + tail[rid2]
+    dst.check_invariants()
+    hits = dst.engine.prefix_stats.hit_blocks
+    say(f"{tag} resilience slice: request {rid} moved after {len(head)} "
+        f"tokens, {len(slc['hashes'])} pages ({slc['payload'].nbytes} B) "
+        f"exported, {got} imported, {hits} adopted at resume; stream "
+        f"equal to phase 3's {sum(x == y for x, y in zip(stream, ref[0]))}"
+        f" of {n_new} (first near-tie {first12[0]}); source audit held")
+    require(got == len(slc["hashes"]) == hits > 0,
+            "the slice's pages were not imported and adopted")
+    require(not _upto([stream], ref[:1], first12[:1]),
+            "the moved request left phase 3's stream")
+    del src, dst, slc
+
+    # 5. a crash at post_prefill, restored from the last step-boundary
+    # snapshot (every 4 rounds) and re-driven
+    inj = CrashInjector(crash_at={3: "post_prefill", 6: "post_prefill"})
+    eng = engine(injector=inj)
+    rids = [eng.submit(p) for p in prompts]
+    done = {}
+    saved = (eng.snapshot(), dict(done))
+    rounds, restores = 0, 0
+    while not all(r in done for r in rids):
+        rounds += 1
+        require(rounds < 2000, "the crash run did not converge")
+        inj.begin_round()
+        try:
+            _drive(eng, rids, n_new, done, stop=lambda e: True)
+        except EngineCrash:
+            del eng
+            eng = SpeculativeEngine.restore(tsm, None, saved[0],
+                                            injector=inj)
+            done = dict(saved[1])
+            restores += 1
+            continue
+        if rounds % 4 == 0:
+            saved = (eng.snapshot(), dict(done))
+    say(f"{tag} resilience crash: CrashInjector at post_prefill, "
+        f"{inj.crashes} crash(es), {restores} restore(s) from the last "
+        f"4-round snapshot; {rounds} live rounds; streams equal to phase "
+        f"3's: {[done[r] for r in rids] == ref}")
+    require(inj.crashes >= 1 and restores == inj.crashes,
+            "no injected crash fired")
+    require([done[r] for r in rids] == ref,
+            "the run re-driven after a crash left phase 3's streams")
+    del eng, saved
+
+    # 6. a seeded fault storm: forced OOM sheds and NaN slots. A
+    # whole-step OOM sheds only the oldest grower (younger growers
+    # requeue), which phase 3's staggered lengths make rare; with no
+    # retry budget every eviction it forces is a shed, and a pool with
+    # room for all 12 requests keeps every eviction a forced one
+    seed = cfg["storm_seed"]
+    inj = FaultInjector.storm(seed, cfg["storm_steps"], oom_sheds=3,
+                              nan_events=2, max_batch=cfg["max_batch"])
+    eng = engine(injector=inj, num_blocks=cfg["storm_num_blocks"],
+                 max_preemptions=0)
+    quarantined = []
+    qseq = eng.engine.cache.quarantine_seq
+
+    def recording(slot, c=eng.engine.cache):
+        quarantined.extend((int(b), c._block_hash.get(int(b)))
+                           for b in c.seq_blocks[slot]
+                           if c.allocator.refcount[b] == 1)
+        qseq(slot)
+    eng.engine.cache.quarantine_seq = recording
+    rids = [eng.submit(p) for p in prompts]
+    done, failed, later = {}, {}, []
+
+    def probe(e):
+        if quarantined and not later:
+            later.append(e.engine.cache.snapshot())
+    _drive(eng, rids, n_new, done, failed=failed, on_round=probe)
+    eng.check_invariants()
+    sheds = [o for o in failed.values()
+             if o.status == RequestOutcome.FAILED_OOM]
+    nans = [o for o in failed.values()
+            if o.status == RequestOutcome.FAILED_NUMERIC]
+    oom_steps = set(inj._oom["target"])
+    require(len(sheds) >= 3 and len(nans) >= 2,
+            f"storm seed {seed}: {len(sheds)} sheds, {len(nans)} NaN "
+            f"failures (want >= 3 and >= 2)")
+    require(all(o.step in oom_steps for o in sheds),
+            f"sheds at steps {[o.step for o in sheds]} outside the "
+            f"schedule {sorted(oom_steps)}")
+    require(all(o.step in inj.nan_at and f"slot {inj.nan_at[o.step][0]} "
+                in o.reason for o in nans),
+            f"NaN failures {[o.as_dict() for o in nans]} are not the "
+            f"schedule's {inj.nan_at}")
+    surv = [i for i, r in enumerate(rids) if r in done]
+    bad = _upto([done[rids[i]] for i in surv], [ref[i] for i in surv],
+                [first12[i] for i in surv])
+    exact = sum(done[rids[i]] == ref[i] for i in surv)
+    snap_q = later[0]
+    idx = {b: h for h, b in snap_q["hash_index"].items()}
+    held = {int(b) for bl in snap_q["seq_blocks"] for b in bl}
+    leak = [b for b, h in quarantined
+            if b in snap_q["cached_order"] or (h is not None and
+                                                idx.get(b) == h)
+            or (b in snap_q["blocks"] and b not in held)]
+    say(f"{tag} resilience fault storm (seed {seed}, "
+        f"{cfg['storm_num_blocks']} blocks, max_preemptions 0, OOM at steps "
+        f"{sorted(oom_steps)}, NaN at {inj.nan_at}): {len(sheds)} sheds at "
+        f"steps {[o.step for o in sheds]}, {len(nans)} NaN failures at "
+        f"{[o.step for o in nans]}, {eng.resilience_stats.as_dict()}; "
+        f"{len(surv)} survivors, {exact} equal to phase 3's over all "
+        f"{n_new}; {len(quarantined)} quarantined page(s), none in the "
+        f"next snapshot as cached or indexed content: {not leak}")
+    require(not bad, f"survivors {bad} left phase 3's streams before "
+            f"their first near-tie")
+    require(not leak, f"quarantined pages {leak} rode a later snapshot")
+    del eng, later, snap_q
+
+    # 7. the speculative storm: a draft-pool OOM and corrupted draft
+    # logits under k=4 with the truncated draft
+    nd, k = cfg["draft_layers"], cfg["spec_k"]
+    n4 = cfg["spec_requests"]
+    inj = FaultInjector(draft_oom_at={s: FaultInjector.ALL
+                                      for s in cfg["storm_draft_oom"]},
+                        draft_nan_at={s: list(range(n4))
+                                      for s in cfg["storm_draft_nan"]})
+    eng = engine(draft=tsm.truncated_draft(nd), k=k, injector=inj)
+    rids = [eng.submit(p) for p in prompts[:n4]]
+    done = {}
+    _drive(eng, rids, n_new, done)
+    eng.check_invariants()
+    st = eng.stats
+    streams = [done[r] for r in rids]
+    say(f"{tag} resilience speculative storm (k={k}, {nd}-layer draft): "
+        f"{inj.injected_draft_oom} draft-pool OOM(s), "
+        f"{st.draft_oom_rolls} roll(s) rolled back, "
+        f"{inj.injected_draft_nan} corrupted draft row(s); proposed "
+        f"{st.proposed}, accepted {st.accepted}; streams equal to phase "
+        f"4's {[sum(a == b for a, b in zip(s, t)) for s, t in zip(streams, toks)]}"
+        f" of {n_new} (first near-tie {first_small})")
+    require(st.draft_oom_rolls >= 1 and inj.injected_draft_nan >= 1,
+            "the draft faults did not fire")
+    require(not any(o.failed for o in eng.outcomes),
+            "a draft fault failed a request")
+    require(not _upto(streams, toks, first_small),
+            "the speculative storm left phase 4's tokens before the first "
+            "near-tie")
+    del eng
+
+    # 8. tenants: a quota'd flooder beside two victims with floors
+    victims = {"v1": prompts[0:2], "v2": prompts[2:4]}
+    flood = prompts[4:12]
+    nb_ = lambda n: -(-n // bs)  # noqa: E731
+    quota = nb_(min(len(p) for p in flood) + 1) + 1
+    ten = {t: {"reserved_blocks": sum(nb_(len(p) + n_new) for p in ps)}
+           for t, ps in victims.items()}
+    ten["flood"] = {"quota_blocks": quota}
+    eng = engine(tenants=ten)
+    vrids = [eng.submit(p, tenant_id=t) for t, ps in victims.items()
+             for p in ps]
+    frids = [eng.submit(p, tenant_id="flood") for p in flood]
+    done, failed = {}, {}
+    peak = [0]
+
+    def audit(e):
+        e.check_invariants()
+        peak[0] = max(peak[0], e.engine.cache.tenant_charge("flood"))
+    _drive(eng, vrids, n_new, done, on_round=audit)
+    _drive(eng, frids, 10 ** 9, {}, failed=failed, on_round=audit)
+    fo = {r: failed.get(r) for r in frids}
+    ok = all(o is not None and (
+        o.status == RequestOutcome.REJECTED_ADMISSION or
+        (o.status == RequestOutcome.FAILED_OOM and "quota" in o.reason))
+        for o in fo.values())
+    vs = [done[r] for r in vrids]
+    ts = eng.tenant_stats
+    say(f"{tag} resilience tenants (victim floors "
+        f"{[ten[t]['reserved_blocks'] for t in victims]} blocks, flooder "
+        f"quota {quota}): flooder outcomes "
+        f"{[o.status for o in fo.values()]}, its charge at most "
+        f"{peak[0]}; victims' streams equal to phase 3's "
+        f"{[sum(a == b for a, b in zip(s, t)) for s, t in zip(vs, ref)]} "
+        f"of {n_new}; tenant stats flood {ts['flood'].as_dict()}")
+    require(ok, f"a flood request did not end rejected or shed at its "
+            f"quota: {[None if o is None else o.as_dict() for o in fo.values()]}")
+    require(peak[0] <= quota, "the flooder went over its quota")
+    require(ts["v1"].failed == 0 and ts["v2"].failed == 0,
+            "a victim failed")
+    require(not _upto(vs, ref[:4], first12[:4]),
+            "a victim's stream left phase 3's before its near-tie")
+    del eng
+
+    # 9. ragged_step=False: phase 3's traffic in per-phase launches
+    rows, hook = _counting(tsm)
+    eng = engine()
+    eng.engine.ragged_step = False
+    pa.reset_launch_count()
+    sync()
+    t0 = time.perf_counter()
+    rids = [eng.submit(p) for p in prompts]
+    done = {}
+    rounds = _drive(eng, rids, n_new, done)
+    sync()
+    secs = time.perf_counter() - t0
+    hook.remove()
+    ps_ = eng.engine.prefill_stats
+    plan = ps_.chunks + ps_.decode_steps
+    launches = pa.launch_count()
+    streams = [done[r] for r in rids]
+    tps = len(rids) * n_new / secs
+    say(f"{tag} resilience ragged_step=False: {rounds} rounds, "
+        f"{len(rows)} model calls (= {ps_.chunks} prefill chunks + "
+        f"{ps_.decode_steps} decode steps), ragged launches {launches} "
+        f"(= {L} x {plan}); streams equal to phase 3's "
+        f"{sum(s == t for s, t in zip(streams, ref))} of {len(ref)}; "
+        f"{tps:.2f} tokens/s against phase 3's packed "
+        f"{len(ref) * n_new / serve['secs']:.2f} (printed only)")
+    require(len(rows) == plan, f"{len(rows)} model calls, the plan "
+            f"{plan}")
+    if device.type == "cuda":
+        require(launches == L * plan, f"ragged launches {launches} != "
+                f"{L} x {plan}")
+    require(not _upto(streams, ref, first12), "per-phase steps left phase "
+            "3's streams before the first near-tie")
+    del eng
+    gc.collect()
+
+
 def phase_profile(torch, device, cfg, tsm, tsm_moe, tag, say):
     """Where a model call spends its time: one forward of max_batch rows
     (decode-sized) and one of budget + max_batch rows (mixed-sized, the
@@ -2710,8 +3231,6 @@ def run(device, cfg, seed=0, say=print, card=None):
                          tag, say)
     phase_prefix(torch, device, cfg, tsm, qprompts, qserve["streams"], tag,
                  say)
-    del tsm8
-    gc.collect()
     # the MoE slice: phase 3's traffic through an 8-expert model
     tsm_moe = build_moe_model(torch, device, cfg, seed, tsm._embed_np)
     mserve = phase_moe_serve(torch, device, cfg, tsm_moe, prompts,
@@ -2724,6 +3243,9 @@ def run(device, cfg, seed=0, say=print, card=None):
                tag, say)
     phase_parallel(torch, device, cfg, tsm, prompts, toks, first_small, tag,
                    say)
+    phase_resilience(torch, device, cfg, tsm, tsm8, prompts, qprompts,
+                     serve, qserve, toks, first_small, tag, say)
+    del tsm8
     rows["gmm"]["launches"] = mserve["launches"]["gmm"]
     rows["paged_attention_ragged"]["launches"] = \
         serve["launches"]["paged_attention_ragged"]

@@ -4,9 +4,11 @@ from .moe_serving import MoeServingCore, moe_capacity  # noqa: F401
 from .paged_cache import (BlockAllocator, BlockOOM,  # noqa: F401
                           PagedKVCache, PagedLayerCache, PagedPrefillView,
                           PagedRaggedView, chain_block_hashes, chain_hash)
-from .resilience import EngineCrash, RequestOutcome  # noqa: F401
-from .scheduler import (MIN_PREFILL_SUFFIX_ROWS,  # noqa: F401
-                        PagedRequest, PagedServingEngine, chunked_prefill)
+from .resilience import (CrashInjector, EngineCrash,  # noqa: F401
+                         FaultInjector, RequestOutcome)
+from .scheduler import (DEFAULT_TENANT,  # noqa: F401
+                        MIN_PREFILL_SUFFIX_ROWS, PagedRequest,
+                        PagedServingEngine, Tenant, chunked_prefill)
 from .serving import (ContinuousBatchingEngine,  # noqa: F401
                       ParallelStats, PrefillStats, PrefixCacheStats,
                       ResilienceStats, SpecDecodeStats, TenantStats)
@@ -16,13 +18,14 @@ from .speculative import (SpeculativeEngine,  # noqa: F401
 from .telemetry import MetricsRegistry, StatsBase  # noqa: F401
 
 __all__ = ["BlockAllocator", "BlockOOM", "ContinuousBatchingEngine",
-           "EngineCrash", "MetricsRegistry", "MIN_PREFILL_SUFFIX_ROWS",
+           "CrashInjector", "DEFAULT_TENANT", "EngineCrash",
+           "FaultInjector", "MetricsRegistry", "MIN_PREFILL_SUFFIX_ROWS",
            "MoeServingCore",
            "PagedKVCache", "PagedLayerCache", "PagedPrefillView",
            "PagedRaggedView", "PagedRequest", "PagedServingEngine",
            "ParallelStats", "PrefillStats", "PrefixCacheStats",
            "RequestOutcome", "ResilienceStats", "SpecDecodeStats",
-           "SpeculativeEngine", "StatsBase", "TenantStats",
+           "SpeculativeEngine", "StatsBase", "Tenant", "TenantStats",
            "TokenServingModel", "branch_lane_seed", "chain_block_hashes",
            "chain_hash", "chunked_prefill", "logit_mask_fn",
            "moe_capacity", "register_logit_mask"]

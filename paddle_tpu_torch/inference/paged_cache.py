@@ -38,13 +38,32 @@ K/V, so chunking cannot change them and prefix adoption of an int8 page
 is exact; scales move with their page through COW copies, and the deep
 audit fingerprints payload and scales.
 
+TENANT CHARGES: every table reference a slot holds charges the slot's
+tenant one block (``set_seq_tenant``, ``tenant_charge``), so a tenant's
+bill is a function of its own tables only; the audit holds the
+incremental charge to a walk of the tables.
+
+SNAPSHOTS (``snapshot``/``restore``): a pool checkpoint is the allocator's
+exact state (refcounts, free-list order, cached-free LRU order), the
+tables, the chain-hash index and the content of every live or
+cached-free block, as a plain picklable dict of numpy arrays, ints and
+bytes with the JAX class's keys and layout, so a snapshot taken by
+either package restores in the other. ``snapshot(base=)`` makes a
+delta (hash-indexed blocks the base already carries ship as ids
+only). A restore into another ``num_blocks`` rehomes the blocks under
+fresh ids, dropping least-recently-used cached-free blocks first when
+the target is smaller. ``export_slice``/``import_slice`` move one
+slot's finished prefix pages between pools; ``quarantine_seq`` frees
+suspect pages with no cached-free second chance.
+
 Port notes. The control plane (allocator, tables, refcounts, COW, hash
-index, audits) is host numpy and follows the JAX class exactly. Pool
-writes are IN PLACE (``pool[blk, 0, :, off, :] = k``): the JAX class
-rebinds a new pool array per append, here the one pool tensor per layer
-is updated, which is what keeps peak KV memory equal to the pool.
-Snapshot/restore, export/import of slices, tenants' charges and
-quarantine come in later slices.
+index, tenant charges, audits) is host numpy and follows the JAX class
+exactly. Pool writes are IN PLACE (``pool[blk, 0, :, off, :] = k``): the
+JAX class rebinds a new pool array per append, here the one pool tensor
+per layer is updated, which is what keeps peak KV memory equal to the
+pool. A bfloat16 pool's snapshot payload is float32 (numpy has no
+bfloat16; the upcast is exact and restore casts back). Tensor-parallel
+pools are not ported.
 """
 from __future__ import annotations
 
@@ -62,6 +81,35 @@ from ..ops.hopper.paged_attention import RaggedPlan, paged_attention_ragged
 __all__ = ["BlockOOM", "BlockAllocator", "PagedKVCache",
            "PagedLayerCache", "PagedPrefillView", "PagedRaggedView",
            "chain_hash", "chain_block_hashes", "KV_QMAX"]
+
+
+def _merge_delta_snapshot(snap: dict, base: dict,
+                          referenced: List[int]) -> dict:
+    """A FULL snapshot from a delta and the base it was taken against:
+    the delta's own payload rows plus the base's rows for every
+    ``base_blocks`` id. Refuses a base of another geometry or one
+    missing a referenced block."""
+    if base.get("geometry") != snap["geometry"]:
+        raise ValueError("delta snapshot: base geometry mismatch")
+    row_of = {int(b): i for i, b in enumerate(base["blocks"])}
+    missing = [b for b in referenced if b not in row_of]
+    if missing:
+        raise ValueError(f"delta snapshot references block(s) "
+                         f"{missing} the base does not carry — "
+                         f"wrong base checkpoint")
+    take = [row_of[b] for b in referenced]
+    merged = dict(snap)
+    merged["blocks"] = [int(b) for b in snap["blocks"]] + \
+        [int(b) for b in referenced]
+    merged["payload"] = np.concatenate(
+        [np.asarray(snap["payload"]),
+         np.asarray(base["payload"])[take]], axis=0)
+    if "scale_payload" in snap:
+        merged["scale_payload"] = np.concatenate(
+            [np.asarray(snap["scale_payload"]),
+             np.asarray(base["scale_payload"])[take]], axis=0)
+    merged["base_blocks"] = []
+    return merged
 
 
 def chain_hash(parent: bytes, block_tokens) -> bytes:
@@ -124,10 +172,13 @@ class BlockAllocator:
         self.refcount[0] = 1  # trash block: never allocated, never freed
         # diagnostics wired by the owning cache: context() -> str and
         # context_data() -> dict for BlockOOM, describe(block) -> str
-        # for ref/free misuse errors
+        # for ref/free misuse errors; fault_hook(n) may raise BlockOOM
+        # (FaultInjector) and is consulted first, so a forced OOM fires
+        # with free blocks in the pool
         self.context = None
         self.context_data = None
         self.describe = None
+        self.fault_hook = None
 
     def _blurb(self, block: int) -> str:
         if self.describe is None:
@@ -143,6 +194,8 @@ class BlockAllocator:
         return len(self._cached)
 
     def alloc(self, n: int = 1) -> List[int]:
+        if self.fault_hook is not None:
+            self.fault_hook(n)
         if n > self.num_free:
             raise BlockOOM(
                 f"need {n} block(s), {self.num_free} free "
@@ -222,9 +275,11 @@ class _Route:
     offset per written row) and of the attention's per-sequence lengths
     and tables — built once per model call and shared by every layer."""
 
-    __slots__ = ("blk", "off", "kv_lens", "bt", "plan")
+    __slots__ = ("blk", "off", "kv_lens", "bt", "plan", "tile_q",
+                 "tile_kv")
 
-    def __init__(self, blk, off, kv_lens, bt, q_lens, device):
+    def __init__(self, blk, off, kv_lens, bt, q_lens, device,
+                 tile_q=None, tile_kv=None):
         self.blk = torch.from_numpy(np.asarray(blk, np.int64)).to(device)
         self.off = torch.from_numpy(np.asarray(off, np.int64)).to(device)
         self.kv_lens = torch.from_numpy(
@@ -232,6 +287,10 @@ class _Route:
         self.bt = bt
         # the host lengths size the split-KV work items (no device read)
         self.plan = RaggedPlan(q_lens, kv_lens)
+        # kernel tuning knobs of the engine's ragged step (None: the
+        # kernel's defaults)
+        self.tile_q = tile_q
+        self.tile_kv = tile_kv
 
 
 def _append(cache: "PagedKVCache", layer: int, route: _Route, k, v) -> None:
@@ -275,8 +334,10 @@ class _View:
 
     def _attend(self, q, route: _Route, q_lens):
         return paged_attention_ragged(q, self.pool, route.bt, q_lens,
-                                      route.kv_lens, plan=route.plan,
-                                      kv_scales=self.kv_scales)
+                                      route.kv_lens, tile_q=route.tile_q,
+                                      tile_kv=route.tile_kv,
+                                      kv_scales=self.kv_scales,
+                                      plan=route.plan)
 
 
 class PagedLayerCache(_View):
@@ -345,7 +406,8 @@ class _RaggedLayout:
     the cache's CURRENT tables — the caller must have ensure()d
     coverage and set the decode mask first."""
 
-    def __init__(self, cache: "PagedKVCache", segments):
+    def __init__(self, cache: "PagedKVCache", segments, tile_q=None,
+                 tile_kv=None):
         bs = cache.block_size
         tbl = cache.block_tables
         masked_tbl = tbl
@@ -400,7 +462,8 @@ class _RaggedLayout:
         bt = torch.from_numpy(np.stack(bt_rows).astype(np.int32)).to(
             cache.device)
         self.route = _Route(np.concatenate(blk), np.concatenate(off),
-                            kv_lens, bt, self.q_lens, cache.device)
+                            kv_lens, bt, self.q_lens, cache.device,
+                            tile_q=tile_q, tile_kv=tile_kv)
 
 
 class PagedRaggedView(_View):
@@ -453,6 +516,10 @@ class PagedKVCache:
         # tensor-parallel pools (mp > 1) are not ported
         require_defaults("PagedKVCache", mp=(mp, 1),
                          shard_devices=(shard_devices, None))
+        # the dtype's name is what snapshots and slices record (the JAX
+        # class's geometry key)
+        self.dtype_name = dtype if isinstance(dtype, str) else \
+            str(dtype).replace("torch.", "")
         if isinstance(dtype, str):
             dtype = getattr(torch, dtype)
         self.device = resolve_device(device)
@@ -508,11 +575,13 @@ class PagedKVCache:
         # step (mid-prefill slots, slots admitted this very step)
         self._decode_masked: Optional[np.ndarray] = None
         self.peak_blocks_used = 0
-        # block-table references held by the slots, moved by every table
-        # mutation as the reference's per-tenant ``_charge`` moves (a
-        # fork charges each shared block once more, a COW swap is
-        # neutral); tenants are not ported, so it is one counter
-        self.charged_blocks = 0
+        # tenant attribution: which tenant each slot serves, and the
+        # per-tenant charge, ONE PER TABLE REFERENCE (a block shared by
+        # k slots charges each sharer's tenant 1), so a tenant's charge
+        # depends on its own slots' tables only; every table mutation
+        # moves it (``_charge``), a COW swap is neutral
+        self.seq_tenant: List[Optional[str]] = [None] * self.max_seqs
+        self._tenant_charge: Dict[Optional[str], int] = {}
 
     # -- construction -------------------------------------------------
     @classmethod
@@ -554,6 +623,39 @@ class PagedKVCache:
             per_head += self.scales[0].element_size()
         return int(2 * self.num_heads * per_head * self.num_layers)
 
+    # -- tenant accounting --------------------------------------------
+    def _charge(self, slot: int, delta: int) -> None:
+        """Move ``slot``'s tenant's block charge by ``delta`` table
+        references."""
+        if delta == 0:
+            return
+        t = self.seq_tenant[slot]
+        self._tenant_charge[t] = self._tenant_charge.get(t, 0) + delta
+
+    def set_seq_tenant(self, slot: int, tenant: Optional[str]) -> None:
+        """Attribute ``slot`` to ``tenant`` (None = unattributed); the
+        blocks the slot already holds move their charge with it."""
+        old = self.seq_tenant[slot]
+        if old == tenant:
+            return
+        held = len(self.seq_blocks[slot])
+        if held:
+            self._tenant_charge[old] = \
+                self._tenant_charge.get(old, 0) - held
+        self.seq_tenant[slot] = tenant
+        if held:
+            self._tenant_charge[tenant] = \
+                self._tenant_charge.get(tenant, 0) + held
+
+    def tenant_charge(self, tenant: Optional[str]) -> int:
+        """Blocks charged to ``tenant`` (one per table reference its
+        slots hold)."""
+        return self._tenant_charge.get(tenant, 0)
+
+    def tenant_blocks_held(self) -> Dict[Optional[str], int]:
+        """{tenant: charged blocks}, nonzero entries only."""
+        return {t: n for t, n in self._tenant_charge.items() if n}
+
     # -- diagnostics ---------------------------------------------------
     def owners_of(self, block: int) -> List[int]:
         return [s for s in range(self.max_seqs)
@@ -572,14 +674,20 @@ class PagedKVCache:
         if not tiers_only:
             out["blocks_per_slot"] = {
                 s: len(bl) for s, bl in enumerate(self.seq_blocks) if bl}
+            out["blocks_per_tenant"] = {
+                t: n for t, n in self._tenant_charge.items()
+                if n and t is not None}
         return out
 
     def _pool_context(self) -> str:
         occ = self.pool_occupancy()
-        return (f"; pool: {occ['active']} active / {occ['cached_free']} "
-                f"cached-free / {occ['free']} free of {occ['usable']} "
-                f"usable; blocks per slot: "
-                f"{occ['blocks_per_slot'] or '{}'}")
+        out = (f"; pool: {occ['active']} active / {occ['cached_free']} "
+               f"cached-free / {occ['free']} free of {occ['usable']} "
+               f"usable; blocks per slot: "
+               f"{occ['blocks_per_slot'] or '{}'}")
+        if occ["blocks_per_tenant"]:
+            out += f"; blocks per tenant: {occ['blocks_per_tenant']}"
+        return out
 
     def _describe_block(self, block: int) -> str:
         owners = self.owners_of(block)
@@ -587,6 +695,10 @@ class PagedKVCache:
                  else f"refcount {int(self.allocator.refcount[block])}")
         tail = ", hash-indexed" if block in self._block_hash else ""
         own = f"owned by slot(s) {owners}" if owners else "no owner"
+        tnts = sorted({self.seq_tenant[s] for s in owners
+                       if self.seq_tenant[s] is not None})
+        if tnts:
+            own += f" of tenant(s) {tnts}"
         return f"{state}, {own}{tail}"
 
     def _fingerprint(self, block: int, pool_arrs) -> bytes:
@@ -616,7 +728,9 @@ class PagedKVCache:
              cached-free blocks are fingerprinted (payload and, on int8
              pools, scales) and re-verified while they stay so — an
              in-place write to such a page trips it;
-          8. ``charged_blocks`` equals the tables' references.
+          8. the per-tenant charges equal a walk of the tables (one
+             charge per reference held by each tenant's slots) and their
+             total equals the allocator's refcounts over usable blocks.
         """
         a = self.allocator
         counts: Dict[int, int] = {}
@@ -634,9 +748,6 @@ class PagedKVCache:
             assert list(row[:len(blocks)]) == [int(b) for b in blocks] \
                 and not row[len(blocks):].any(), \
                 f"slot {slot} device table diverges from seq_blocks"
-        assert self.charged_blocks == sum(counts.values()), \
-            (f"charged blocks {self.charged_blocks} != "
-             f"{sum(counts.values())} table references")
         free_set, cached_set = set(a._free), set(a._cached)
         active_set = {b for b in range(1, self.num_blocks)
                       if a.refcount[b] > 0}
@@ -668,6 +779,22 @@ class PagedKVCache:
             assert a.refcount[b] == 0, f"cached-free block {b} has owners"
             assert b in self._block_hash, \
                 f"cached-free block {b} is not hash-indexed"
+        truth: Dict[Optional[str], int] = {}
+        for slot in range(self.max_seqs):
+            n = len(self.seq_blocks[slot])
+            if n:
+                t = self.seq_tenant[slot]
+                truth[t] = truth.get(t, 0) + n
+        charged = {t: n for t, n in self._tenant_charge.items() if n}
+        assert charged == truth, \
+            (f"tenant block charges {charged} diverge from the "
+             f"tables' ground truth {truth}")
+        assert all(n >= 0 for n in self._tenant_charge.values()), \
+            f"negative tenant charge: {self._tenant_charge}"
+        total_refs = int(a.refcount[1:].sum())
+        assert sum(truth.values()) == total_refs, \
+            (f"tenant charges cover {sum(truth.values())} references "
+             f"but the allocator counts {total_refs}")
         if lens is not None and active is not None:
             lens = np.asarray(lens)
             for slot in np.flatnonzero(np.asarray(active)):
@@ -696,6 +823,296 @@ class PagedKVCache:
                          f"({self._describe_block(b)})")
                     self._audit_fp[b] = fp
         return True
+
+    # -- checkpoint / restore -----------------------------------------
+    def _np_dtype(self, scales: bool = False):
+        """numpy dtype of a snapshot or slice payload (bfloat16 pages
+        travel as float32: an exact upcast)."""
+        if scales or self.dtype == torch.bfloat16:
+            return np.float32
+        return torch.empty((), dtype=self.dtype).numpy().dtype
+
+    def _pull(self, arrs, blocks, scales: bool = False) -> np.ndarray:
+        """[n, L, ...] host copy of ``blocks``' rows of every layer's
+        pool (or scale pages): one gather on the device per layer, one
+        transfer."""
+        if not blocks:
+            shape = arrs[0].shape[1:]
+            return np.zeros((0, len(arrs)) + tuple(shape),
+                            self._np_dtype(scales))
+        ids = torch.tensor(blocks, dtype=torch.long, device=self.device)
+        out = torch.stack([a[ids] for a in arrs], dim=1)
+        if out.dtype == torch.bfloat16:
+            out = out.float()
+        return out.cpu().numpy()
+
+    def _land(self, ids: List[int], payload: np.ndarray,
+              spay: Optional[np.ndarray]) -> None:
+        """Write payload rows [n, L, 2, H, bs, D] (and scale rows
+        [n, L, 2, H, bs] on an int8 pool) into pool blocks ``ids``."""
+        idx = torch.tensor(ids, dtype=torch.long, device=self.device)
+        for i, pool in enumerate(self.pools):
+            pool[idx] = torch.from_numpy(np.ascontiguousarray(
+                payload[:, i])).to(device=self.device, dtype=pool.dtype)
+        if self.quantized:
+            for i, sc in enumerate(self.scales):
+                sc[idx] = torch.from_numpy(np.ascontiguousarray(
+                    spay[:, i], np.float32)).to(self.device)
+
+    def snapshot(self, base: Optional[dict] = None) -> dict:
+        """Host-side checkpoint of the whole pool: geometry, the
+        allocator's exact state (refcounts, free-list order, cached-free
+        LRU order), block tables, tenant attribution, the chain-hash
+        index and the content of every live or cached-free block (int8
+        pools: payload and scales). Free-list blocks carry no content
+        (a quarantined page is already free). One transfer to the host
+        per call. A plain picklable dict (numpy, ints, bytes) with the
+        JAX class's keys and payload layout.
+
+        ``base`` (an earlier snapshot of the same geometry) makes this a
+        DELTA: a block whose chain hash the base binds to the same id,
+        and whose row the base carries, rides as an id in
+        ``base_blocks`` (indexed blocks are never written in place, so
+        same id and hash means same bytes). Allocator metadata stays
+        complete; ``restore(..., base=)`` reconstitutes the pool."""
+        a = self.allocator
+        cached_order = [int(b) for b in a._cached]
+        keep = sorted({b for b in range(1, self.num_blocks)
+                       if a.refcount[b] > 0} | set(cached_order))
+        geometry = {
+            "num_layers": self.num_layers,
+            "num_heads": self.num_heads,
+            "head_dim": self.head_dim,
+            "block_size": self.block_size,
+            "num_blocks": self.num_blocks,
+            "max_seqs": self.max_seqs,
+            "max_blocks_per_seq": self.max_blocks_per_seq,
+            "dtype": self.dtype_name,
+            "prefix_cache": self.prefix_cache,
+            "mp": 1,
+        }
+        clean = set()
+        if base is not None:
+            if base.get("geometry") != geometry:
+                raise ValueError(
+                    "delta snapshot: base comes from a different "
+                    "pool geometry — content addresses do not "
+                    "transfer across geometries")
+            base_rows = {int(b) for b in base["blocks"]}
+            base_index = base.get("hash_index", {})
+            for b in keep:
+                h = self._block_hash.get(b)
+                if h is not None and base_index.get(h) == b \
+                        and b in base_rows:
+                    clean.add(b)
+        dirty = [b for b in keep if b not in clean]
+        out = {
+            "kind": "paged_kv_cache",
+            "geometry": geometry,
+            "refcount": {int(b): int(a.refcount[b]) for b in keep},
+            "free_order": [int(b) for b in a._free],
+            "cached_order": cached_order,       # oldest (LRU) first
+            "reclaimed": int(a.reclaimed),
+            "hash_index": dict(self._hash_to_block),
+            "seq_blocks": [[int(b) for b in bl]
+                           for bl in self.seq_blocks],
+            "seq_tenant": list(self.seq_tenant),
+            "peak_blocks_used": int(self.peak_blocks_used),
+            "blocks": [int(b) for b in dirty],
+            "payload": self._pull(self.pools, dirty),
+            "base_blocks": sorted(int(b) for b in clean),
+        }
+        if self.quantized:
+            out["scale_payload"] = self._pull(self.scales, dirty,
+                                              scales=True)
+        return out
+
+    @classmethod
+    def restore(cls, snap: dict, *, num_blocks: Optional[int] = None,
+                mp: Optional[int] = None, shard_devices=None,
+                base: Optional[dict] = None,
+                device=None) -> "PagedKVCache":
+        """Rebuild a pool from a ``snapshot`` on ``device``. With the
+        snapshot's ``num_blocks`` every block keeps its id and the
+        free-list and LRU orders round-trip exactly, so the restored
+        pool allocates as the uninterrupted one would. Another
+        ``num_blocks`` rehomes the blocks under fresh ids (live blocks
+        first, oldest ids first, then cached-free newest first): the
+        least-recently-used cached-free blocks are dropped, with their
+        index entries, when the target is smaller, and a live set that
+        cannot fit raises ``BlockOOM`` with the occupancy breakdown. A
+        delta snapshot needs its ``base``. Ends with the deep audit."""
+        if mp not in (None, 1) or int(snap["geometry"].get("mp", 1)) != 1:
+            raise NotImplementedError(
+                "PagedKVCache.restore: tensor-parallel pools (mp > 1) "
+                "are not ported")
+        require_defaults("PagedKVCache.restore",
+                         shard_devices=(shard_devices, None))
+        referenced = [int(b) for b in snap.get("base_blocks", ())]
+        if referenced:
+            if base is None:
+                raise ValueError(
+                    f"delta snapshot references {len(referenced)} "
+                    f"block(s) from its base checkpoint — restore "
+                    f"needs base=...")
+            snap = _merge_delta_snapshot(snap, base, referenced)
+        g = snap["geometry"]
+        nb = g["num_blocks"] if num_blocks is None else int(num_blocks)
+        refcount = {int(b): int(n) for b, n in snap["refcount"].items()}
+        cached = [int(b) for b in snap["cached_order"]]
+        live = sorted(b for b, n in refcount.items() if n > 0)
+        usable = nb - 1
+        if len(live) > usable:
+            hist = {s: len(bl) for s, bl in
+                    enumerate(snap["seq_blocks"]) if bl}
+            raise BlockOOM(
+                f"restore needs {len(live)} live block(s) but the "
+                f"target pool has only {usable} usable"
+                f"; snapshot pool: {len(live)} active / {len(cached)} "
+                f"cached-free of {g['num_blocks'] - 1} usable; "
+                f"blocks per slot: {hist or '{}'}",
+                details={"active": len(live),
+                         "cached_free": len(cached),
+                         "usable": g["num_blocks"] - 1,
+                         "target_usable": usable,
+                         "blocks_per_slot": hist})
+        cache = cls(g["num_layers"], g["num_heads"], g["head_dim"],
+                    g["block_size"], nb, g["max_seqs"],
+                    max_blocks_per_seq=g["max_blocks_per_seq"],
+                    dtype=g["dtype"], prefix_cache=g["prefix_cache"],
+                    device=device)
+        # cached-free blocks that fit, the most recently released kept
+        # (dropping the LRU end is the live allocator's reclaim order)
+        n_cached = min(len(cached), usable - len(live))
+        dropped, kept_cached = (cached[:len(cached) - n_cached],
+                                cached[len(cached) - n_cached:])
+        a = cache.allocator
+        if nb == g["num_blocks"] and not dropped:
+            remap = {b: b for b in live + kept_cached}
+            a._free = [int(b) for b in snap["free_order"]]
+        else:
+            order = live + kept_cached   # canonical rehoming order
+            remap = {old: new for new, old in enumerate(order, start=1)}
+            a._free = list(range(nb - 1, len(order), -1))
+        for old, n in refcount.items():
+            if old in remap:
+                a.refcount[remap[old]] = n
+        a._cached = OrderedDict((remap[b], True) for b in kept_cached)
+        a.reclaimed = int(snap["reclaimed"]) + len(dropped)
+        tenants = snap.get("seq_tenant", [None] * g["max_seqs"])
+        for slot, blocks in enumerate(snap["seq_blocks"]):
+            mapped = [remap[int(b)] for b in blocks]
+            cache.seq_tenant[slot] = tenants[slot]
+            cache.seq_blocks[slot] = mapped
+            cache._charge(slot, len(mapped))
+            cache.block_tables[slot, :len(mapped)] = mapped
+        for h, b in snap["hash_index"].items():
+            b = remap.get(int(b))
+            if b is not None:     # a dropped cached-free block's entry
+                cache._hash_to_block[h] = b
+                cache._block_hash[b] = h
+        rows = [i for i, b in enumerate(snap["blocks"])
+                if int(b) in remap]
+        if rows:
+            spay = (np.asarray(snap["scale_payload"])[rows]
+                    if cache.quantized else None)
+            cache._land([remap[int(snap["blocks"][i])] for i in rows],
+                        np.asarray(snap["payload"])[rows], spay)
+        cache.peak_blocks_used = int(snap["peak_blocks_used"])
+        cache._tables_dirty()
+        cache.check_invariants(deep=True)
+        return cache
+
+    # -- page migration -------------------------------------------------
+    def _slice_geometry(self) -> dict:
+        return {"num_layers": self.num_layers,
+                "num_heads": self.num_heads,
+                "head_dim": self.head_dim,
+                "block_size": self.block_size,
+                "dtype": self.dtype_name}
+
+    def export_slice(self, slot: int, hashes) -> Optional[dict]:
+        """Wire-format slice of ONE slot's finished prefix pages: the
+        first ``min(len(hashes), blocks held)`` blocks as (chain hash,
+        payload) pairs plus the geometry the importer checks. Gathered
+        on the device, one transfer; no allocator state moves. None
+        when the slot holds no block to migrate."""
+        blocks = [int(b) for b in self.seq_blocks[slot][:len(hashes)]]
+        if not blocks:
+            return None
+        out = {
+            "kind": "kv_slice",
+            "geometry": self._slice_geometry(),
+            "hashes": list(hashes[:len(blocks)]),
+            "payload": self._pull(self.pools, blocks),
+        }
+        if self.quantized:
+            out["scale_payload"] = self._pull(self.scales, blocks,
+                                              scales=True)
+        return out
+
+    def import_slice(self, slc: dict) -> int:
+        """Adopt an ``export_slice`` into this pool: each page lands
+        CACHED-FREE and hash-indexed, so the migrated request's next
+        ``adopt_prefix`` resurrects it. A hash already indexed here is
+        skipped; blocks import in prefix order and stop at the first
+        allocation failure; nothing is charged to any tenant. Returns
+        the number of blocks written. ValueError on a geometry mismatch
+        or a pool without a prefix index."""
+        if slc.get("kind") != "kv_slice":
+            raise ValueError(f"not a kv_slice: {slc.get('kind')!r}")
+        if not self.prefix_cache:
+            raise ValueError(
+                "import_slice needs prefix_cache=True — migrated "
+                "pages are adopted through the chain-hash index")
+        g = slc["geometry"]
+        mine = self._slice_geometry()
+        if {k: g.get(k) for k in mine} != mine:
+            raise ValueError(
+                f"kv_slice geometry {g} does not match pool {mine}")
+        if self.quantized and "scale_payload" not in slc:
+            raise ValueError(
+                "kv_slice carries no scales but this pool is int8 — "
+                "corrupt or hand-built slice")
+        landing: List[tuple] = []       # (pool block id, slice row)
+        for i, h in enumerate(slc["hashes"]):
+            if h in self._hash_to_block:
+                continue            # this pool already holds the prefix
+            try:
+                b = self.allocator.alloc(1)[0]
+            except BlockOOM:
+                break               # pool full: keep the clean prefix
+            landing.append((b, i))
+        if not landing:
+            return 0
+        rows = [i for _, i in landing]
+        self._land([b for b, _ in landing],
+                   np.asarray(slc["payload"])[rows],
+                   np.asarray(slc["scale_payload"])[rows]
+                   if self.quantized else None)
+        for b, i in landing:
+            self._audit_fp.pop(b, None)
+            self._hash_to_block[slc["hashes"][i]] = b
+            self._block_hash[b] = slc["hashes"][i]
+            self.allocator.free([b], to_cache=True)
+        return len(landing)
+
+    # -- direct page writes ---------------------------------------------
+    def write_prefill_chunk(self, slot: int, layer: int, k, v,
+                            start: int, write_start: int = 0) -> None:
+        """Write k/v [1, C, H, D] into ``slot``'s pages at positions
+        [start, start + C) of ``layer``, skipping positions below
+        ``write_start`` (an adopted prefix). ``ensure(slot, start + C,
+        write_from=start)`` must have run. The model path goes through
+        ``prefill_views``; this serves callers holding projected K/V."""
+        C = int(k.shape[1])
+        pos = np.arange(start, start + C)
+        blk = self.block_tables[slot][pos // self.block_size]
+        route = _Route(np.where(pos >= write_start, blk, 0),
+                       pos % self.block_size, [start + C], None, (C,),
+                       self.device)
+        _append(self, layer, route, torch.as_tensor(k)[0].to(self.device),
+                torch.as_tensor(v)[0].to(self.device))
 
     # -- device tables --------------------------------------------------
     def bt_tensor(self) -> torch.Tensor:
@@ -815,7 +1232,7 @@ class PagedKVCache:
             new = self.allocator.alloc(need - len(have))
             self.block_tables[slot, len(have):need] = new
             have.extend(new)
-            self.charged_blocks += len(new)
+            self._charge(slot, len(new))
             self._tables_dirty()
         if write_from is None:
             write_from = int(length) - 1
@@ -837,7 +1254,7 @@ class PagedKVCache:
         if keep >= len(have):
             return
         self.release_to_cache(have[keep:])
-        self.charged_blocks -= len(have) - keep
+        self._charge(slot, -(len(have) - keep))
         del have[keep:]
         self.block_tables[slot, keep:] = 0
         self._tables_dirty()
@@ -845,10 +1262,29 @@ class PagedKVCache:
     def free_seq(self, slot: int) -> None:
         if self.seq_blocks[slot]:
             self.release_to_cache(self.seq_blocks[slot])
-            self.charged_blocks -= len(self.seq_blocks[slot])
+            self._charge(slot, -len(self.seq_blocks[slot]))
             self.seq_blocks[slot] = []
             self.block_tables[slot, :] = 0
             self._tables_dirty()
+        self.seq_tenant[slot] = None
+
+    def quarantine_seq(self, slot: int) -> None:
+        """Free a slot's pages with NO cached-free second chance (its
+        content is suspect: a non-finite value reached its hidden).
+        Solely owned blocks lose their index entry and go to the free
+        list; blocks shared with other slots only drop this owner (a
+        sharer's copy predates the fault: shared pages are never
+        written in place)."""
+        for b in self.seq_blocks[slot]:
+            b = int(b)
+            if self.allocator.refcount[b] == 1:
+                self._on_reclaim(b)
+            self.allocator.free([b], to_cache=b in self._block_hash)
+        self._charge(slot, -len(self.seq_blocks[slot]))
+        self.seq_blocks[slot] = []
+        self.block_tables[slot, :] = 0
+        self._tables_dirty()
+        self.seq_tenant[slot] = None
 
     def fork(self, src: int, dst: int, length: int) -> None:
         """Share src's first blocks_needed(length) blocks with dst
@@ -861,7 +1297,7 @@ class PagedKVCache:
         for b in shared:   # fresh share epoch for the content audit
             self._audit_fp.pop(int(b), None)
         self.seq_blocks[dst] = list(shared)
-        self.charged_blocks += len(shared)
+        self._charge(dst, len(shared))
         self.block_tables[dst, :len(shared)] = shared
         self._tables_dirty()
 
@@ -954,7 +1390,7 @@ class PagedKVCache:
                 self.allocator.resurrect(b)
         if matched:
             self.seq_blocks[slot] = list(matched)
-            self.charged_blocks += len(matched)
+            self._charge(slot, len(matched))
             self.block_tables[slot, :len(matched)] = matched
             self._tables_dirty()
         return len(matched)
@@ -974,7 +1410,8 @@ class PagedKVCache:
             self._block_hash[b] = h
 
     # -- views ----------------------------------------------------------
-    def ragged_views(self, segments) -> List[PagedRaggedView]:
+    def ragged_views(self, segments, tile_q=None,
+                     tile_kv=None) -> List[PagedRaggedView]:
         """Per-layer views for ONE mixed ragged model call. ``segments``
         is an ordered list of ("prefill", slot, start, length,
         write_start) chunks (positions below write_start, an adopted
@@ -982,9 +1419,11 @@ class PagedKVCache:
         L) segment
         (L query rows per batch slot at lens[b] .. lens[b]+L-1 through
         the DECODE-MASKED batch table). The packed input is
-        [1, sum(rows), d] in segment order. Build AFTER ensure()ing
+        [1, sum(rows), d] in segment order. ``tile_q``/``tile_kv`` pass
+        through to ``paged_attention_ragged``. Build AFTER ensure()ing
         coverage and setting the decode mask."""
-        layout = _RaggedLayout(self, segments)
+        layout = _RaggedLayout(self, segments, tile_q=tile_q,
+                               tile_kv=tile_kv)
         return [PagedRaggedView(self, i, layout)
                 for i in range(self.num_layers)]
 

@@ -25,10 +25,21 @@ paddle_tpu/inference/speculative.py).
   ``fork_stream(rid)`` clones a running stream, ``cancel(rid)`` stops
   one, ``group(gid)`` reads a group's record.
 
-Not ported yet: fault injection, telemetry spans, the cost ledger,
-tenants, deadlines, ``resume``, export/import of slices, and engine
-snapshot/restore (their parameters raise for any value but the
-default).
+* Resilience and tenants ride the wrapped engine: ``injector`` (the
+  draft pool's allocator gets the injector's draft schedule, and draft
+  logits its NaN schedule), ``numeric_guard``, ``tenants`` and
+  ``set_tenant``, ``submit``'s deadlines and ``tenant_id``. A draft-pool
+  OOM mid-roll rolls the partial roll back page-wise and the round
+  verifies the pending token only (``stats.draft_oom_rolls``).
+* ``snapshot``/``restore``: the wrapped engine's snapshot (the target
+  pool included), the token streams, the RNG states and the groups, with
+  the JAX engine's keys; the draft pool is rebuilt from the streams, not
+  serialized. ``submit(resume=True)`` hands over a running stream whose
+  last token is pending; ``export_slice``/``import_slice`` move its
+  finished prefix pages.
+
+Not ported yet: telemetry spans, the health monitor and the cost ledger
+(their parameters raise for any value but None).
 """
 from __future__ import annotations
 
@@ -42,6 +53,7 @@ from .paged_cache import BlockOOM, PagedKVCache
 from .resilience import RequestOutcome
 from .scheduler import PagedServingEngine, chunked_prefill
 from .serving import SpecDecodeStats
+from .telemetry import MetricsRegistry
 
 __all__ = ["TokenServingModel", "SpeculativeEngine", "SpecDecodeStats",
            "branch_lane_seed", "register_logit_mask", "logit_mask_fn"]
@@ -302,11 +314,9 @@ class SpeculativeEngine:
                  numeric_guard: Optional[bool] = None,
                  tenants: Optional[dict] = None,
                  collector=None, monitor=None, ledger=None):
-        # the fault injector, numeric guard, tenants, trace collector,
-        # health monitor and cost ledger are not ported
-        require_defaults("SpeculativeEngine", injector=(injector, None),
-                         numeric_guard=(numeric_guard, None),
-                         tenants=(tenants, None),
+        # the trace collector, health monitor and cost ledger are not
+        # ported
+        require_defaults("SpeculativeEngine",
                          collector=(collector, None),
                          monitor=(monitor, None), ledger=(ledger, None))
         if k < 0:
@@ -319,13 +329,15 @@ class SpeculativeEngine:
         self.temperature = float(temperature)
         self.top_k = top_k
         self._rng = np.random.RandomState(seed)
+        self.injector = injector
         self.engine = PagedServingEngine(
             target.core, max_batch, block_size, num_blocks,
             max_blocks_per_seq=max_blocks_per_seq, dtype=kv_dtype,
             watermark_blocks=watermark_blocks, prefix_cache=prefix_cache,
             chunk_tokens=chunk_tokens,
             prefill_token_budget=prefill_token_budget,
-            max_preemptions=max_preemptions)
+            injector=injector, max_preemptions=max_preemptions,
+            numeric_guard=numeric_guard, tenants=tenants)
         self.max_batch = self.engine.max_batch
         self.stats = SpecDecodeStats()
         self.engine.registry.attach("spec", self.stats)
@@ -351,6 +363,9 @@ class SpeculativeEngine:
                 self.draft.core, block_size, draft_num_blocks,
                 max_seqs=self.max_batch, max_blocks_per_seq=mbps)
             self._draft_lens = np.zeros(self.max_batch, np.int32)
+            if injector is not None:
+                self.draft_cache.allocator.fault_hook = \
+                    lambda n: injector.on_alloc("draft", n)
 
     # -- submission / events ------------------------------------------
     def submit(self, token_ids, *,
@@ -373,22 +388,37 @@ class SpeculativeEngine:
         (a lone request: lane 0); unseeded streams draw from the
         engine's RandomState. ``best_of``: the first member to finish
         wins, the others are cancelled. ``logit_mask`` names a
-        registered mask applied to every branch. ``deadline_steps``,
-        ``deadline_s``, ``tenant_id`` and ``resume`` are not ported."""
-        require_defaults("SpeculativeEngine.submit",
-                         deadline_steps=(deadline_steps, None),
-                         deadline_s=(deadline_s, None),
-                         tenant_id=(tenant_id, None),
-                         resume=(resume, False))
+        registered mask applied to every branch. ``max_preemptions``,
+        the deadlines and ``tenant_id`` pass to the wrapped engine's
+        ``submit``; terminal outcomes land in ``outcomes``.
+
+        ``resume=True`` hands over a stream that ran on another engine:
+        the LAST token of ``token_ids`` is sampled but not yet consumed
+        (the pending token), so admission prefills ``token_ids[:-1]``
+        and samples nothing; the first round consumes the pending token
+        through the decode path, as the donor engine would have (a
+        fresh submit would sample it from a prefill hidden instead).
+        Needs >= 2 tokens."""
         toks = [int(t) for t in np.asarray(token_ids).reshape(-1)]
         if not toks:
             raise ValueError("empty prompt")
+        if resume and len(toks) < 2:
+            raise ValueError(
+                "resume=True needs >= 2 tokens: a nonempty consumed "
+                "prefix plus the pending (sampled, unconsumed) token")
+        if resume and n > 1:
+            raise ValueError("a resumed (handed-off) stream is one "
+                             "branch — submit it with n=1")
         if best_of and n <= 1:
             raise ValueError("best_of needs n > 1 branches to race")
         if logit_mask is not None:
             logit_mask_fn(logit_mask)   # an unknown name fails now
-        rid = self.engine.submit(self.target.embed(toks),
-                                 max_preemptions=max_preemptions, n=n)
+        prefix = toks[:-1] if resume else toks
+        rid = self.engine.submit(self.target.embed(prefix),
+                                 max_preemptions=max_preemptions,
+                                 deadline_steps=deadline_steps,
+                                 deadline_s=deadline_s,
+                                 tenant_id=tenant_id, n=n)
         seq = _SpecSeq(rid, toks)
         seq.mask = logit_mask
         if seed is not None:
@@ -401,9 +431,37 @@ class SpeculativeEngine:
                 "prompt": list(toks), "rids": [rid],
                 "next_branch": 1, "done": False, "winner": None,
                 "released": []}
+        if resume:
+            # this engine generated none of the handed-off stream, and
+            # the pending token is toks[-1]: no admission sample
+            seq.prompt_len = len(toks)
+            seq.started = True
         self._by_rid[rid] = seq
         self._handle_events()
         return rid
+
+    def set_tenant(self, tenant_id: str, **cfg):
+        """Register or reconfigure a tenant on the wrapped engine (the
+        target pool is the quota domain; the draft pool carries
+        attribution only)."""
+        return self.engine.set_tenant(tenant_id, **cfg)
+
+    @property
+    def tenant_stats(self):
+        return self.engine.tenant_stats
+
+    def tenant_report(self):
+        return self.engine.tenant_report()
+
+    def export_slice(self, rid: int) -> Optional[dict]:
+        """Migration export of ``rid``'s finished prefix pages from the
+        target pool (the draft pool is rebuilt from the token stream
+        wherever the request lands)."""
+        return self.engine.export_request_slice(rid)
+
+    def import_slice(self, slc: dict) -> int:
+        """Adopt a migrated slice into the target pool."""
+        return self.engine.import_slice(slc)
 
     def tokens(self, rid: int) -> List[int]:
         """Full stream (prompt + generated) of a request."""
@@ -432,7 +490,7 @@ class SpeculativeEngine:
         else:
             for req in self.engine.queue:
                 if req.rid == rid:
-                    self.engine._queue.remove(req)
+                    self.engine._dequeue(req)
         self._handle_events()
 
     def group(self, gid: int) -> Optional[dict]:
@@ -620,7 +678,7 @@ class SpeculativeEngine:
                         list(seq.toks), self.target.vocab_size),
                         bool)[None]
                 rows = None if seq.lane is None else [seq.lane]
-                tok, _ = self._sample(self.target, self.target.logits(h),
+                tok, _ = self._sample(self.target, self.logits_of(h),
                                       rng_rows=rows, logit_mask=m)
                 seq.toks.append(int(tok.reshape(-1)[0]))
                 seq.started = True
@@ -665,9 +723,18 @@ class SpeculativeEngine:
             if rid != seq.rid and rid in self._by_rid:
                 self.engine.cancel(rid)
 
+    def logits_of(self, hidden) -> torch.Tensor:
+        return self.target.logits(hidden)
+
     @property
     def resilience_stats(self):
         return self.engine.resilience_stats
+
+    @property
+    def registry(self) -> MetricsRegistry:
+        """The wrapped engine's MetricsRegistry, with this layer's
+        SpecDecodeStats attached under ``spec``."""
+        return self.engine.registry
 
     def check_invariants(self) -> bool:
         """Audit the wrapped engine and BOTH pools; the draft pool also
@@ -695,6 +762,12 @@ class SpeculativeEngine:
         if len(consumed) > self.draft_cache.capacity_per_seq:
             raise ValueError("draft capacity exceeded")   # unreachable
         self._clear_draft_slot(slot)
+        # the draft slot carries its target slot's tenant (attribution
+        # for OOM messages and the charge audit; the draft pool is no
+        # quota domain)
+        req = self.engine._requests[slot]
+        if req is not None:
+            self.draft_cache.set_seq_tenant(slot, req.tenant)
         chunked_prefill(self.draft.core, self.draft_cache, slot,
                         self.draft.embed(consumed),
                         chunk_tokens=self.engine.chunk_tokens)
@@ -744,8 +817,13 @@ class SpeculativeEngine:
         """One draft/verify/rollback round over every active slot.
         Returns {rid: tokens emitted this round} (>= 1 token per active
         request). Capacity-finished requests are released and reported
-        in ``finished`` instead."""
+        in ``finished`` instead. No BlockOOM of either pool leaves the
+        round: a request the target pool cannot serve fails alone, a
+        draft-pool OOM costs the round its proposals."""
         eng = self.engine
+        if self.injector is not None:
+            # draft-phase faults share the verify step's clock
+            self.injector.begin_step(eng._step_count + 1)
         # retire requests at page capacity; loop to a fixed point — a
         # release can refill the slot with a prompt itself at capacity
         while True:
@@ -770,14 +848,16 @@ class SpeculativeEngine:
         slots = sorted(self._seqs)
         if not slots:
             if eng.prefill_token_budget is not None and \
-                    (eng.num_prefilling > 0 or eng._queue):
+                    (eng.num_prefilling > 0 or eng._queue_len):
                 # every tracked stream is still mid-prefill: run an
                 # empty-verify engine step so the prompts keep streaming
                 eng.step_multi(torch.zeros(
                     (self.max_batch, 1, self.target.d_model)))
-            elif eng._queue:
-                # the admission kick consumes an engine step of its own
-                eng._step_count += 1
+            elif eng._queue_len:
+                # the admission kick consumes an engine step of its own,
+                # so step-keyed fault schedules expire even when
+                # admission is the faulted path
+                eng._begin_step()
                 eng._try_admit()
             self._handle_events()
             return {}
@@ -807,8 +887,11 @@ class SpeculativeEngine:
                 for j in range(k_eff + 1):
                     out = self._draft_forward(slots, cur)
                     if j < k_eff:
+                        lg = self.draft.logits(out[:, -1])
+                        if self.injector is not None:
+                            lg = self.injector.corrupt_draft_logits(lg)
                         toks, probs = self._sample(
-                            self.draft, self.draft.logits(out[:, -1]),
+                            self.draft, lg,
                             rng_rows=self._lane_rows(slots, 1),
                             logit_mask=self._mask_next(self.draft, slots,
                                                        drafts))
@@ -836,7 +919,11 @@ class SpeculativeEngine:
                     roll_oom = True
 
         # 2. verify: ONE target call scores the pending token plus the
-        #    k_eff proposals of every slot
+        #    k_eff proposals of every slot. The mid_spec_round crash
+        #    point sits between the roll and the verify (the draft has
+        #    advanced, the target has verified nothing)
+        if self.injector is not None:
+            self.injector.crash_point("mid_spec_round")
         x = np.zeros((B, L, self.target.d_model), np.float32)
         pre_lens = {s: int(eng.lens[s]) for s in slots}
         for s in slots:
@@ -926,3 +1013,121 @@ class SpeculativeEngine:
                                     side="right"))
             return i, min(c, len(p_i) - 1)
         return len(d), -1
+
+    # -- checkpoint / restore -----------------------------------------
+    def snapshot(self) -> dict:
+        """Checkpoint of the speculative layer: the wrapped engine's
+        snapshot (target pool included), every token stream (prompt,
+        emitted tokens, pending token) with its lane state, the sampler
+        RNG state, stats, undrained events, the dirty draft slots and the
+        group records. The draft pool is not serialized: restore rebuilds
+        it from the streams, as a preemption does. The JAX engine's
+        keys."""
+        return {
+            "kind": "speculative_engine",
+            "config": {"k": self.k, "sampling": self.sampling,
+                       "temperature": self.temperature,
+                       "top_k": self.top_k,
+                       "draft_num_blocks":
+                           (None if self.draft_cache is None
+                            else self.draft_cache.num_blocks),
+                       "self_draft": self.draft is self.target},
+            "engine": self.engine.snapshot(),
+            "seqs": [{"rid": s.rid, "toks": list(s.toks),
+                      "prompt_len": s.prompt_len, "slot": s.slot,
+                      "started": s.started, "gid": s.gid,
+                      "branch": s.branch, "mask": s.mask,
+                      "lane": (None if s.lane is None
+                               else s.lane.get_state())}
+                     for s in self._by_rid.values()],
+            "rng": self._rng.get_state(),
+            "stats": PagedServingEngine._stats_rec(self.stats),
+            "finished": list(self.finished),
+            "outcomes": [oc.as_dict() for oc in self.outcomes],
+            "draft_dirty": sorted(self._draft_dirty),
+            "groups": [dict(g) for g in self._groups.values()],
+        }
+
+    @classmethod
+    def restore(cls, target: TokenServingModel,
+                draft: Optional[TokenServingModel], snap: dict, *,
+                injector=None, collector=None, monitor=None,
+                ledger=None) -> "SpeculativeEngine":
+        """Rebuild a speculative engine from a ``snapshot`` (either
+        package's) around the caller's models. The target engine
+        restores exactly (``PagedServingEngine.restore``); the draft
+        pool is rebuilt from the token streams slot by slot with the
+        fault hook off. Slots dirty at snapshot time stay dirty, so the
+        restored run schedules as the uninterrupted one."""
+        cfg = snap["config"]
+        ecfg = snap["engine"]["config"]
+        if cfg["k"] > 0 and cfg.get("self_draft") is not None \
+                and cfg["self_draft"] != (draft is None):
+            raise ValueError(
+                "draft-model mismatch: snapshot was taken with a "
+                + ("self-drafted (draft=None)"
+                   if cfg["self_draft"] else "separate draft")
+                + " engine but restore() was given "
+                + ("draft=None" if draft is None
+                   else "a separate draft model"))
+        # num_blocks=2: the constructor's target pool is a placeholder
+        # the restored one replaces; the draft pool built here is kept
+        spec = cls(target, draft, k=cfg["k"],
+                   max_batch=ecfg["max_batch"],
+                   block_size=ecfg["block_size"],
+                   num_blocks=2,
+                   max_blocks_per_seq=ecfg["max_blocks_per_seq"],
+                   draft_num_blocks=cfg["draft_num_blocks"],
+                   prefix_cache=ecfg["prefix_cache"],
+                   sampling=cfg["sampling"],
+                   temperature=cfg["temperature"], top_k=cfg["top_k"],
+                   watermark_blocks=ecfg["watermark_blocks"],
+                   chunk_tokens=ecfg["chunk_tokens"],
+                   injector=injector, collector=collector,
+                   max_preemptions=ecfg["max_preemptions"],
+                   numeric_guard=ecfg["numeric_guard"],
+                   ledger=ledger)
+        spec.engine = PagedServingEngine.restore(
+            target.core, snap["engine"], injector=injector,
+            collector=collector, monitor=monitor, ledger=ledger)
+        spec.engine.registry.attach("spec", spec.stats)
+        for rec in snap["seqs"]:
+            seq = _SpecSeq(rec["rid"], rec["toks"])
+            seq.prompt_len = rec["prompt_len"]
+            seq.slot = rec["slot"]
+            seq.started = rec["started"]
+            seq.gid = rec.get("gid")
+            seq.branch = rec.get("branch", 0)
+            seq.mask = rec.get("mask")
+            lane = rec.get("lane")
+            if lane is not None:
+                seq.lane = np.random.RandomState(0)
+                seq.lane.set_state(lane)
+            spec._by_rid[seq.rid] = seq
+            if seq.slot is not None:
+                spec._seqs[seq.slot] = seq
+        spec._rng.set_state(snap["rng"])
+        spec._groups = {int(g["gid"]): dict(g)
+                        for g in snap.get("groups", [])}
+        PagedServingEngine._stats_set(spec.stats, snap["stats"])
+        spec.finished = list(snap["finished"])
+        spec.outcomes = [RequestOutcome(**oc)
+                         for oc in snap["outcomes"]]
+        dirty = {int(s) for s in snap["draft_dirty"]}
+        if spec.draft_cache is not None:
+            hook = spec.draft_cache.allocator.fault_hook
+            spec.draft_cache.allocator.fault_hook = None
+            try:
+                for slot, seq in spec._seqs.items():
+                    if slot in dirty:
+                        continue
+                    try:
+                        spec._draft_prefill(slot, seq)
+                    except BlockOOM:
+                        spec._clear_draft_slot(slot)
+                        spec._draft_dirty.add(slot)
+            finally:
+                spec.draft_cache.allocator.fault_hook = hook
+        spec._draft_dirty.update(s for s in dirty if s in spec._seqs)
+        spec.check_invariants()
+        return spec

@@ -200,8 +200,9 @@ def _as_int32(x, device) -> torch.Tensor:
 def paged_attention_ragged(q, kv_pool, block_tables, q_lens, kv_lens,
                            sm_scale: Optional[float] = None,
                            tile_q: Optional[int] = None,
-                           plan: Optional[RaggedPlan] = None,
-                           kv_scales: Optional[torch.Tensor] = None):
+                           tile_kv: Optional[int] = None,
+                           kv_scales: Optional[torch.Tensor] = None, *,
+                           plan: Optional[RaggedPlan] = None):
     """THE kernel: one launch scores a mixed prefill+decode+verify batch.
     q: [R, nh, hd] packed rows (R == sum(q_lens)); kv_pool:
     [num_blocks, 2, nkv, bs, hd]; block_tables: int32 [n_seq, MB]
@@ -210,8 +211,16 @@ def paged_attention_ragged(q, kv_pool, block_tables, q_lens, kv_lens,
     [n_seq] valid lengths INCLUDING each sequence's new rows. ``plan``
     (a ``RaggedPlan`` of the same q_lens, and of these kv_lens if it was
     built with lengths; ValueError where host lengths differ) lets
-    callers share the descriptors across launches. ``kv_scales`` [num_blocks, 2, nkv, bs] float32 comes with
-    an int8 pool. Returns [R, nh, hd]."""
+    callers share the descriptors across launches. ``kv_scales``
+    [num_blocks, 2, nkv, bs] float32 comes with an int8 pool.
+    ``tile_kv``: the keys each split-KV work item spans, compiled into
+    the kernel as SPAN, so None or SPAN; any other value raises
+    NotImplementedError. Returns [R, nh, hd]."""
+    if tile_kv is not None and int(tile_kv) != SPAN:
+        raise NotImplementedError(
+            f"paged_attention_ragged: tile_kv={tile_kv!r} is not "
+            f"ported; the split-KV span is compiled in (SPAN = {SPAN} "
+            f"keys), so tile_kv takes None or {SPAN}")
     q_lens = tuple(int(x) for x in q_lens)
     R, nh, hd = q.shape
     if R != sum(q_lens):

@@ -1277,3 +1277,138 @@ def test_group_served_on_the_card_passes_the_deep_audit(kv_dtype):
     eng.step()
     eng.check_invariants()
     assert eng.resilience_stats.cancelled == 1
+
+
+def _filled_pool(dtype, prefix=True):
+    """A card pool with two active slots (one fork-sharing the other's
+    prefix), a retired slot's pages cached-free and random contents in
+    every layer (int8 payload and scales on an int8 pool)."""
+    from paddle_tpu_torch.inference import PagedKVCache, chain_block_hashes
+    c = PagedKVCache(2, 2, 8, 4, 16, 3, dtype=dtype, prefix_cache=prefix,
+                     device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(5)
+    for i, p in enumerate(c.pools):
+        if c.quantized:
+            p.copy_(torch.randint(-127, 128, p.shape, generator=g,
+                                  device="cuda", dtype=torch.int32)
+                    .to(torch.int8))
+            c.scales[i].copy_(torch.rand(c.scales[i].shape, generator=g,
+                                         device="cuda"))
+        else:
+            p.copy_(torch.randn(p.shape, generator=g, device="cuda"))
+    rows = np.random.RandomState(5).randn(12, 8).astype(np.float32)
+    c.ensure(0, 10)
+    c.register_prefix(0, chain_block_hashes(rows[:10], 4))
+    c.fork(0, 1, 8)
+    c.ensure(2, 12)
+    c.register_prefix(2, chain_block_hashes(rows[::-1].copy(), 4))
+    c.free_seq(2)
+    c.check_invariants()
+    return c
+
+
+@pytest.mark.parametrize("dtype", ["float32", "int8"])
+def test_pool_snapshot_round_trip_on_the_card(dtype):
+    """A card pool's snapshot restores on the card with every live and
+    cached-free page bitwise (int8: payload and scales), the allocator's
+    exact state, and a delta against an earlier snapshot restores the
+    same pages; rehoming into a smaller pool drops the LRU cached-free
+    page and keeps the rest bitwise."""
+    _need_cuda()
+    from paddle_tpu_torch.inference import PagedKVCache
+    c = _filled_pool(dtype)
+    snap = c.snapshot()
+    assert snap["payload"].dtype == (np.int8 if dtype == "int8"
+                                     else np.float32)
+    out = PagedKVCache.restore(snap, device="cuda")
+    keep = sorted(int(b) for b in snap["refcount"]) + \
+        list(snap["cached_order"])
+    ids = torch.tensor(keep, device="cuda")
+    arrs = list(zip(c.pools, out.pools)) + (
+        list(zip(c.scales, out.scales)) if c.quantized else [])
+    for a, b in arrs:
+        assert b.is_cuda and torch.equal(a[ids], b[ids])
+    assert out.allocator._free == c.allocator._free
+    assert list(out.allocator._cached) == list(c.allocator._cached)
+    c.ensure(1, 14)                          # a fresh unhashed page
+    c.pools[0][c.seq_blocks[1][-1]] = 1      # new content on the card
+    delta = c.snapshot(base=snap)
+    assert len(delta["blocks"]) < len(c.snapshot()["blocks"])
+    d = PagedKVCache.restore(delta, base=snap, device="cuda")
+    full = PagedKVCache.restore(c.snapshot(), device="cuda")
+    live = torch.tensor(sorted(int(b) for b in delta["refcount"]),
+                        device="cuda")
+    for a, b in zip(d.pools + (d.scales or []),
+                    full.pools + (full.scales or [])):
+        assert torch.equal(a[live], b[live])
+    n_live = sum(1 for n in snap["refcount"].values() if n > 0)
+    small = PagedKVCache.restore(snap, num_blocks=n_live + 1 + 2,
+                                 device="cuda")
+    assert small.allocator.reclaimed == c.allocator.reclaimed + 1
+    small.check_invariants(deep=True)
+
+
+def test_numeric_guard_fails_a_nan_row_of_a_card_output():
+    """The guard reads one [B] bool per step off a CUDA output: the slot
+    whose row holds a NaN fails FAILED_NUMERIC with its pages
+    quarantined, the other slot steps on."""
+    _need_cuda()
+    from paddle_tpu_torch.inference import PagedServingEngine
+    core = FusedMultiTransformer(32, 4, 64, num_layers=2, device="cuda",
+                                 generator=torch.Generator(
+                                     device="cuda").manual_seed(0))
+    eng = PagedServingEngine(core, 2, 4, 20, numeric_guard=True,
+                             prefix_cache=True)
+    rng = np.random.RandomState(1)
+    for n in (9, 11):
+        eng.submit(rng.randn(n, 32).astype(np.float32))
+    x = torch.zeros(2, 1, 32, device="cuda")
+    for slot in (0, 1):
+        x[slot] = eng.admitted[slot][2]
+    eng.admitted.clear()
+    eng.step(x)
+    out = torch.zeros(2, 1, 32, device="cuda")
+    out[1] = float("nan")
+    stepping = eng.active.copy()
+    eng._guard_numeric(out, stepping)
+    (oc,) = eng.outcomes
+    assert oc.status == "failed_numeric" and "slot 1" in oc.reason
+    assert eng.active[0] and not eng.active[1]
+    eng.check_invariants()
+
+
+def test_injected_nan_leaves_other_rows_bitwise_on_the_card():
+    """FaultInjector's NaN planting writes the scheduled slots' rows on
+    the card and copies the others bitwise; the input stays as it was."""
+    _need_cuda()
+    from paddle_tpu_torch.inference import FaultInjector
+    inj = FaultInjector(nan_at={3: [0, 2]}, draft_nan_at={3: [1]})
+    inj.begin_step(3)
+    x = torch.randn(4, 2, 64, device="cuda")
+    before = x.clone()
+    out = inj.corrupt_hidden(x)
+    assert out.is_cuda and torch.isnan(out[[0, 2]]).all()
+    assert torch.equal(out[[1, 3]], before[[1, 3]])
+    assert torch.equal(x, before)
+    lg = inj.corrupt_draft_logits(torch.randn(4, 100, device="cuda"))
+    assert torch.isnan(lg[1]).all() and not torch.isnan(lg[[0, 2, 3]]).any()
+    assert inj.injected_nan == 2 and inj.injected_draft_nan == 1
+
+
+@pytest.mark.parametrize("tile_kv", [None, 128, 64, 256])
+def test_ragged_kernel_tile_kv_is_the_compiled_span(tile_kv):
+    """``tile_kv`` takes None or the compiled span (128 keys): both
+    launch and agree bitwise; any other value raises naming the span."""
+    _need_cuda()
+    nh, nkv, hd, bs, q_lens, kv_lens, MB, trash, _ = RAGGED["decode"]
+    q, pool, bt, lens = _ragged(3, nh, nkv, hd, bs, q_lens, kv_lens, MB,
+                                trash)
+    if tile_kv in (None, 128):
+        got = tpa.paged_attention_ragged(q, pool, bt, q_lens, lens,
+                                         None, None, tile_kv)
+        assert torch.equal(got, tpa.paged_attention_ragged(
+            q, pool, bt, q_lens, lens))
+    else:
+        with pytest.raises(NotImplementedError, match="SPAN = 128"):
+            tpa.paged_attention_ragged(q, pool, bt, q_lens, lens,
+                                       tile_kv=tile_kv)
