@@ -155,15 +155,34 @@ fails the run:
    step, as the plan predicts; tokens/s printed only). Streams whose
    batching differs from phase 3's (5's) are held to its tokens up to
    their first near-tie, computed here by phase 4's rule;
-20. print the kernels line, the card line and, last, the contract line.
+20. (run after phase 19) durability and observability at the same
+   width: phase 3's traffic with a TraceCollector, a HealthMonitor and
+   a CostLedger attached (phase 3's streams and counts; the ledger's
+   rows, skipped rows and replay waste equal to the engine's counters;
+   the Chrome trace, the cost report and the health report read by
+   tools/trace_report.py, cost_report.py and health_report.py, each
+   exiting 0; step-phase shares, TTFT / TPOT, goodput and alerts
+   printed), then durable crash storms through RecoverableServer
+   (fsync'd journal and snapshots in a temporary directory; a seeded
+   schedule of post_admission, post_prefill, pre_journal and
+   post_journal crashes, each recovered from the files with a fresh
+   collector, monitor and ledger and audited): the float engine (phase
+   3's streams), the quantized engine with the prefix cache (phase 5's)
+   and k=4 with the 6-layer draft plus a mid_spec_round crash (phase
+   11's, hence phase 4's up to its near-tie); every outcome delivered
+   exactly once; snapshot bytes, save, load, replay and recovery
+   seconds and journal records and bytes printed;
+21. print the kernels line, the card line and, last, the contract line.
 Every number printed carries the card's name and power limit; each row
 of the kernels line says in ``timed`` which call it timed and how.
 """
 import argparse
 import gc
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -230,6 +249,9 @@ FULL = dict(vocab=50304, d=1024, layers=24, heads=16, ffn=4096,
             storm_seed=12, storm_steps=40, storm_num_blocks=420,
             storm_draft_oom=(6, 12),
             storm_draft_nan=(9,),
+            # phase 20: rounds between the recovery host's snapshots
+            # (float / quantized runs; the speculative one)
+            durable_every=16, durable_spec_every=8,
             # training: bench.py's Llama-2-7B proxy (bench.py:58-61)
             train_vocab=32000, train_hidden=4096, train_ffn=11008,
             train_heads=32, train_kv_heads=32, train_layers=2,
@@ -1308,7 +1330,8 @@ def phase_spec(torch, device, cfg, tsm, tsm_moe, prompts, toks, first_small,
         eng.check_invariants()
         st = eng.stats
         streams = [done[r] for r in rids]
-        out[label] = dict(ragged=pa.launch_count(), gmm=gg.launch_count())
+        out[label] = dict(ragged=pa.launch_count(), gmm=gg.launch_count(),
+                          streams=streams)
         say(f"{tag} speculative {label}, k {k}: {n} requests x {n_new} "
             f"tokens in "
             f"{secs:.3f} s = {n * n_new / secs:.2f} tokens/s; {rounds} "
@@ -2194,6 +2217,287 @@ def phase_resilience(torch, device, cfg, tsm, tsm8, prompts, qprompts,
             "3's streams before the first near-tie")
     del eng
     gc.collect()
+
+
+# -- phase 20: durability and observability -------------------------------
+def _crash_schedule(seed, windows):
+    """{live round: phase}: each phase of ``windows`` ({phase: (first,
+    last)}) once, at a distinct round drawn from [first, last) with
+    ``seed``. A post_prefill crash fires only in a round that completes
+    a prefill, so its window is the first rounds (a crash before it
+    would shift the live rounds against the engine's)."""
+    rng = np.random.RandomState(seed)
+    out = {}
+    for phase, (first, last) in windows.items():
+        free = [r for r in range(first, last) if r not in out]
+        out[int(free[rng.randint(len(free))])] = phase
+    return out
+
+
+def _report_tool(name, path, tag, say):
+    """``python tools/<name>.py path`` from the checkout; its exit code
+    (its first output line is printed)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = subprocess.run(
+        [sys.executable, os.path.join(root, "tools", name + ".py"), path],
+        capture_output=True, text=True, timeout=300, cwd=root)
+    lines = (out.stdout.strip() or out.stderr.strip()).splitlines()
+    say(f"{tag} {name} on {os.path.basename(path)}: exit {out.returncode}"
+        f"; {lines[0] if lines else ''}")
+    return out.returncode
+
+
+def _spans(col, names, replay=False):
+    """{name: (count, seconds)} of the collector's complete spans of
+    ``names`` (replay-flagged ones only with ``replay``)."""
+    out = {n: [0, 0.0] for n in names}
+    for ev in col.events:
+        if ev.get("ph") == "X" and ev["name"] in out and \
+                bool((ev.get("args") or {}).get("replay")) == replay:
+            out[ev["name"]][0] += 1
+            out[ev["name"]][1] += ev["dur"]
+    return {n: tuple(v) for n, v in out.items()}
+
+
+def phase_observe(torch, device, cfg, tsm, prompts, serve, workdir, tag,
+                  say):
+    """Phase 20.1: phase 3's traffic with a TraceCollector, a
+    HealthMonitor and a CostLedger attached: phase 3's streams and
+    counts, the ledger held exactly to the engine's counters, the three
+    artifacts read by the repo's report tools."""
+    from paddle_tpu_torch.inference import (CostLedger, HealthMonitor,
+                                            TraceCollector)
+    col, mon, led = TraceCollector(), HealthMonitor(), CostLedger()
+    r = phase_serve(torch, device, cfg, tsm, prompts, tag, say,
+                    "observed serving (collector, monitor, ledger)",
+                    cfg["num_blocks"], collector=col, monitor=mon,
+                    ledger=led)
+    eng = r["engine"].engine
+    require(r["streams"] == serve["streams"],
+            "observed serving left phase 3's streams")
+    require(r["counts"] == serve["counts"], f"observed serving scheduled "
+            f"{r['counts']}, phase 3 {serve['counts']}")
+    st, t = eng.prefill_stats, led.totals
+    served = sum(tn.stats.tokens_served for tn in eng.tenants.values())
+    first = sum(len(p) for p in prompts)
+    skipped = led.prefix_saved_tokens + led.replay_saved_tokens
+    cons = led.conservation()
+    say(f"{tag} observed ledger: rows {t.rows} (engine: {st.prefill_tokens}"
+        f" prefill + {served} decode), replay waste {t.waste_rows['replay']}"
+        f" rows (engine: {st.prefill_tokens} - {first} first-prefill rows,"
+        f" {r['counts']['preemptions']} preemptions), skipped {skipped} "
+        f"(engine {eng.prefix_stats.tokens_skipped}); goodput fraction "
+        f"{led.goodput_fraction()}, FLOPs {t.flops}, pending "
+        f"{led.pending_rows}, conservation {cons['ok']}")
+    require(t.rows == st.prefill_tokens + served,
+            "the ledger's rows differ from the engine's computed rows")
+    require(skipped == eng.prefix_stats.tokens_skipped,
+            "the ledger's skipped rows differ from the engine's")
+    require(t.waste_rows["replay"] == st.prefill_tokens - first > 0,
+            "the ledger's replay waste differs from the preemptions' "
+            "recomputed rows")
+    require(cons["ok"] and led.pending_rows == 0 and
+            t.goodput_rows == first + served, "the ledger does not "
+            "balance")
+    steps = _spans(col, ("verify",))["verify"]
+    spans = _spans(col, ("spec_round", "draft_roll", "verify",
+                         "sample_verify", "prefill", "bookkeeping",
+                         "model", "admission"))
+    total = spans.pop("spec_round")[1]
+    shares = {n: round(v[1] / total, 4) for n, v in spans.items()}
+    summ = col.request_summary()["overall"]
+    lat = {f"{m}_{q}": round(summ[m][q] * 1e3, 3)
+           for m in ("ttft_s", "tpot_s") for q in ("p50", "p99")}
+    alerts = [(a.step, a.kind) for a in mon.alerts]
+    say(f"{tag} observed round phases (share of {steps[0]} rounds, "
+        f"{total:.3f} s host clock; verify = the engine step, whose "
+        f"prefill / bookkeeping / model / admission phases follow; model "
+        f"= launch time, the device time lands at the first readback, "
+        f"in sample_verify): {shares}")
+    say(f"{tag} observed requests: {summ['requests']}, latency ms {lat}; "
+        f"alerts {alerts}; health {mon.report().verdict}; "
+        f"{len(prompts) * cfg['new_tokens'] / r['secs']:.2f} tokens/s "
+        f"observed against phase 3's "
+        f"{len(prompts) * cfg['new_tokens'] / serve['secs']:.2f} (printed "
+        f"only)")
+    require(summ["requests"] == len(prompts) and steps[0] == r["counts"][
+        "rounds"], "the collector missed requests or steps")
+    paths = {"trace_report": os.path.join(workdir, "serve.trace.json"),
+             "cost_report": os.path.join(workdir, "cost.json"),
+             "health_report": os.path.join(workdir, "health.json")}
+    sizes = (col.save_chrome_trace(paths["trace_report"]),
+             led.save(paths["cost_report"]),
+             mon.save(paths["health_report"]))
+    say(f"{tag} observed artifacts: trace {sizes[0]} B, cost {sizes[1]} "
+        f"B, health {sizes[2]} B")
+    for name, path in paths.items():
+        require(_report_tool(name, path, tag, say) == 0,
+                f"tools/{name}.py refused the port's artifact")
+    del r
+    gc.collect()
+
+
+def _durable(torch, device, label, model, draft, k, prompts, n_new,
+             engine_kw, crash_at, snapshot_every, workdir, tag, say,
+             work=None):
+    """Serve ``prompts`` through a RecoverableServer (fsync'd journal,
+    files under ``workdir``) with ``CrashInjector(crash_at)``; after each
+    EngineCrash recover from the files with a fresh collector, monitor
+    and ledger (``work()``: the ledger's WorkModel) and audit. Returns
+    the streams; fails unless every crash fired and every outcome was
+    delivered exactly once."""
+    from paddle_tpu_torch.inference import (CostLedger, CrashInjector,
+                                            EngineCrash, HealthMonitor,
+                                            RecoverableServer,
+                                            SpeculativeEngine,
+                                            TraceCollector, load_snapshot)
+
+    def observers():
+        return dict(collector=TraceCollector(), monitor=HealthMonitor(),
+                    ledger=CostLedger(None if work is None else work()))
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+
+    jp = os.path.join(workdir, label + ".wal")
+    sp = os.path.join(workdir, label + ".ckpt")
+    inj = CrashInjector(crash_at=dict(crash_at))
+    srv = RecoverableServer(
+        SpeculativeEngine(model, draft, k=k, injector=inj, **engine_kw,
+                          **observers()),
+        journal_path=jp, snapshot_path=sp, snapshot_every=snapshot_every,
+        sync=True)
+    t0 = time.perf_counter()
+    rids = [srv.submit(p) for p in prompts]
+    done, delivered, rounds = {}, [], 0
+    saves, loads, recovers, replays = [], [], [], []
+    snap_bytes, rep_rounds, rep_tokens = [], 0, 0
+
+    def harvest(s):
+        for ev in s.engine.collector.events:
+            if ev.get("ph") == "X" and ev["name"] == "snapshot" and \
+                    not ev["args"].get("replay"):
+                saves.append(ev["dur"])
+                snap_bytes.append(ev["args"]["bytes"])
+
+    while len(done) < len(rids):
+        rounds += 1
+        require(rounds < 100 * len(rids), f"{label}: did not converge")
+        try:
+            srv.step()
+            delivered += srv.drain_outcomes()
+            for r in rids:
+                if r not in done and len(srv.generated(r)) >= n_new:
+                    done[r] = srv.generated(r)[:n_new]
+                    srv.release(r)
+        except EngineCrash:
+            harvest(srv)
+            del srv
+            gc.collect()
+            sync()
+            t1 = time.perf_counter()
+            blob = load_snapshot(sp)
+            loads.append(time.perf_counter() - t1)
+            del blob
+            t1 = time.perf_counter()
+            srv = RecoverableServer.recover(
+                model, draft, journal_path=jp, snapshot_path=sp,
+                injector=inj, sync=True, **observers())
+            sync()
+            recovers.append(time.perf_counter() - t1)
+            srv.check_invariants()
+            replays.append(_spans(srv.engine.collector, ("verify",),
+                                  replay=True)["verify"][1])
+            rep_rounds += srv.replayed_rounds
+            rep_tokens += srv.replayed_tokens
+    delivered += srv.drain_outcomes()
+    sync()
+    secs = time.perf_counter() - t0
+    harvest(srv)
+    seq, jbytes = srv.journal.seq, os.path.getsize(jp)
+    srv.check_invariants()
+    led_ok = srv.engine.ledger.conservation()["ok"]
+    srv.close()
+    got = sorted(oc.rid for oc in delivered)
+    ms = lambda v: round(1e3 * max(v), 1) if v else None  # noqa: E731
+    say(f"{tag} durable {label}: {len(rids)} requests x {n_new} tokens in "
+        f"{secs:.3f} s ({rounds} live rounds incl. crashed ones); "
+        f"{inj.crashes} crashes at {sorted(crash_at.items())}, "
+        f"{len(recovers)} recoveries; snapshots {len(saves)} (+ snapshot "
+        f"0), file bytes max {max(snap_bytes) if snap_bytes else 0}, save "
+        f"s mean {np.mean(saves) if saves else 0:.3f} (max ms "
+        f"{ms(saves)}); load s {[round(v, 3) for v in loads]}, replay s "
+        f"{[round(v, 3) for v in replays]}, whole recovery s "
+        f"{[round(v, 3) for v in recovers]}; replayed {rep_rounds} rounds "
+        f"/ {rep_tokens} tokens; journal {seq} records appended, "
+        f"{jbytes} B on disk at the end (compacted at each snapshot)")
+    require(inj.crashes == len(crash_at) == len(recovers),
+            f"{label}: {inj.crashes} of {len(crash_at)} crashes fired")
+    require(got == sorted(rids) and all(oc.status == "finished"
+                                        for oc in delivered),
+            f"{label}: outcomes not delivered exactly once ({got})")
+    require(led_ok, f"{label}: the last incarnation's ledger does not "
+            "balance")
+    return [done[r] for r in rids]
+
+
+def phase_durability(torch, device, cfg, tsm, tsm8, prompts, qprompts,
+                     serve, qserve, spec_streams, toks, first_small, seed,
+                     tag, say):
+    """Phase 20: the passive observability run, then durable crash storms
+    through RecoverableServer on the float engine, the quantized engine
+    (int8 weights, int8 KV, prefix cache) and k=4 speculation with the
+    6-layer draft; each ends with the uninterrupted run's streams."""
+    from paddle_tpu_torch.inference import PagedKVCache, WorkModel
+    base = dict(max_batch=cfg["max_batch"], block_size=cfg["block_size"],
+                chunk_tokens=cfg["chunk_tokens"],
+                prefill_token_budget=cfg["budget"])
+    with tempfile.TemporaryDirectory() as workdir:
+        phase_observe(torch, device, cfg, tsm, prompts, serve, workdir,
+                      tag, say)
+        # the rounds that complete a prefill: 1-3 (all three runs), then
+        # 5-8 (float) and 4-11 (quantized) of phase 3's / phase 5's runs
+        later = (4, 40)
+        windows = dict(post_prefill=(2, 4), post_admission=later,
+                       pre_journal=later, post_journal=later)
+        crash_at = _crash_schedule(seed + 20, windows)
+        got = _durable(torch, device, "float", tsm, None, 0, prompts,
+                       cfg["new_tokens"],
+                       dict(base, num_blocks=cfg["num_blocks"]), crash_at,
+                       cfg["durable_every"], workdir, tag, say)
+        require(got == serve["streams"], "the float crash storm left "
+                "phase 3's streams")
+        # the w8a16 path streams 1-byte weights: the ledger's work model
+        # says so (WorkModel.for_model reads a float ffn1.weight)
+        core = tsm8.core
+        kvb = PagedKVCache.for_model(core, cfg["block_size"], 2, max_seqs=1,
+                                     dtype="int8").kv_bytes_per_token()
+        ffn = int(core.layers[0].ffn1.weight_int8.shape[1])
+
+        def work():
+            return WorkModel(core.num_layers, core.embed_dim, ffn,
+                             kv_token_bytes=kvb, weight_itemsize=1)
+        got = _durable(torch, device, "quantized", tsm8, None, 0, qprompts,
+                       cfg["new_tokens"],
+                       dict(base, num_blocks=cfg["q_num_blocks"],
+                            kv_dtype="int8", prefix_cache=True),
+                       _crash_schedule(seed + 21, windows),
+                       cfg["durable_every"], workdir, tag, say, work=work)
+        require(got == qserve["streams"], "the quantized crash storm left "
+                "phase 5's streams")
+        nd, n = cfg["draft_layers"], cfg["spec_requests"]
+        got = _durable(torch, device, "speculative", tsm,
+                       tsm.truncated_draft(nd), cfg["spec_k"], prompts[:n],
+                       cfg["new_tokens"],
+                       dict(base, num_blocks=cfg["num_blocks"]),
+                       _crash_schedule(seed + 22, dict(
+                           windows, mid_spec_round=later)),
+                       cfg["durable_spec_every"], workdir, tag, say)
+        require(got == spec_streams, "the speculative crash storm left "
+                "phase 11's streams")
+        require(not _upto(got, toks, first_small), "the speculative crash "
+                "storm left phase 4's tokens before a near-tie")
 
 
 def phase_profile(torch, device, cfg, tsm, tsm_moe, tag, say):
@@ -3239,12 +3543,18 @@ def run(device, cfg, seed=0, say=print, card=None):
     gc.collect()
     phase_moe_vs_fold(torch, device, cfg, tsm_moe, tag, say)
     phase_profile(torch, device, cfg, tsm, tsm_moe, tag, say)
-    phase_spec(torch, device, cfg, tsm, tsm_moe, prompts, toks, first_small,
-               tag, say)
+    spec = phase_spec(torch, device, cfg, tsm, tsm_moe, prompts, toks,
+                      first_small, tag, say)
     phase_parallel(torch, device, cfg, tsm, prompts, toks, first_small, tag,
                    say)
     phase_resilience(torch, device, cfg, tsm, tsm8, prompts, qprompts,
                      serve, qserve, toks, first_small, tag, say)
+    phase_durability(torch, device, cfg, tsm, tsm8, prompts, qprompts,
+                     serve, qserve,
+                     spec[f"dense, {cfg['draft_layers']}-layer truncated "
+                          f"draft"]["streams"],
+                     toks[:cfg["spec_requests"]], first_small, seed, tag,
+                     say)
     del tsm8
     rows["gmm"]["launches"] = mserve["launches"]["gmm"]
     rows["paged_attention_ragged"]["launches"] = \

@@ -248,8 +248,10 @@ class CrashInjector(FaultInjector):
       post_admission  an admission pass completed
       post_prefill    a prefill completed and its admitted event fired
       mid_spec_round  between the speculative draft roll and the verify
-      pre_journal     around the recovery host's journal append (the
-      post_journal    journal comes with the recovery host)
+      pre_journal     after the engine round, before RecoverableServer
+                      journals its emissions (the round replays)
+      post_journal    after the journal append, before the caller sees
+                      the emissions (replay must not re-emit)
 
     ``arm(False)`` disarms the crash points; the inherited fault
     schedules stay live, keyed by the engine step clock a snapshot

@@ -61,8 +61,15 @@ limit is the BLOCK BUDGET, not slots * max_len:
     in the other. ``export_request_slice``/``import_slice`` move a
     request's finished prefix pages between pools.
 
-The trace collector, the health monitor and the cost ledger are not
-ported (their parameters raise for any value but None).
+  * telemetry (``collector=``, ``telemetry.TraceCollector``), health
+    monitoring (``monitor=``, ``monitor.HealthMonitor``) and cost
+    accounting (``ledger=``, ``accounting.CostLedger``): opt-in and
+    passive. With none installed every hook site is one ``is not None``
+    check (no clock read, no allocation); none of them is part of a
+    snapshot, and ``restore`` wires the caller's fresh. The ledger binds
+    before the monitor and the monitor binds last. The collector stamps
+    the host clock: a step's ``model`` phase records launch time, and the
+    device time lands at the first readback (telemetry.py's docstring).
 """
 from __future__ import annotations
 
@@ -73,7 +80,6 @@ from typing import Deque, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..framework.unported import require_defaults
 from .paged_cache import BlockOOM, PagedKVCache, chain_block_hashes
 from .resilience import RequestOutcome
 from .serving import (ParallelStats, PrefillStats, PrefixCacheStats,
@@ -353,11 +359,6 @@ class PagedServingEngine:
                  collector=None, monitor=None, ledger=None,
                  ragged_step=True, tile_q: Optional[int] = None,
                  tile_kv: Optional[int] = None):
-        # not ported: the trace collector, the health monitor and the
-        # cost ledger
-        require_defaults("PagedServingEngine",
-                         collector=(collector, None),
-                         monitor=(monitor, None), ledger=(ledger, None))
         self.model = model
         # token-budget mode: True and "force" plan the step's prefill
         # chunks and launch them packed with the decode rows (one ragged
@@ -390,6 +391,11 @@ class PagedServingEngine:
         self.outcomes: List[RequestOutcome] = []
         self._step_count = 0
         self._has_deadlines = False
+        # opt-in, passive observers: never consulted for control flow,
+        # never part of a snapshot (restore wires the caller's fresh)
+        self.collector = collector
+        self.ledger = ledger
+        self.monitor = monitor
         # the unified metric surface: live sources read at export time
         self.registry = MetricsRegistry()
         self.registry.attach("prefix_cache", self.prefix_stats)
@@ -451,6 +457,16 @@ class PagedServingEngine:
         self.admitted: List[Tuple[int, int, torch.Tensor]] = []
         self.finished: List[Tuple[int, int, int]] = []
         self.preempted: List[int] = []
+        # the ledger binds before the monitor, so the monitor's baseline
+        # registry snapshot already carries the work.* keys; the monitor
+        # binds last (its baseline reads the fully built engine's
+        # sources) and rebases at the current step
+        if ledger is not None:
+            ledger.bind(self.registry, model=model,
+                        kv_token_bytes=self.cache.kv_bytes_per_token())
+        if monitor is not None:
+            monitor.bind(self.registry, collector=collector)
+            monitor.rebase(self._step_count)
 
     # -- introspection ------------------------------------------------
     @property
@@ -583,13 +599,16 @@ class PagedServingEngine:
             ten.vtime = self._vclock
 
     def tenant_report(self) -> Dict[str, dict]:
-        """Per-tenant config, live occupancy and queue, and stats."""
+        """Per-tenant config, live occupancy and queue, and stats (and
+        the ledger's cost bill when a ledger is installed)."""
         active: Dict[str, int] = {}
         for s in np.flatnonzero(self.active | self.prefilling):
             req = self._requests[int(s)]
             if req is not None:
                 active[req.tenant] = active.get(req.tenant, 0) + 1
-        return {tid: {
+        cost = (self.ledger.tenant_cost()
+                if self.ledger is not None else None)
+        return {tid: dict({
             "quota_blocks": t.quota_blocks,
             "reserved_blocks": t.reserved_blocks,
             "weight": t.weight,
@@ -598,7 +617,8 @@ class PagedServingEngine:
             "active": active.get(tid, 0),
             "queued": t.queued,
             "stats": t.stats.as_dict(),
-        } for tid, t in self.tenants.items()}
+        }, **({"cost": cost[tid]} if cost and tid in cost else {}))
+            for tid, t in self.tenants.items()}
 
     # -- admission ----------------------------------------------------
     def submit(self, prompt, *, max_preemptions: Optional[int] = None,
@@ -658,6 +678,11 @@ class PagedServingEngine:
             req.deadline_steps = int(deadline_steps)
         if deadline_s is not None:
             req.deadline_time = time.monotonic() + float(deadline_s)
+        if self.collector is not None:
+            self.collector.on_submit(req.rid, ten.tid, arr.shape[0],
+                                     gid=req.gid)
+        if self.ledger is not None:
+            self.ledger.on_submit(req.rid, ten.tid, arr.shape[0])
         reject = self._admission_health(req, ten)
         if reject:
             self._record(req, RequestOutcome.REJECTED_ADMISSION, reject)
@@ -778,6 +803,10 @@ class PagedServingEngine:
                 try:
                     self._prefill(req)
                 except BlockOOM as e:
+                    if self.collector is not None:
+                        self.collector.on_event("block_oom", dict(
+                            e.details, rid=req.rid, tenant=req.tenant,
+                            step=self._step_count))
                     # the budget check said the prompt fits (an injected
                     # fault): un-admit and retry on a later pass,
                     # against the retry budget
@@ -816,6 +845,9 @@ class PagedServingEngine:
             self.prefix_stats.hit_blocks += n_cached
         P = max(0, min(n_cached * bs, T - MIN_PREFILL_SUFFIX_ROWS)) \
             if n_cached else 0
+        if self.ledger is not None and P:
+            # rows [0, P) adopted, never computed
+            self.ledger.on_prefill_skip(req.rid, P)
         self._prefills[slot] = {"pos": P, "start": P,
                                 "n_cached": n_cached, "hashes": hashes}
         self.prefilling[slot] = True
@@ -826,6 +858,9 @@ class PagedServingEngine:
         self._tenant_of(req).stats.admitted += 1
         if req.preemptions > 0:
             self.resilience_stats.retried += 1
+        if self.collector is not None:
+            self.collector.on_admitted(req.rid, slot,
+                                       retry=req.preemptions > 0)
         if req.group_n > 1 and self.prefill_token_budget is not None:
             # the prompt streams over many steps while admission goes
             # on: hold the branch slots now (the admission gate saw
@@ -858,6 +893,9 @@ class PagedServingEngine:
         self.lens[slot] = len(req)
         self.active[slot] = True
         self.admitted.append((req.rid, slot, last_hidden))
+        if self.collector is not None:
+            # the caller samples the first token from this hidden
+            self.collector.on_first_token(req.rid)
         self._fork_group(slot, last_hidden)
         self._crash("post_prefill")
 
@@ -867,8 +905,10 @@ class PagedServingEngine:
         then the ``post_prefill`` crash point."""
         st = self._prefills.pop(slot)
         self._register_prefill(slot, st)
-        self.admitted.append((self._requests[slot].rid, slot,
-                              last_hidden))
+        rid = self._requests[slot].rid
+        self.admitted.append((rid, slot, last_hidden))
+        if self.collector is not None:
+            self.collector.on_first_token(rid)
         self._fork_group(slot, last_hidden)
         self._crash("post_prefill")
 
@@ -898,6 +938,8 @@ class PagedServingEngine:
             self.groups.add_branch(req.gid, breq.rid)
             self._attach_fork(slot, bslot, breq, T)
             self.admitted.append((breq.rid, bslot, last_hidden))
+            if self.collector is not None:
+                self.collector.on_first_token(breq.rid)
         g["forked"] = True
         # the lead is a normal slot from here: a later preemption
         # re-prefills it alone
@@ -920,7 +962,15 @@ class PagedServingEngine:
                      length: int) -> None:
         """Seat ``breq`` in ``bslot`` over ``src``'s pages up to
         ``length`` tokens (charged to the branch's tenant from the first
-        reference) and count the fork."""
+        reference) and count the fork. The ledger's ``on_fork`` raises the
+        branch's high-water mark to the fork length without pending
+        rows: the shared prefill is priced once, under the lead."""
+        if self.collector is not None:
+            self.collector.on_submit(breq.rid, breq.tenant, length,
+                                     gid=breq.gid)
+        if self.ledger is not None:
+            self.ledger.on_submit(breq.rid, breq.tenant, length)
+            self.ledger.on_fork(breq.rid, length)
         self.cache.set_seq_tenant(bslot, breq.tenant)
         self.cache.fork(src, bslot, length)
         self._requests[bslot] = breq
@@ -930,6 +980,8 @@ class PagedServingEngine:
         self.lens[bslot] = length
         self.active[bslot] = True
         self._tenant_of(breq).stats.admitted += 1
+        if self.collector is not None:
+            self.collector.on_admitted(breq.rid, bslot, retry=False)
         self.parallel_stats.branches += 1
         self.parallel_stats.prefill_tokens_saved += length
         self.parallel_stats.shared_blocks += \
@@ -997,18 +1049,55 @@ class PagedServingEngine:
                 last[0] = done
         return register
 
+    def _chunk_hook(self, slot: int, st: dict, req: PagedRequest):
+        """``on_chunk`` for engine prefills: the prefix registrar
+        composed with the collector's chunk event and the ledger's
+        [prev, pos) row span, built only when a consumer exists."""
+        reg = self._chunk_registrar(slot, st)
+        col = self.collector
+        led = self.ledger
+        if col is None and led is None:
+            return reg
+        rid = req.rid
+        prev = [st["pos"]]
+
+        def hook(pos: int) -> None:
+            if reg is not None:
+                reg(pos)
+            if led is not None:
+                led.on_prefill(rid, prev[0], pos)
+                prev[0] = pos
+            if col is not None:
+                col.on_prefill_chunk(rid, pos)
+        return hook
+
     def _prefill(self, req: PagedRequest) -> None:
-        """Synchronous admission: stream every chunk now."""
+        """Synchronous admission: stream every chunk now. It runs
+        outside the step timeline (at submit), so it records its own
+        ``prefill`` span, closed flagged when a fault unwinds it."""
         slot = self._start_prefill(req)
         st = self._prefills[slot]
-        _, h = chunked_prefill(
-            self.model, self.cache, slot, req.history,
-            pos=st["pos"], target=len(req), chunk_tokens=self.chunk_tokens,
-            start_block=st["n_cached"],
-            write_start=st["n_cached"] * self.cache.block_size,
-            stats=self.prefill_stats,
-            on_chunk=self._chunk_registrar(slot, st))
-        self._complete_prefill(slot, h)
+        col = self.collector
+        depth = col.span_depth if col is not None else 0
+        if col is not None:
+            col.span_begin("prefill", rid=req.rid,
+                           tokens=len(req) - st["pos"])
+        try:
+            _, h = chunked_prefill(
+                self.model, self.cache, slot, req.history,
+                pos=st["pos"], target=len(req),
+                chunk_tokens=self.chunk_tokens,
+                start_block=st["n_cached"],
+                write_start=st["n_cached"] * self.cache.block_size,
+                stats=self.prefill_stats,
+                on_chunk=self._chunk_hook(slot, st, req))
+            self._complete_prefill(slot, h)
+        except BaseException:
+            if col is not None:
+                col.span_unwind(depth, aborted=True)
+            raise
+        if col is not None:
+            col.span_unwind(depth)
 
     def _next_prefill_chunk(self, budget: int):
         """The oldest pending prefill's next chunk under ``budget``,
@@ -1060,7 +1149,7 @@ class PagedServingEngine:
                 start_block=st["n_cached"],
                 write_start=st["n_cached"] * self.cache.block_size,
                 stats=self.prefill_stats,
-                on_chunk=self._chunk_registrar(slot, st))
+                on_chunk=self._chunk_hook(slot, st, req))
             st["pos"] = pos
             budget -= c
             ran = True
@@ -1098,7 +1187,7 @@ class PagedServingEngine:
                        "to": st["pos"],
                        "ws": st["n_cached"] * self.cache.block_size,
                        "bounds": [],
-                       "hook": self._chunk_registrar(slot, st),
+                       "hook": self._chunk_hook(slot, st, req),
                        "complete": False}
                 plan.append(seg)
             st["pos"] += c
@@ -1200,6 +1289,19 @@ class PagedServingEngine:
             st.cancelled += 1
             ts.cancelled += 1
         self.groups.on_terminal(req.rid)
+        col = self.collector
+        if self.ledger is not None:
+            # the verdict resolves the request's pending work (goodput on
+            # FINISHED, waste of the failure's cause otherwise)
+            self.ledger.on_outcome(req.rid, status)
+        if col is not None:
+            col.on_outcome(req.rid, status, self._step_count,
+                           reason=reason)
+            if status == RequestOutcome.FAILED_OOM:
+                # every shed carries who held the pool when it fired
+                col.on_event("oom_shed", dict(
+                    self.cache.pool_occupancy(), rid=req.rid,
+                    tenant=req.tenant, step=self._step_count))
 
     def _fail(self, req: PagedRequest, status: str, reason: str) -> None:
         """Terminal failure of ONE request: free its pages (quarantined
@@ -1320,6 +1422,8 @@ class PagedServingEngine:
         self._tenant_of(req).stats.preemptions += 1
         self._requeue_preempted(req)
         self.preempted.append(req.rid)
+        if self.collector is not None:
+            self.collector.on_preempted(req.rid)
 
     def _held_slots(self) -> List[int]:
         return [int(s) for s in np.flatnonzero(self.active | self.prefilling)
@@ -1402,6 +1506,10 @@ class PagedServingEngine:
                                   write_from=write_from)
                 return True
             except BlockOOM as e:
+                if self.collector is not None:
+                    self.collector.on_event("block_oom", dict(
+                        e.details, rid=req.rid, tenant=req.tenant,
+                        step=self._step_count))
                 cands = self._oom_victims(req)
                 if not any(s != slot for s in cands):
                     self._fail(req, RequestOutcome.FAILED_OOM,
@@ -1482,12 +1590,19 @@ class PagedServingEngine:
             raise ValueError(
                 f"rollback of slot {slot} to {new_len} outside "
                 f"[1, {int(self.lens[slot])}]")
+        old_len = int(self.lens[slot])
         # buffered inputs must reach the history BEFORE trimming it
         self._flush_history()
         self._requests[slot].truncate_history(new_len,
                                               self.cache.block_size)
         self.cache.truncate(slot, new_len)
         self.lens[slot] = new_len
+        if old_len > new_len:
+            rid = self._requests[slot].rid
+            if self.collector is not None:
+                self.collector.on_rollback(rid, old_len - new_len)
+            if self.ledger is not None:
+                self.ledger.on_rollback(rid, new_len, old_len)
 
     # -- resilience ---------------------------------------------------
     def _crash(self, phase: str) -> None:
@@ -1496,11 +1611,12 @@ class PagedServingEngine:
         if self.injector is not None:
             self.injector.crash_point(phase)
 
-    def _begin_step(self) -> bool:
+    def _begin_step(self, kind: str = "step") -> bool:
         """Step-top bookkeeping: advance the step clock (the injector's
         too, then the ``begin`` crash point), enforce deadlines, refresh
-        the tenants' blocks_held. Returns whether the engine was empty
-        on entry."""
+        the tenants' blocks_held, and open the collector's step span
+        last (a step that dies at its top leaves no dangling span).
+        Returns whether the engine was empty on entry."""
         self._step_count += 1
         if self.injector is not None:
             self.injector.begin_step(self._step_count)
@@ -1510,7 +1626,47 @@ class PagedServingEngine:
         self._check_deadlines()
         for tid, ten in self.tenants.items():
             ten.stats.blocks_held = self.cache.tenant_charge(tid)
+        if self.collector is not None:
+            self.collector.begin_step(self._step_count, kind)
         return idle
+
+    def _end_step_telemetry(self, aborted: bool = False) -> None:
+        """Close the step span with the per-step gauges (pool tiers,
+        queue depths, per-tenant charge), bill the step in the ledger
+        and hand it to the monitor. Called from the step's ``finally``:
+        a step torn down by a fault or an injected crash closes flagged
+        (``aborted``), bills nothing and is not sampled."""
+        col = self.collector
+        charges = None
+        if not aborted and (col is not None or self.ledger is not None):
+            # one per-tenant charge walk for the gauge track and the
+            # block-step bill; every registered tenant, zeros included
+            charges = {tid: self.cache.tenant_charge(tid)
+                       for tid in self.tenants}
+        if col is not None:
+            if aborted:
+                col.end_step(aborted=True)
+            else:
+                occ = self.cache.pool_occupancy(tiers_only=True)
+                col.end_step({
+                    "pool": {"active": occ["active"],
+                             "cached_free": occ["cached_free"],
+                             "free": occ["free"]},
+                    "queue": self._queue_gauges(),
+                    "tenant_blocks": charges,
+                })
+        if self.ledger is not None:
+            if aborted:
+                self.ledger.on_step_abort()
+            else:
+                # the collector's registry lets the ledger pair the
+                # step's work with its measured model-span duration
+                self.ledger.on_step(
+                    self._step_count, charges,
+                    span_src=(col.registry if col is not None
+                              else None))
+        if self.monitor is not None and not aborted:
+            self.monitor.on_step(self._step_count)
 
     def _count_tokens_served(self, stepping: np.ndarray, n: int) -> None:
         for slot in np.flatnonzero(stepping):
@@ -1525,25 +1681,39 @@ class PagedServingEngine:
             self.prefill_token_budget is not None
 
     def _run_step(self, x, L: int, retire: bool):
-        idle = self._begin_step()
-        if not isinstance(x, torch.Tensor):
-            x = torch.from_numpy(np.asarray(x, np.float32))
-        x = x.to(self.cache.device)
-        if not self._ragged_active():
-            return self._step_body(idle, x, L, retire)
-        self._ragged_plan = []
+        idle = self._begin_step(kind="step" if retire else "verify")
+        ok = False
         try:
-            return self._step_body(idle, x, L, retire)
+            if not isinstance(x, torch.Tensor):
+                x = torch.from_numpy(np.asarray(x, np.float32))
+            x = x.to(self.cache.device)
+            if not self._ragged_active():
+                out = self._step_body(idle, x, L, retire)
+            else:
+                self._ragged_plan = []
+                try:
+                    out = self._step_body(idle, x, L, retire)
+                finally:
+                    self._ragged_plan = None
+            ok = True
+            return out
         finally:
-            self._ragged_plan = None
+            # balanced even when an injected crash unwinds the step; a
+            # no-op (no clock read) with nothing installed
+            self._end_step_telemetry(aborted=not ok)
 
     def _step_body(self, idle: bool, x: torch.Tensor, L: int,
                    retire: bool):
         plan = self._ragged_plan
+        col = self.collector
+        if col is not None:
+            col.phase("prefill")
         if plan is None:
             ran_prefill, fresh = self._advance_prefills()
         else:
             ran_prefill, fresh = self._plan_prefills()
+        if col is not None:
+            col.phase("bookkeeping")
         if self.num_active == 0:
             if ran_prefill or self.num_prefilling > 0 \
                     or self._queue_len or not idle:
@@ -1600,6 +1770,10 @@ class PagedServingEngine:
         # tables so the decode append cannot touch their pages
         masked = self.prefilling | (self.active & ~stepping)
         self.cache.set_decode_mask(masked if masked.any() else None)
+        if col is not None:
+            # launch time only: the device time lands at the first
+            # readback (the numeric guard below, or the caller's)
+            col.phase("model")
         if plan is not None:
             out = self._flush_ragged_plan(x=x, L=L)
         else:
@@ -1608,8 +1782,19 @@ class PagedServingEngine:
                                     time_step=self.lens.copy())
         if self.injector is not None:
             out = self.injector.corrupt_hidden(out)
+        if col is not None:
+            col.phase("bookkeeping")
         self.lens[stepping] += L
         self._count_tokens_served(stepping, L)
+        if col is not None or self.ledger is not None:
+            rows = [(self._requests[int(s)].rid, int(self.lens[s]) - L)
+                    for s in np.flatnonzero(stepping)
+                    if self._requests[int(s)] is not None]
+            if col is not None:
+                col.on_decode([r for r, _ in rows], L)
+            if self.ledger is not None:
+                # L consumed rows per slot at positions [len-L, len)
+                self.ledger.on_decode(rows, L)
         self.prefill_stats.decode_steps += 1
         if ran_prefill:
             self.prefill_stats.mixed_steps += 1
@@ -1617,6 +1802,8 @@ class PagedServingEngine:
             self.prefill_stats.peak_blocks, self.cache.peak_blocks_used)
         if self.numeric_guard:
             self._guard_numeric(out, stepping)
+        if col is not None:
+            col.phase("admission")
         self._try_admit()
         return out
 
@@ -1865,7 +2052,10 @@ class PagedServingEngine:
         around the caller's model, on the model's device. ``num_blocks``
         rehomes the pool into another size (``PagedKVCache.restore``).
         The injector is wired fresh; its schedules stay keyed by the
-        restored step clock. Ends with the engine and deep pool audit."""
+        restored step clock. The collector, monitor and ledger are the
+        caller's, wired fresh (a snapshot carries none of their state);
+        the monitor rebases at the restored step. Ends with the engine
+        and deep pool audit."""
         cfg = snap["config"]
         nb = cfg["num_blocks"] if num_blocks is None else int(num_blocks)
         # a 2-block placeholder pool: the restored one replaces it below,
@@ -1955,4 +2145,9 @@ class PagedServingEngine:
         eng.preempted = list(ev["preempted"])
         eng.outcomes = [RequestOutcome(**oc) for oc in snap["outcomes"]]
         eng.check_invariants()
+        if monitor is not None:
+            # monitor state is derived: re-baseline its interval deltas
+            # at the restored step (a no-op for a monitor that lived
+            # through the crash)
+            monitor.rebase(eng._step_count)
         return eng

@@ -38,8 +38,12 @@ paddle_tpu/inference/speculative.py).
   last token is pending; ``export_slice``/``import_slice`` move its
   finished prefix pages.
 
-Not ported yet: telemetry spans, the health monitor and the cost ledger
-(their parameters raise for any value but None).
+* Observability: ``collector``, ``monitor`` and ``ledger`` ride the
+  wrapped engine. A round records a ``spec_round`` span around
+  ``draft_roll``, the verify step and ``sample_verify``; the ledger
+  prices the draft pool's rows with the draft model's own work model
+  (``bind_draft``) and resolves rejected and OOM-rolled draft rows as
+  waste.
 """
 from __future__ import annotations
 
@@ -48,7 +52,6 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..framework.unported import require_defaults
 from .paged_cache import BlockOOM, PagedKVCache
 from .resilience import RequestOutcome
 from .scheduler import PagedServingEngine, chunked_prefill
@@ -314,11 +317,6 @@ class SpeculativeEngine:
                  numeric_guard: Optional[bool] = None,
                  tenants: Optional[dict] = None,
                  collector=None, monitor=None, ledger=None):
-        # the trace collector, health monitor and cost ledger are not
-        # ported
-        require_defaults("SpeculativeEngine",
-                         collector=(collector, None),
-                         monitor=(monitor, None), ledger=(ledger, None))
         if k < 0:
             raise ValueError("k must be >= 0")
         self.target = target
@@ -337,7 +335,8 @@ class SpeculativeEngine:
             chunk_tokens=chunk_tokens,
             prefill_token_budget=prefill_token_budget,
             injector=injector, max_preemptions=max_preemptions,
-            numeric_guard=numeric_guard, tenants=tenants)
+            numeric_guard=numeric_guard, tenants=tenants,
+            collector=collector, monitor=monitor, ledger=ledger)
         self.max_batch = self.engine.max_batch
         self.stats = SpecDecodeStats()
         self.engine.registry.attach("spec", self.stats)
@@ -366,6 +365,10 @@ class SpeculativeEngine:
             if injector is not None:
                 self.draft_cache.allocator.fault_hook = \
                     lambda n: injector.on_alloc("draft", n)
+            if ledger is not None:
+                # the draft pool's rows are priced by the draft model's
+                # own work model
+                ledger.bind_draft(self.draft.core)
 
     # -- submission / events ------------------------------------------
     def submit(self, token_ids, *,
@@ -731,6 +734,25 @@ class SpeculativeEngine:
         return self.engine.resilience_stats
 
     @property
+    def collector(self):
+        """The wrapped engine's TraceCollector (None when tracing is
+        off); the round spans are recorded there."""
+        return self.engine.collector
+
+    @property
+    def ledger(self):
+        """The wrapped engine's CostLedger (None when accounting is
+        off); the draft pool's work is reported there."""
+        return self.engine.ledger
+
+    @property
+    def monitor(self):
+        """The wrapped engine's HealthMonitor (None when monitoring is
+        off); it samples the registry, ``spec.*`` included, at the end
+        of every engine step."""
+        return self.engine.monitor
+
+    @property
     def registry(self) -> MetricsRegistry:
         """The wrapped engine's MetricsRegistry, with this layer's
         SpecDecodeStats attached under ``spec``."""
@@ -772,6 +794,11 @@ class SpeculativeEngine:
                         self.draft.embed(consumed),
                         chunk_tokens=self.engine.chunk_tokens)
         self._draft_lens[slot] = len(consumed)
+        led = self.engine.ledger
+        if led is not None:
+            # a rebuild recomputes rows below the draft high-water mark:
+            # the ledger splits replay from fresh work
+            led.on_draft_prefill(seq.rid, 0, len(consumed))
 
     def _rebuild_draft(self, slot: int) -> None:
         """``_draft_prefill``, or mark the slot dirty (served without a
@@ -802,12 +829,23 @@ class SpeculativeEngine:
         for s in slots:
             self._draft_lens[s] += 1
         self.stats.draft_steps += len(slots)
+        led = self.engine.ledger
+        if led is not None:
+            led.on_draft_rows([(self._seqs[s].rid,
+                                int(self._draft_lens[s]) - 1)
+                               for s in slots])
         return out
 
     def _unroll_draft(self, slots, pre_draft: Dict[int, int]) -> None:
         """Page-level rollback of a partial draft roll after a draft-pool
-        OOM; the target state is untouched."""
+        OOM (the rolled rows are ``draft_oom`` waste); the target state
+        is untouched."""
+        led = self.engine.ledger
         for s in slots:
+            if led is not None and int(self._draft_lens[s]) > pre_draft[s]:
+                led.on_draft_truncate(self._seqs[s].rid, pre_draft[s],
+                                      int(self._draft_lens[s]),
+                                      cause="draft_oom")
             self.draft_cache.truncate(s, pre_draft[s])
             self._draft_lens[s] = pre_draft[s]
         self.stats.draft_oom_rolls += 1
@@ -819,8 +857,28 @@ class SpeculativeEngine:
         request). Capacity-finished requests are released and reported
         in ``finished`` instead. No BlockOOM of either pool leaves the
         round: a request the target pool cannot serve fails alone, a
-        draft-pool OOM costs the round its proposals."""
+        draft-pool OOM costs the round its proposals.
+
+        With a collector the round records a ``spec_round`` span around
+        ``draft_roll``, the verify step's own bracket and
+        ``sample_verify``; an injected crash closes them flagged."""
+        col = self.engine.collector
+        depth = col.span_depth if col is not None else 0
+        if col is not None:
+            col.span_begin("spec_round")
+        try:
+            out = self._step_impl(col)
+        except BaseException:
+            if col is not None:
+                col.span_unwind(depth, aborted=True)
+            raise
+        if col is not None:
+            col.span_unwind(depth)
+        return out
+
+    def _step_impl(self, col) -> Dict[int, List[int]]:
         eng = self.engine
+        led = eng.ledger
         if self.injector is not None:
             # draft-phase faults share the verify step's clock
             self.injector.begin_step(eng._step_count + 1)
@@ -856,9 +914,15 @@ class SpeculativeEngine:
             elif eng._queue_len:
                 # the admission kick consumes an engine step of its own,
                 # so step-keyed fault schedules expire even when
-                # admission is the faulted path
-                eng._begin_step()
-                eng._try_admit()
+                # admission is the faulted path; its telemetry closes
+                # like any step's (aborted when a crash tears it)
+                eng._begin_step(kind="admission_kick")
+                ok = False
+                try:
+                    eng._try_admit()
+                    ok = True
+                finally:
+                    eng._end_step_telemetry(aborted=not ok)
             self._handle_events()
             return {}
         B = self.max_batch
@@ -876,6 +940,8 @@ class SpeculativeEngine:
         #    the draft cache ends at the target's verified length. A
         #    draft-pool BlockOOM rolls the partial roll back and the
         #    round verifies the pending token only.
+        if col is not None:
+            col.span_begin("draft_roll")
         pre_draft = {s: int(self._draft_lens[s]) for s in slots} \
             if self.draft_cache is not None else {}
         roll_oom = False
@@ -917,6 +983,8 @@ class SpeculativeEngine:
                 except BlockOOM:
                     self._unroll_draft(live, pre_draft)
                     roll_oom = True
+        if col is not None:
+            col.span_end(k=k_eff, oom_rolled=roll_oom)
 
         # 2. verify: ONE target call scores the pending token plus the
         #    k_eff proposals of every slot. The mid_spec_round crash
@@ -932,6 +1000,8 @@ class SpeculativeEngine:
         if out is None:
             self._handle_events()
             return {}
+        if col is not None:
+            col.span_begin("sample_verify")
         g_toks, g_probs = self._sample(
             self.target, self.target.logits(out),
             rng_rows=self._lane_rows(slots, L),
@@ -965,7 +1035,11 @@ class SpeculativeEngine:
             if self.draft_cache is not None and not roll_oom \
                     and s not in self._draft_dirty:
                 # the draft advanced in lockstep: align it to the
-                # accepted length
+                # accepted length (the rejected rows are waste)
+                if led is not None and int(self._draft_lens[s]) > new_len:
+                    led.on_draft_truncate(
+                        seq.rid, new_len, int(self._draft_lens[s]),
+                        cause="spec_rejected")
                 self.draft_cache.truncate(s, new_len)
                 self._draft_lens[s] = new_len
             seq.toks.extend(emitted)
@@ -983,6 +1057,8 @@ class SpeculativeEngine:
                       else list(self._draft_dirty)):
                 if s in self._seqs and eng.active[s]:
                     self._rebuild_draft(s)
+        if col is not None:
+            col.span_end()
         self._handle_events()
         return emitted_by_rid
 
@@ -1130,4 +1206,8 @@ class SpeculativeEngine:
                 spec.draft_cache.allocator.fault_hook = hook
         spec._draft_dirty.update(s for s in dirty if s in spec._seqs)
         spec.check_invariants()
+        if monitor is not None:
+            # re-baseline after ``spec`` re-attached: the engine's rebase
+            # ran before the spec counters were in the registry
+            monitor.rebase(spec.engine._step_count)
         return spec

@@ -1412,3 +1412,75 @@ def test_ragged_kernel_tile_kv_is_the_compiled_span(tile_kv):
         with pytest.raises(NotImplementedError, match="SPAN = 128"):
             tpa.paged_attention_ragged(q, pool, bt, q_lens, lens,
                                        tile_kv=tile_kv)
+
+
+@pytest.mark.parametrize("kv_dtype", ["float32", "int8"])
+def test_recoverable_server_crashes_and_recovers_on_the_card(kv_dtype,
+                                                             tmp_path):
+    """A small RecoverableServer on the card under a token budget,
+    crashed at post_journal, pre_journal and post_prefill and recovered
+    each time from its snapshot and journal files (with a fresh
+    collector, monitor and ledger): the streams equal an uninterrupted
+    run on the card, every outcome is delivered exactly once, the
+    engine audit holds after each restore, and the replayed rounds ran
+    the ragged kernel."""
+    _need_cuda()
+    from paddle_tpu_torch.inference import (CostLedger, CrashInjector,
+                                            EngineCrash, HealthMonitor,
+                                            RecoverableServer,
+                                            TraceCollector)
+    D, H, FFN, LAYERS, V = 64, 4, 128, 2, 128
+    rng = np.random.RandomState(7)
+    emb = rng.randn(V, D).astype(np.float32)
+    head = rng.randn(D, V).astype(np.float32)
+    core = FusedMultiTransformer(D, H, FFN, num_layers=LAYERS,
+                                 device="cuda",
+                                 generator=torch.Generator(
+                                     device="cuda").manual_seed(0))
+    tsm = TokenServingModel(core, emb, head)
+    prompts = [list(rng.randint(0, V, n)) for n in (9, 14, 6, 11)]
+    kw = dict(k=0, max_batch=3, block_size=4, num_blocks=30,
+              chunk_tokens=8, prefill_token_budget=8, kv_dtype=kv_dtype)
+    N = 10
+
+    def serve(srv, jp=None, sp=None, inj=None):
+        rids = [srv.submit(p) for p in prompts]
+        done, delivered, restores = {}, [], 0
+        for _ in range(200):
+            if all(r in done for r in rids):
+                break
+            try:
+                srv.step()
+                delivered += [oc.rid for oc in srv.drain_outcomes()]
+                for r in rids:
+                    if r not in done and len(srv.generated(r)) >= N:
+                        done[r] = srv.generated(r)[:N]
+                        srv.release(r)
+            except EngineCrash:
+                srv = RecoverableServer.recover(
+                    tsm, None, journal_path=jp, snapshot_path=sp,
+                    injector=inj, collector=TraceCollector(),
+                    monitor=HealthMonitor(), ledger=CostLedger())
+                srv.check_invariants()
+                restores += 1
+        srv.step()
+        delivered += [oc.rid for oc in srv.drain_outcomes()]
+        return done, delivered, restores, srv
+
+    jp0, sp0 = str(tmp_path / "base.wal"), str(tmp_path / "base.ckpt")
+    base, base_del, _, _ = serve(RecoverableServer(
+        SpeculativeEngine(tsm, None, **kw), journal_path=jp0,
+        snapshot_path=sp0, snapshot_every=3))
+    jp, sp = str(tmp_path / "req.wal"), str(tmp_path / "serve.ckpt")
+    inj = CrashInjector(crash_at={3: "post_journal", 6: "pre_journal",
+                                  9: "post_prefill"})
+    tpa.reset_launch_count()
+    got, delivered, restores, srv = serve(RecoverableServer(
+        SpeculativeEngine(tsm, None, injector=inj, **kw),
+        journal_path=jp, snapshot_path=sp, snapshot_every=3, sync=True),
+        jp, sp, inj)
+    assert restores == inj.crashes >= 2
+    assert got == base
+    assert sorted(delivered) == sorted(set(delivered)) == sorted(base_del)
+    assert srv.replayed_rounds > 0 and tpa.launch_count() > 0
+    assert srv.engine.ledger.conservation()["ok"]

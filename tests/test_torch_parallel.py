@@ -16,6 +16,13 @@ outcome sequence). Hidden rows agree within HID (XLA and ATen reduce in
 different orders); the sampled tokens are equal because both packages
 draw the same uniforms from the same lanes, and a draw would have to
 land within that difference of a CDF edge to part them.
+
+The reference's ``TestGroupAccounting`` (one charge per shared prefill;
+conservation with spec rollback and best-of ``bestof_pruned`` waste),
+``TestRecoverableGroups`` (a crash mid-group replays bit-identical) and
+``TestGroupTelemetry`` run on the port as the reference wrote them
+(``tests/torch_ref_suite.py``); ``test_group_ledger_rows_match_jax``
+holds the ledger's rows against the JAX package's.
 """
 import numpy as np
 import pytest
@@ -31,6 +38,7 @@ from paddle_tpu_torch.inference import (SpeculativeEngine,
                                         TokenServingModel, branch_lane_seed,
                                         logit_mask_fn, register_logit_mask)
 from paddle_tpu_torch.inference.scheduler import _GroupTable
+from tests.torch_ref_suite import suite
 
 pytestmark = pytest.mark.parallel
 torch.set_num_threads(1)
@@ -573,3 +581,7 @@ def test_best_of_and_fork_stream_outcomes_equal_jax():
         te.step()
         assert _plane(te) == _plane(je)
         assert te.tokens(r) == je.tokens(r)
+
+
+globals().update(suite("tests/test_parallel.py", __name__, only=(
+    "TestGroupAccounting", "TestRecoverableGroups", "TestGroupTelemetry")))

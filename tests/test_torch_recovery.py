@@ -1,0 +1,5 @@
+"""Twin of tests/test_recovery.py: the reference suite's tests run on the
+port (``tests/torch_ref_suite.py``)."""
+from tests.torch_ref_suite import suite
+
+globals().update(suite("tests/test_recovery.py", __name__))

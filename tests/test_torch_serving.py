@@ -28,6 +28,7 @@ from paddle_tpu_torch.incubate.nn import FusedMultiTransformer
 from paddle_tpu_torch.inference import (ContinuousBatchingEngine,
                                         SpeculativeEngine)
 from paddle_tpu_torch.nn import LayerNorm, Linear
+from tests.torch_twins import op_by_op
 
 torch.set_num_threads(1)
 D, HEADS, FFN, LAYERS, VOCAB = 64, 4, 128, 2, 128
@@ -71,11 +72,8 @@ def jax_op_by_op():
     processes load the CPU (a near-tie of the top two logits; the second
     serve in the same process differs too, more rarely); op by op it
     gave 63 every time, as the port does."""
-    names = ("FLAGS_eager_op_jit", "FLAGS_eager_layer_jit")
-    before = {n: paddle.flags.get_flag(n) for n in names}
-    paddle.set_flags({n: False for n in names})
-    yield
-    paddle.set_flags(before)
+    with op_by_op():
+        yield
 
 
 def test_port_imports_neither_jax_nor_the_jax_package():

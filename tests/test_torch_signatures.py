@@ -92,14 +92,6 @@ UNPORTED = {
     "MoeServingCore dropout_rate (7th)": lambda: inference.MoeServingCore(
         8, 2, 16, 2, 1, 1.25, 0.1),
 }
-for _name in ("collector", "monitor", "ledger"):
-    UNPORTED[f"PagedServingEngine {_name}"] = (
-        lambda n=_name: inference.PagedServingEngine(
-            None, 1, 4, 8, **{n: object()}))
-    UNPORTED[f"SpeculativeEngine {_name}"] = (
-        lambda n=_name: inference.SpeculativeEngine(
-            None, max_batch=1, block_size=4, num_blocks=8,
-            **{n: object()}))
 UNPORTED["paged_attention_ragged tile_kv (8th) other than the span"] = (
     lambda: paged_attention_ragged(
         torch.zeros(1, 2, 8), torch.zeros(3, 2, 2, 4, 8),
@@ -154,6 +146,17 @@ PORTED = {
         lambda: _engines(tenants={"a": {}})[1],
         lambda e: "a" in e.tenant_report()),
 }
+# the trace collector, the health monitor and the cost ledger: wired
+# onto the engine (the ledger and the monitor bind to its registry)
+_OBSERVERS = {"collector": (inference.TraceCollector, None),
+              "monitor": (inference.HealthMonitor, "pool.active"),
+              "ledger": (inference.CostLedger, "work.total_tokens")}
+for _name, (_cls, _key) in _OBSERVERS.items():
+    for _i, _eng in enumerate(("PagedServingEngine", "SpeculativeEngine")):
+        PORTED[f"{_eng} {_name}"] = (
+            lambda n=_name, c=_cls, i=_i: (_engines(**{n: c()})[i], n),
+            lambda en, k=_key: getattr(en[0], en[1]) is not None and (
+                k is None or k in en[0].registry.as_dict()))
 for _name, _value in (("deadline_steps", 3), ("deadline_s", 1.0),
                       ("tenant_id", "a")):
     PORTED[f"PagedServingEngine.submit {_name}"] = (
@@ -263,12 +266,6 @@ _GAPS = {
                                             gen_cache=11),
     **{("optimizer", c): {a: 12 for a in _OPT}
        for c in ("Adam", "AdamW", "Optimizer")},
-    # item 8: the telemetry registry's own counters and histograms
-    ("inference", "MetricsRegistry"): {
-        a: 8 for a in ("HIST_WINDOW", "count", "delta_since", "gauge",
-                       "hist_marks", "hist_names", "hist_total",
-                       "histogram", "last_value", "observe",
-                       "percentiles_since", "scrape", "values_since")},
     ("inference", "MoeServingCore"): {a: 12 for a in _LAYER},
     # item 10: sharded serving (tensor-parallel pools and views)
     ("inference", "PagedKVCache"): {
@@ -279,9 +276,6 @@ _GAPS = {
     ("inference", "PagedLayerCache"): {"shard": 10},
     ("inference", "PagedPrefillView"): {"shard": 10},
     ("inference", "TokenServingModel"): {"shard": 10},
-    # item 8: the trace collector, the cost ledger, the health monitor
-    ("inference", "SpeculativeEngine"): {"collector": 8, "ledger": 8,
-                                         "monitor": 8},
     ("incubate.nn", "FusedMultiTransformer"): {a: 12 for a in _LAYER},
     ("incubate.nn", "FusedMultiTransformerInt8"): {a: 12 for a in _LAYER},
 }

@@ -1,10 +1,11 @@
 """The port's tenant layer (paddle_tpu_torch/inference/scheduler.py's
 quotas, floors, weighted fair queuing and health-based admission, and
 paged_cache.py's per-tenant charge) held against the JAX package on the
-CPU: twins of tests/test_tenants.py (all but the crash-recovery
-composition, which waits for the recovery host) and of
-test_mixed_verify.py's sub-queue tests, at their sizes. The noisy-
-neighbor storms are in test_torch_tenant_storms.py.
+CPU: twins of tests/test_tenants.py and of test_mixed_verify.py's
+sub-queue tests, at their sizes. The noisy-neighbor storms are in
+test_torch_tenant_storms.py; the storm's composition with crash
+recovery (``test_noisy_neighbor_composes_with_crash_recovery``) runs on
+the port as the reference wrote it (``tests/torch_ref_suite.py``).
 
 Each scenario runs on both packages' engines: the port asserts what the
 reference test asserts, and its record (admission order, outcome
@@ -18,6 +19,7 @@ from paddle_tpu.inference import PagedServingEngine as JaxPSE
 from paddle_tpu_torch.inference import (DEFAULT_TENANT, BlockOOM,
                                         PagedKVCache, PagedServingEngine,
                                         RequestOutcome, Tenant, TenantStats)
+from tests.torch_ref_suite import suite
 from tests.torch_twins import (D, HEADS, LAYERS, drive, jax_model,
                                port_model, to_jax, to_port)
 
@@ -545,3 +547,8 @@ def test_wfq_admission_order_weighted(cores):
         tenants={"a": {"weight": 2.0}, "b": {"weight": 1.0}})
     assert order == ["a", "b", "a", "a", "b", "a"]
     assert report["a"]["stats"]["admitted"] == 4
+
+
+globals().update(suite("tests/test_tenants.py", __name__, only=(
+    "TestNoisyNeighborStorm.test_noisy_neighbor_composes_with_crash_recovery",
+)))

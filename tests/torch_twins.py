@@ -4,6 +4,8 @@ readout, a (JAX core, port core) pair holding the same weights, one
 serving driver that runs either package's PagedServingEngine, and a
 comparison of two snapshots (control plane exact, payload within a
 tolerance)."""
+import contextlib
+
 import numpy as np
 import torch
 
@@ -26,6 +28,20 @@ EMBED = _RNG.randn(VOCAB, D).astype(np.float32)
 def jax_model():
     paddle.seed(0)
     return JaxFMT(D, HEADS, FFN, num_layers=LAYERS)
+
+
+@contextlib.contextmanager
+def op_by_op():
+    """The JAX package op by op inside the block (its per-op executable
+    cache and layer captures off; tests/test_torch_serving.py's
+    ``jax_op_by_op`` says why), its flags restored after."""
+    names = ("FLAGS_eager_op_jit", "FLAGS_eager_layer_jit")
+    before = {n: paddle.flags.get_flag(n) for n in names}
+    paddle.set_flags({n: False for n in names})
+    try:
+        yield
+    finally:
+        paddle.set_flags(before)
 
 
 def port_model(jcore=None):
