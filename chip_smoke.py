@@ -172,7 +172,25 @@ fails the run:
    11's, hence phase 4's up to its near-tie); every outcome delivered
    exactly once; snapshot bytes, save, load, replay and recovery
    seconds and journal records and bytes printed;
-21. print the kernels line, the card line and, last, the contract line.
+21. (run after phase 20) the serving fleet at the same width: one spec
+   (phase 3's widths, pool and budgets, a rolled readout, seeds from
+   --seed) serves phase 3's 12 prompts from an in-process server (the
+   baseline), then from three socket workers (one prefill-role, two
+   decode-role; spawned processes, each with its own CUDA context
+   running the ragged kernel) behind a prefix-aware Router that
+   migrates every finished prefill as a page slice (each request
+   placed on the prefill worker migrates once); then the same fleet
+   under a FleetSupervisor through a seeded router kill and a real
+   SIGKILL of a decode worker, each corpse respawned from its journal
+   and snapshot (back at 3 of 3 live, a spawn/rejoin pair in the
+   router journal for each); then a seeded network storm over the
+   resilient sockets (drops, torn and corrupt frames, a black-holed
+   reply) with no respawn. Each leg ends with the baseline's streams
+   (up to a stream's first near-tie, phase 4's rule), every outcome
+   delivered once and every worker's audit ok; children's start-up
+   seconds, slice bytes and ship seconds, respawn seconds, reconnects
+   and net counters printed;
+22. print the kernels line, the card line and, last, the contract line.
 Every number printed carries the card's name and power limit; each row
 of the kernels line says in ``timed`` which call it timed and how.
 """
@@ -184,6 +202,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -252,6 +271,12 @@ FULL = dict(vocab=50304, d=1024, layers=24, heads=16, ffn=4096,
             # phase 20: rounds between the recovery host's snapshots
             # (float / quantized runs; the speculative one)
             durable_every=16, durable_spec_every=8,
+            # phase 21: the ticks the seeded router kill is drawn from
+            # (the prefill worker is still prefilling and both decode
+            # workers hold migrated streams), the op timeout of the
+            # network storm (a black-holed reply waits it out; the
+            # largest op, a page-slice export, takes a few seconds)
+            fleet_kill_window=(4, 12), fleet_call_timeout=10.0,
             # training: bench.py's Llama-2-7B proxy (bench.py:58-61)
             train_vocab=32000, train_hidden=4096, train_ffn=11008,
             train_heads=32, train_kv_heads=32, train_layers=2,
@@ -1812,14 +1837,7 @@ def phase_resilience(torch, device, cfg, tsm, tsm8, prompts, qprompts,
 
     # near-tie steps of all 12 phase-3 streams (phase 4's rule), for the
     # checks whose batching differs from phase 3's
-    h12, _ = teacher_force(torch, device, cfg, tsm.core, tsm, prompts, ref)
-    lg = tsm.logits(h12)
-    top2 = lg.topk(2, dim=-1).values
-    gap = (top2[..., 0] - top2[..., 1]).cpu().numpy()
-    tol = TOL_REL * float(lg.abs().max())
-    first12 = [int(np.flatnonzero(g < tol)[0]) if (g < tol).any()
-               else n_new for g in gap]
-    del h12, lg, top2
+    first12, tol = _first_near_ties(torch, device, cfg, tsm, prompts, ref)
     say(f"{tag} resilience: phase 3's streams' first near-tie steps "
         f"{first12} (of {n_new}; top-two gap < {tol:.3e})")
 
@@ -2498,6 +2516,375 @@ def phase_durability(torch, device, cfg, tsm, tsm8, prompts, qprompts,
                 "phase 11's streams")
         require(not _upto(got, toks, first_small), "the speculative crash "
                 "storm left phase 4's tokens before a near-tie")
+
+
+# -- phase 21: the serving fleet -----------------------------------------
+# one prefill-role and two decode-role workers, each its own process
+FLEET_ROLES = {"p0": "prefill", "d0": "decode", "d1": "decode"}
+
+
+def _fleet_spec(cfg, seed, device, root, name):
+    """One worker's data-only spec: phase 3's widths, pool and budgets, a
+    rolled readout (head_roll=1), seeds from ``seed``, the prefix cache,
+    files under ``root``."""
+    return dict(vocab=cfg["vocab"], d_model=cfg["d"], heads=cfg["heads"],
+                ffn=cfg["ffn"], layers=cfg["layers"], model_seed=seed,
+                embed_seed=seed + 1, head_roll=1, device=device.type, k=0,
+                max_batch=cfg["max_batch"], block_size=cfg["block_size"],
+                num_blocks=cfg["num_blocks"],
+                max_blocks_per_seq=cfg["num_blocks"] - 1, prefix_cache=True,
+                chunk_tokens=cfg["chunk_tokens"],
+                prefill_token_budget=cfg["budget"],
+                journal_path=os.path.join(root, f"{name}.wal"),
+                snapshot_path=os.path.join(root, f"{name}.ckpt"))
+
+
+class _Metered:
+    """A worker handle that forwards every op and, for the migration ops,
+    adds their wall seconds and the slices and page bytes exported."""
+
+    def __init__(self, handle):
+        self.handle, self.name, self.role = handle, handle.name, handle.role
+        self.slices, self.bytes = 0, 0
+        self.secs = {"export_slices": 0.0, "import_slices": 0.0}
+
+    def request(self, op, payload=None, timeout=None):
+        t0 = time.perf_counter()
+        out = self.handle.request(op, payload, timeout)
+        if op in self.secs:
+            self.secs[op] += time.perf_counter() - t0
+        if op == "export_slices":
+            for slc in out["slices"].values():
+                if slc is not None:
+                    self.slices += 1
+                    self.bytes += sum(slc[k].nbytes for k in (
+                        "payload", "scale_payload") if k in slc)
+        return out
+
+    def kill(self):
+        self.handle.kill()
+
+    def close(self):
+        self.handle.close()
+
+    def net_stats(self):
+        return self.handle.net_stats()
+
+
+def _gpu_memory_used():
+    try:
+        out = subprocess.run(
+            ["nvidia-smi", "--query-gpu=memory.used",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60).stdout.strip()
+    except (OSError, subprocess.TimeoutExpired):
+        out = ""
+    return out or "not measured"
+
+
+def _first_near_ties(torch, device, cfg, tsm, prompts, streams):
+    """(first near-tie step of each greedy stream, the gap bound): phase
+    4's rule, every stream teacher-forced through one paged engine."""
+    h, _ = teacher_force(torch, device, cfg, tsm.core, tsm, prompts,
+                         streams)
+    lg = tsm.logits(h)
+    top2 = lg.topk(2, dim=-1).values
+    gap = (top2[..., 0] - top2[..., 1]).cpu().numpy()
+    tol = TOL_REL * float(lg.abs().max())
+    return [int(np.flatnonzero(g < tol)[0]) if (g < tol).any()
+            else cfg["new_tokens"] for g in gap], tol
+
+
+def _fleet_drive(router, n, max_ticks, sup=None, each_tick=None):
+    """Router ticks (each followed by a supervisor pass and
+    ``each_tick()``) until ``n`` outcomes are drained; returns them."""
+    ocs = []
+    for _ in range(max_ticks):
+        if len(ocs) >= n:
+            break
+        router.step()
+        if sup is not None:
+            sup.tick()
+        ocs += router.drain_outcomes()
+        if each_tick is not None:
+            each_tick()
+    require(len(ocs) >= n, f"the fleet delivered {len(ocs)} of {n} "
+            f"outcomes in {max_ticks} ticks")
+    return ocs
+
+
+def _fleet_verdict(label, router, rids, ocs, ref, first):
+    """Every outcome once and FINISHED, every live worker's deep audit
+    ok, every stream the single engine's up to its first near-tie;
+    returns how many streams equal it over all their tokens."""
+    got = [router.generated(x) for x in rids]
+    require(sorted(o.rid for o in ocs) == sorted(rids) and
+            all(o.status == "finished" for o in ocs) and
+            router.stats.delivered == len(rids),
+            f"{label}: outcomes not delivered exactly once "
+            f"({sorted(o.rid for o in ocs)})")
+    for ws in router._live():
+        require(router._op(ws, "audit")["ok"],
+                f"{label}: worker {ws.name}'s audit failed")
+    bad = _upto(got, ref, first)
+    require(not bad, f"{label}: streams {bad} left the single engine's "
+            "before their first near-tie")
+    return sum(g == t for g, t in zip(got, ref))
+
+
+def phase_fleet(torch, device, cfg, prompts, seed, tag, say):
+    """Phase 21: the serving fleet at full width. One spec (phase 3's
+    model widths, pool and budgets; float32; seeds from ``seed``) serves
+    phase 3's 12 prompts: an in-process single engine (the baseline),
+    then three socket workers (one prefill-role, two decode-role; each a
+    spawned process with its own CUDA context) behind a prefix-aware
+    Router that migrates every finished prefill as a page slice; a
+    second such fleet under a FleetSupervisor through a seeded router
+    kill and a real SIGKILL, each corpse respawned from its files; and a
+    third through a seeded network storm over the resilient sockets. The
+    three fleets' nine workers are spawned together (their start-ups
+    overlap). Every leg ends with the baseline's streams, each outcome
+    delivered once and every worker's audit ok."""
+    from paddle_tpu_torch.inference import (FleetSupervisor,
+                                            NetworkFaultInjector, Router,
+                                            RouterFaultInjector,
+                                            SocketWorker,
+                                            build_server_from_spec,
+                                            read_journal,
+                                            token_chain_hashes)
+    n_new, bs = cfg["new_tokens"], cfg["block_size"]
+    n_tok = len(prompts) * n_new
+    ticks = 50 * len(prompts)
+
+    def sync():
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()      # the card's memory for the workers
+    handles, routers = [], []         # every worker process started here
+    with tempfile.TemporaryDirectory() as root:
+        def spec(leg, name):
+            os.makedirs(os.path.join(root, leg), exist_ok=True)
+            return _fleet_spec(cfg, seed, device, os.path.join(root, leg),
+                               name)
+
+        try:
+            # the three legs' workers, spawned together first: their
+            # start-ups (interpreter, torch, CUDA context, model, server)
+            # overlap each other and the baseline below; each is ready once
+            # its handshake is answered. A SocketWorker's constructor
+            # waits for its child to connect back, which the child does
+            # once it has imported torch, so the nine are made on nine
+            # threads (one after another the imports would not overlap)
+            net = NetworkFaultInjector.storm(seed + 40, list(FLEET_ROLES))
+            legs = (("disagg", {}), ("storm", {}),
+                    ("net", {"net_injector": net}))
+            t_spawn = time.perf_counter()
+            with ThreadPoolExecutor(len(legs) * len(FLEET_ROLES)) as ex:
+                futs = {(leg, n): ex.submit(
+                    SocketWorker, spec(leg, n), name=n, role=role,
+                    timeout=600.0, wait_ready=False, **kw)
+                    for leg, kw in legs for n, role in FLEET_ROLES.items()}
+            errs = [f.exception() for f in futs.values()]
+            handles.extend(f.result() for f, e in zip(futs.values(), errs)
+                           if e is None)
+            require(not any(errs), f"a worker did not start: {errs}")
+            fleets = {leg: [futs[leg, n].result() for n in FLEET_ROLES]
+                      for leg, _ in legs}
+
+            # 1. the baseline: one uninterrupted server built from the spec
+            t0 = time.perf_counter()
+            srv = build_server_from_spec(spec("solo", "solo"))
+            sync()
+            build_s = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            rids = [srv.submit(p) for p in prompts]
+            done, rounds = {}, 0
+            while len(done) < len(rids):
+                rounds += 1
+                require(rounds < ticks, "the baseline did not converge")
+                srv.step()
+                for x in rids:
+                    if x not in done and len(srv.generated(x)) >= n_new:
+                        done[x] = srv.generated(x)[:n_new]
+                        srv.release(x)
+            sync()
+            base_s = time.perf_counter() - t0
+            ref = [done[x] for x in rids]
+            model = srv.engine.target
+            srv.close()
+            del srv
+            gc.collect()
+            first, tol = _first_near_ties(torch, device, cfg, model, prompts,
+                                          ref)
+            say(f"{tag} fleet baseline: one in-process server from the spec "
+                f"(model built in {build_s:.2f} s), {len(prompts)} requests x "
+                f"{n_new} tokens in {base_s:.3f} s = {n_tok / base_s:.2f} "
+                f"tokens/s, {rounds} rounds; first near-tie steps {first} "
+                f"(top-two gap < {tol:.3e})")
+
+            def hash_fn(toks):
+                return token_chain_hashes(model, toks, bs)
+
+            ready = []
+            for ws in fleets.values():
+                for w in ws:
+                    w.request("ping")
+                    ready.append(round(time.perf_counter() - t_spawn, 2))
+            say(f"{tag} fleet: 9 socket workers (3 fleets of p0 prefill, "
+                f"d0 and d1 decode) spawned together before the baseline, "
+                f"ready at {ready} s after the first spawn")
+
+            # 2. the disaggregated fleet: every prefill migrates
+            meters = [_Metered(w) for w in fleets["disagg"]]
+            r = Router(meters, hash_fn=hash_fn, migrate=True,
+                       journal_path=os.path.join(root, "disagg", "r.wal"))
+            routers.append(r)
+            t0 = time.perf_counter()
+            rids = [r.submit(p, max_new_tokens=n_new) for p in prompts]
+            placed = {x for x in rids if r._reqs[x].worker == "p0"}
+
+            def watch():
+                placed.update(x for x in rids if r._reqs[x].worker == "p0")
+            ocs = _fleet_drive(r, len(rids), ticks, each_tick=watch)
+            secs = time.perf_counter() - t0
+            used = _gpu_memory_used()
+            exact = _fleet_verdict("disaggregated fleet", r, rids, ocs, ref,
+                                   first)
+            st = r.stats
+            require(st.worker_deaths == st.worker_timeouts == 0,
+                    f"a worker died or hung with no fault scheduled: "
+                    f"{st.as_dict()}")
+            require(st.migrations == len(placed) >= 1,
+                    f"{st.migrations} migrations for {len(placed)} "
+                    "requests placed on the prefill worker")
+            ship = {op: round(sum(m.secs[op] for m in meters), 3)
+                    for op in meters[0].secs}
+            say(f"{tag} fleet disaggregated: {len(rids)} requests x "
+                f"{n_new} tokens in {secs:.3f} s = {n_tok / secs:.2f} "
+                f"tokens/s (baseline {n_tok / base_s:.2f}; printed only), "
+                f"{r.tick} ticks; {len(placed)} placed on p0, "
+                f"{st.migrations} migrations, {st.export_batches} export "
+                f"batches, {sum(m.slices for m in meters)} slices / "
+                f"{sum(m.bytes for m in meters)} B of pages exported, "
+                f"{st.migrated_blocks} blocks imported, seconds in the ops "
+                f"{ship}; streams equal to the baseline's over all tokens "
+                f"{exact} of {len(rids)}; card memory used {used} (the 9 "
+                f"workers and this process)")
+            r.close()
+
+            # 3. a seeded router kill and a real SIGKILL, respawned from
+            # the workers' files
+            specs = {n: spec("storm", n) for n in FLEET_ROLES}
+            inj = RouterFaultInjector.kill_storm(
+                seed + 30, cfg["fleet_kill_window"][1], list(FLEET_ROLES),
+                kills=1, first_tick=cfg["fleet_kill_window"][0])
+            (kill_tick, sched), = inj.kill_at.items()
+            (kill_worker, _), = sched.items()
+            victim = "d1" if kill_worker != "d1" else "d0"
+            wal = os.path.join(root, "storm", "r.wal")
+            r = Router(fleets["storm"], hash_fn=hash_fn, injector=inj,
+                       migrate=True, journal_path=wal, backoff_ticks=1)
+            routers.append(r)
+            sup = FleetSupervisor(r, specs, transport="socket",
+                                  socket_timeout=600.0)
+            rids = [r.submit(p, max_new_tokens=n_new) for p in prompts]
+            killed, spawned, respawn_s = [], {}, []
+
+            def storm():
+                now = time.perf_counter()
+                if not killed and r.tick >= kill_tick + 2 and any(
+                        q.worker == victim and q.generated and not q.terminal
+                        for q in r._reqs.values()):
+                    r._workers[victim].handle.kill()     # SIGKILL
+                    killed.append(r.tick)
+                for name, w in r._workers.items():
+                    if w.respawned and name not in spawned:
+                        spawned[name] = now
+                    elif name in spawned and not w.respawned and \
+                            w.status == "up":
+                        respawn_s.append(round(now - spawned.pop(name), 2))
+            t0 = time.perf_counter()
+            ocs = _fleet_drive(r, len(rids), ticks, sup, storm)
+            for _ in range(ticks):
+                if all(w.status == "up" for w in r._workers.values()):
+                    break
+                r.step()
+                sup.tick()
+                storm()
+            secs = time.perf_counter() - t0
+            exact = _fleet_verdict("SIGKILL storm", r, rids, ocs, ref,
+                                   first)
+            st = r.stats
+            events = [(p["worker"], p["event"])
+                      for _, k, p in read_journal(wal) if k == "respawn"]
+            pairs = all(events[i:i + 2] == [(w, "spawn"), (w, "rejoin")]
+                        for i, (w, _) in enumerate(events) if i % 2 == 0)
+            live = sup.registry.as_dict()
+            require(inj.killed == 1 and len(killed) == 1,
+                    f"the storm's kill fired {inj.killed} time(s), the "
+                    f"SIGKILL {len(killed)}")
+            require(st.worker_deaths == 2 and sup.failed_respawns == 0 and
+                    st.respawns == sup.respawns_total == 2 ==
+                    live["fleet.respawns"] == len(respawn_s),
+                    f"deaths {st.worker_deaths}, respawns {st.respawns} / "
+                    f"{sup.respawns_total} / {live['fleet.respawns']}, "
+                    f"rejoins seen {len(respawn_s)}; {sup.last_error}")
+            require(live["fleet.workers_live"] == 3 and
+                    all(w.status == "up" for w in r._workers.values()),
+                    "the fleet is not back at 3 of 3 live workers")
+            require(pairs and len(events) == 2 * st.respawns,
+                    f"the router journal's respawn lane is {events}")
+            say(f"{tag} fleet SIGKILL storm: router kill of {kill_worker} "
+                f"at tick {kill_tick}, SIGKILL of {victim} at tick "
+                f"{killed[0]}; {st.worker_deaths} deaths, "
+                f"{st.resubmissions} resubmissions, {st.migrations} "
+                f"migrations, {st.respawns} respawns from files (spawn to "
+                f"rejoin {respawn_s} s), journal lane {events}; back at 3 "
+                f"of 3 live after {r.tick} ticks, {secs:.3f} s; streams "
+                f"equal to the baseline's over all tokens {exact} of "
+                f"{len(rids)}")
+            r.close()
+
+            # 4. a seeded network storm over the resilient sockets
+            specs = {n: spec("net", n) for n in FLEET_ROLES}
+            r = Router(fleets["net"], hash_fn=hash_fn, migrate=True,
+                       journal_path=os.path.join(root, "net", "r.wal"),
+                       call_timeout=cfg["fleet_call_timeout"])
+            routers.append(r)
+            sup = FleetSupervisor(r, specs, transport="socket",
+                                  socket_timeout=600.0)
+            t0 = time.perf_counter()
+            rids = [r.submit(p, max_new_tokens=n_new) for p in prompts]
+            ocs = _fleet_drive(r, len(rids), ticks, sup)
+            secs = time.perf_counter() - t0
+            exact = _fleet_verdict("network storm", r, rids, ocs, ref,
+                                   first)
+            st = r.stats
+            counters = {k: v for k, v in sup.registry.as_dict().items()
+                        if k.startswith("net.")}
+            require(net.pending == 0, f"{net.pending} network faults "
+                    "never fired")
+            require(st.respawns == sup.respawns_total == st.worker_deaths
+                    == st.worker_timeouts == 0,
+                    f"the network storm cost deaths, timeouts or "
+                    f"respawns: {st.as_dict()}")
+            require(st.net_reconnects >= 1, "no reconnect observed")
+            say(f"{tag} fleet network storm: faults fired {net.fired}; "
+                f"{st.net_reconnects} reconnects seen by the router, "
+                f"{st.degraded_transitions} degraded transitions, 0 "
+                f"respawns; net counters {counters}; {st.migrations} "
+                f"migrations; {secs:.3f} s (op timeout "
+                f"{cfg['fleet_call_timeout']} s); streams equal to the "
+                f"baseline's over all tokens {exact} of {len(rids)}")
+            r.close()
+        finally:
+            # every process this phase started, respawned ones included
+            for h in handles + [ws.handle for rt in routers
+                                for ws in rt._workers.values()]:
+                getattr(h, "handle", h).kill()
 
 
 def phase_profile(torch, device, cfg, tsm, tsm_moe, tag, say):
@@ -3555,6 +3942,7 @@ def run(device, cfg, seed=0, say=print, card=None):
                           f"draft"]["streams"],
                      toks[:cfg["spec_requests"]], first_small, seed, tag,
                      say)
+    phase_fleet(torch, device, cfg, prompts, seed, tag, say)
     del tsm8
     rows["gmm"]["launches"] = mserve["launches"]["gmm"]
     rows["paged_attention_ragged"]["launches"] = \

@@ -12,7 +12,8 @@ from .recovery import (SNAPSHOT_VERSION,  # noqa: F401
                        SnapshotVersionError, load_snapshot, read_journal,
                        save_snapshot)
 from .resilience import (CrashInjector, EngineCrash,  # noqa: F401
-                         FaultInjector, RequestOutcome)
+                         FaultInjector, NetworkFaultInjector,
+                         RequestOutcome, RouterFaultInjector)
 from .scheduler import (DEFAULT_TENANT,  # noqa: F401
                         MIN_PREFILL_SUFFIX_ROWS, PagedRequest,
                         PagedServingEngine, Tenant, chunked_prefill)
@@ -24,6 +25,15 @@ from .speculative import (SpeculativeEngine,  # noqa: F401
                           logit_mask_fn, register_logit_mask)
 from .telemetry import (MetricsRegistry, NetStats,  # noqa: F401
                         StatsBase, TraceCollector)
+from .router import (EngineWorker, InProcWorker,  # noqa: F401
+                     PipeWorker, Router, RouterStats, WorkerDied,
+                     WorkerError, WorkerTimeout,
+                     build_model_from_spec, build_server_from_spec,
+                     token_chain_hashes)
+from .net import (ReplyCache, ResilientTransport,  # noqa: F401
+                  SocketHost)
+from .fleet import (FleetSupervisor, MigrationPolicy,  # noqa: F401
+                    SocketWorker)
 
 __all__ = ["Alert", "BlockAllocator", "BlockOOM",
            "ContinuousBatchingEngine", "CostLedger", "CrashInjector",
@@ -42,4 +52,11 @@ __all__ = ["Alert", "BlockAllocator", "BlockOOM",
            "branch_lane_seed", "chain_block_hashes", "chain_hash",
            "chunked_prefill", "load_snapshot", "logit_mask_fn",
            "moe_capacity", "read_journal", "register_logit_mask",
-           "save_snapshot"]
+           "save_snapshot",
+           "EngineWorker", "InProcWorker", "PipeWorker", "Router",
+           "RouterFaultInjector", "RouterStats", "WorkerDied",
+           "WorkerError", "WorkerTimeout", "build_model_from_spec",
+           "build_server_from_spec", "token_chain_hashes",
+           "FleetSupervisor", "MigrationPolicy", "SocketWorker",
+           "NetworkFaultInjector", "ReplyCache", "ResilientTransport",
+           "SocketHost"]

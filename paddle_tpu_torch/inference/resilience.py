@@ -17,7 +17,16 @@ deterministic fault injection and terminal outcomes.
   ``EngineCrash`` out of the engine at scheduled (live round, phase)
   points, simulating process death; recovery rebuilds from a snapshot.
 
-The router and network injectors come with the fleet.
+* ``RouterFaultInjector``: worker kills and hangs keyed by the router's
+  tick clock (``kill_storm`` seeds a random one), consulted before every
+  op the router issues to a worker.
+* ``NetworkFaultInjector``: wire faults for the session transport
+  (dropped connections before and after delivery, torn, corrupt and
+  duplicated reply frames, a black-holed reply) keyed by (worker, op
+  seq); ``storm`` seeds a random one.
+
+The two fleet injectors are host-only copies of the reference's, held
+AST-equal to it.
 """
 from __future__ import annotations
 
@@ -29,7 +38,8 @@ import torch
 from .paged_cache import BlockOOM
 
 __all__ = ["RequestOutcome", "FaultInjector", "CrashInjector",
-           "EngineCrash"]
+           "EngineCrash", "RouterFaultInjector",
+           "NetworkFaultInjector"]
 
 
 class EngineCrash(RuntimeError):
@@ -319,3 +329,250 @@ class CrashInjector(FaultInjector):
         return (f"CrashInjector(seed={self.seed}, round={self.round}, "
                 f"crashes={self.crashes}, oom={self.injected_oom}, "
                 f"nan={self.injected_nan})")
+
+
+class RouterFaultInjector(CrashInjector):
+    """CrashInjector extended one fault domain up: deterministic
+    WORKER kills and hangs, keyed by the router's TICK clock (one
+    tick per ``Router.step``; ``begin_tick`` is called at the top of
+    every tick, the router-level mirror of ``begin_round``). The
+    router consults ``on_worker_op(worker, point)`` immediately
+    before each operation it is about to issue to a worker:
+
+      "kill"  the worker dies AT that point — the handle is killed
+              (a pipes worker takes a real SIGKILL; an in-process
+              worker is abandoned) and the op fails with WorkerDied.
+              Each scheduled (tick, worker) kill fires at most once.
+      "hang"  the worker goes silent: this op (and every op until the
+              scheduled hang expires) fails with WorkerTimeout while
+              the worker itself stays alive and UNAWARE — exactly a
+              hung/partitioned process. The router's circuit breaker
+              owns the consequence.
+
+      kill_at   {tick: {worker_name: point}} — point is one of
+                ``ROUTER_POINTS`` ("submit", "before_round",
+                "after_round", "export", "import", "scrape", "ping"),
+                matched against the op the router is about to issue;
+                "before_round"/"after_round" bracket the worker's
+                serving round ("after_round" kills AFTER the round
+                call returned, so the round's emissions were seen —
+                the death is detected at the next tick's op).
+      hang_at   {tick: {worker_name: n_ticks}} — from that tick the
+                worker times out for n_ticks ticks, then answers
+                again (the stale-copy release path).
+
+    The engine-level schedules (``oom_at``/``nan_at``/``crash_at``)
+    are inherited but belong to PER-WORKER injectors — this object
+    rides the router, which never owns an engine step clock. Pure
+    schedule playback like every injector: zero overhead when absent,
+    identical storms run after run."""
+
+    ROUTER_POINTS = ("submit", "before_round", "after_round",
+                     "export", "import", "scrape", "ping")
+
+    def __init__(self, kill_at=None, hang_at=None, seed: int = 0,
+                 **fault_kw):
+        super().__init__(seed=seed, **fault_kw)
+        self.kill_at: Dict[int, dict] = {}
+        for t, m in (kill_at or {}).items():
+            for w, point in m.items():
+                if point not in self.ROUTER_POINTS:
+                    raise ValueError(
+                        f"unknown router kill point {point!r} (one "
+                        f"of {self.ROUTER_POINTS})")
+            self.kill_at[int(t)] = dict(m)
+        self.hang_at: Dict[int, dict] = {
+            int(t): {str(w): int(n) for w, n in m.items()}
+            for t, m in (hang_at or {}).items()}
+        self.tick = 0
+        self.killed = 0
+        self.hung_ops = 0
+        self._hang_until: Dict[str, int] = {}
+
+    @classmethod
+    def kill_storm(cls, seed: int, ticks: int, workers, *,
+                   kills: int = 2, hangs: int = 0,
+                   first_tick: int = 2,
+                   points=("before_round",)) -> "RouterFaultInjector":
+        """Seeded random router storm: ``kills`` worker deaths and
+        ``hangs`` transient silences at distinct ticks in
+        [first_tick, ticks), each aimed at a random worker. Same seed
+        -> same storm."""
+        rng = np.random.RandomState(seed)
+        workers = list(workers)
+        n = kills + hangs
+        if ticks - first_tick < n:
+            raise ValueError("not enough ticks for the router storm")
+        picks = rng.choice(np.arange(first_tick, ticks), size=n,
+                           replace=False)
+        kill_at = {int(t): {workers[rng.randint(len(workers))]:
+                            points[rng.randint(len(points))]}
+                   for t in picks[:kills]}
+        hang_at = {int(t): {workers[rng.randint(len(workers))]:
+                            int(rng.randint(1, 3))}
+                   for t in picks[kills:]}
+        return cls(kill_at=kill_at, hang_at=hang_at, seed=seed)
+
+    def begin_tick(self) -> None:
+        self.tick += 1
+
+    def on_worker_op(self, worker: str, point: str) -> Optional[str]:
+        """Verdict for the op the router is about to issue: None
+        (proceed), "kill" (kill the worker first), or "hang" (the op
+        times out; the worker never sees it)."""
+        if not self._armed:
+            return None
+        sched = self.hang_at.get(self.tick)
+        if sched and worker in sched:
+            self._hang_until[worker] = self.tick + sched.pop(worker)
+        until = self._hang_until.get(worker)
+        if until is not None:
+            if self.tick < until:
+                self.hung_ops += 1
+                return "hang"
+            del self._hang_until[worker]
+        sched = self.kill_at.get(self.tick)
+        if sched and sched.get(worker) == point:
+            del sched[worker]
+            self.killed += 1
+            return "kill"
+        return None
+
+    def as_dict(self) -> dict:
+        d = super().as_dict()
+        d.update({"tick": self.tick, "killed": self.killed,
+                  "hung_ops": self.hung_ops})
+        return d
+
+    def __repr__(self):
+        return (f"RouterFaultInjector(seed={self.seed}, "
+                f"tick={self.tick}, killed={self.killed}, "
+                f"hung_ops={self.hung_ops})")
+
+
+class NetworkFaultInjector:
+    """Deterministic NETWORK faults for the session transport
+    (inference/net.py) — the fault domain below RouterFaultInjector's
+    kills and hangs: the worker process stays healthy, only the wire
+    lies. Schedules are keyed by (worker name, op seq) — the
+    transport's per-op sequence number is its deterministic clock, so
+    two identical runs take identical faults, recover through
+    identical reconnect sequences, and report identical ``net.*``
+    counters. Each scheduled fault fires at most once (the verdict is
+    consumed on first consult), so the retry that follows runs clean.
+
+    Fault kinds (``plan = {worker: {seq: kind}}``):
+
+      drop_before       the connection drops before the op frame is
+                        delivered — the worker never saw it; the
+                        resend after reconnect executes it (once).
+      drop_after        the connection drops after delivery — the
+                        worker executed and cached the reply; the
+                        resend is answered from the reply cache, NOT
+                        re-executed (the idempotency contract).
+      truncate_header   the reply frame is torn mid-header (EOF after
+                        4 of the 8 header bytes).
+      truncate_payload  the reply frame is torn mid-payload.
+      corrupt           one payload byte is flipped — the CRC check
+                        rejects the frame.
+      duplicate         the reply frame arrives twice; the second
+                        copy must be discarded by the want-seq check.
+      blackhole         every byte of the reply is swallowed until
+                        the op deadline expires — a silent peer; the
+                        liveness probe then proves the worker alive
+                        and the resend resolves the op.
+
+    Like every injector here: pure schedule playback, zero overhead
+    when absent (the transport consults it only when one was passed),
+    ``arm(False)`` disarms during replay."""
+
+    FAULTS = ("drop_before", "drop_after", "truncate_header",
+              "truncate_payload", "corrupt", "duplicate", "blackhole")
+    SEND_FAULTS = ("drop_before", "drop_after", "blackhole")
+    FRAME_FAULTS = ("truncate_header", "truncate_payload", "corrupt",
+                    "duplicate")
+
+    def __init__(self, plan: Optional[Dict[str, dict]] = None,
+                 seed: int = 0):
+        self.seed = int(seed)
+        self.plan: Dict[str, Dict[int, str]] = {}
+        for worker, sched in (plan or {}).items():
+            for s, kind in sched.items():
+                if kind not in self.FAULTS:
+                    raise ValueError(f"unknown network fault {kind!r} "
+                                     f"(one of {self.FAULTS})")
+            self.plan[str(worker)] = {int(s): str(k)
+                                      for s, k in sched.items()}
+        self._armed = True
+        self.fired: Dict[str, int] = {k: 0 for k in self.FAULTS}
+
+    @classmethod
+    def storm(cls, seed: int, workers, *, span=(2, 30), drops: int = 3,
+              frames: int = 2, blackholes: int = 1
+              ) -> "NetworkFaultInjector":
+        """Seeded random network storm: ``drops`` connection drops
+        (before/after delivery), ``frames`` torn/corrupt/duplicate
+        reply frames and ``blackholes`` silent-peer timeouts, each
+        aimed at a random (worker, op seq) in ``span``. Same seed ->
+        same storm — the acceptance-criteria generator."""
+        rng = np.random.RandomState(seed)
+        workers = list(workers)
+        n = drops + frames + blackholes
+        lo, hi = int(span[0]), int(span[1])
+        if hi - lo < n:
+            raise ValueError("not enough op seqs for the net storm")
+        kinds = (list(rng.choice(["drop_before", "drop_after"],
+                                 size=drops))
+                 + list(rng.choice(["truncate_header",
+                                    "truncate_payload", "corrupt",
+                                    "duplicate"], size=frames))
+                 + ["blackhole"] * blackholes)
+        plan: Dict[str, Dict[int, str]] = {}
+        # distinct seqs per worker so two faults never collide on one op
+        seqs = {w: list(rng.choice(np.arange(lo, hi), size=n,
+                                   replace=False)) for w in workers}
+        for kind in kinds:
+            w = workers[rng.randint(len(workers))]
+            plan.setdefault(w, {})[int(seqs[w].pop())] = str(kind)
+        return cls(plan=plan, seed=seed)
+
+    def arm(self, on: bool) -> None:
+        self._armed = bool(on)
+
+    def _take(self, worker: str, seq: int, kinds) -> Optional[str]:
+        if not self._armed:
+            return None
+        sched = self.plan.get(worker)
+        if not sched:
+            return None
+        kind = sched.get(int(seq))
+        if kind is None or kind not in kinds:
+            return None
+        del sched[int(seq)]           # fires at most once
+        self.fired[kind] += 1
+        return kind
+
+    def on_send(self, worker: str, seq: int) -> Optional[str]:
+        """Verdict consulted by the transport as it is about to send
+        op ``seq``: None (clean), "drop_before", "drop_after" or
+        "blackhole"."""
+        return self._take(worker, seq, self.SEND_FAULTS)
+
+    def on_reply(self, worker: str, seq: int) -> Optional[str]:
+        """Verdict consulted when a complete reply frame for op
+        ``seq`` is buffered: None, "truncate_header",
+        "truncate_payload", "corrupt" or "duplicate"."""
+        return self._take(worker, seq, self.FRAME_FAULTS)
+
+    @property
+    def pending(self) -> int:
+        return sum(len(s) for s in self.plan.values())
+
+    def as_dict(self) -> dict:
+        return {"seed": self.seed, "pending": self.pending,
+                "fired": dict(self.fired)}
+
+    def __repr__(self):
+        shot = {k: v for k, v in self.fired.items() if v}
+        return (f"NetworkFaultInjector(seed={self.seed}, "
+                f"pending={self.pending}, fired={shot})")

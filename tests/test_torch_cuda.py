@@ -1484,3 +1484,67 @@ def test_recoverable_server_crashes_and_recovers_on_the_card(kv_dtype,
     assert sorted(delivered) == sorted(set(delivered)) == sorted(base_del)
     assert srv.replayed_rounds > 0 and tpa.launch_count() > 0
     assert srv.engine.ledger.conservation()["ok"]
+
+
+def test_pipe_workers_on_the_card_survive_a_sigkill(tmp_path):
+    """Two PipeWorker processes, each with its own CUDA context serving
+    through the ragged kernel the parent built, behind one Router; a raw
+    SIGKILL of one worker mid-stream resubmits its streams to the other,
+    and every stream equals an uninterrupted in-process run on the card,
+    each outcome delivered once."""
+    _need_cuda()
+    from paddle_tpu_torch.inference import (PipeWorker, RequestOutcome,
+                                            Router, build_server_from_spec,
+                                            token_chain_hashes)
+    base = dict(d_model=64, heads=4, ffn=128, layers=2, vocab=128,
+                head_roll=1, block_size=4, num_blocks=80,
+                max_blocks_per_seq=10, device="cuda")
+
+    def spec(name):
+        return dict(base, journal_path=str(tmp_path / f"{name}.wal"),
+                    snapshot_path=str(tmp_path / f"{name}.ckpt"))
+
+    rng = np.random.RandomState(77)
+    prompts = [[int(t) for t in rng.randint(0, 128, n)]
+               for n in (6, 9, 13, 7)]
+    n = 10
+    _build.build_all()                 # the children load these
+    srv = build_server_from_spec(spec("solo"))
+    tpa.reset_launch_count()
+    rids = [srv.submit(p) for p in prompts]
+    want = {}
+    for _ in range(200):
+        if len(want) == len(rids):
+            break
+        srv.step()
+        for i, r in enumerate(rids):
+            if i not in want and len(srv.generated(r)) >= n:
+                want[i] = srv.generated(r)[:n]
+                srv.release(r)
+    assert len(want) == len(rids) and tpa.launch_count() > 0
+    model = srv.engine.target
+    srv.close()
+    workers = [PipeWorker(spec(f"p{i}"), name=f"p{i}", timeout=600.0,
+                          wait_ready=False) for i in range(2)]
+    try:
+        r = Router(workers, hash_fn=lambda t: token_chain_hashes(
+            model, t, 4), backoff_ticks=1)
+        rids = [r.submit(p, max_new_tokens=n) for p in prompts]
+        r.step()
+        victim = r._reqs[rids[0]].worker
+        {w.name: w for w in workers}[victim].kill()      # SIGKILL
+        ocs = []
+        for _ in range(80):
+            r.step()
+            ocs += r.drain_outcomes()
+            if len(ocs) >= len(rids):
+                break
+        assert r.stats.worker_deaths == 1 and r.stats.resubmissions >= 1
+        assert {i: r.generated(rid) for i, rid in enumerate(rids)} == want
+        assert sorted(o.rid for o in ocs) == sorted(rids)
+        assert all(o.status == RequestOutcome.FINISHED for o in ocs)
+        assert r.check_invariants()
+        r.close()
+    finally:
+        for w in workers:
+            w.kill()

@@ -192,7 +192,19 @@ def test_ported_parameters_are_accepted(case):
     ("PagedKVCache", "quarantine_seq"), ("PagedKVCache", "ragged_views"),
     ("FaultInjector", "__init__"), ("FaultInjector", "storm"),
     ("CrashInjector", "__init__"), ("CrashInjector", "storm"),
-    ("Tenant", "__init__"), ("TokenServingModel", "sample")])
+    ("Tenant", "__init__"), ("TokenServingModel", "sample"),
+    # the fleet (router.py, net.py, fleet.py and the two injectors)
+    ("Router", "__init__"), ("Router", "submit"), ("Router", "recover"),
+    ("Router", "register_respawn"), ("EngineWorker", "__init__"),
+    ("InProcWorker", "__init__"), ("PipeWorker", "__init__"),
+    ("SocketWorker", "__init__"), ("FleetSupervisor", "__init__"),
+    ("FleetSupervisor", "restore"), ("MigrationPolicy", "__init__"),
+    ("MigrationPolicy", "should_move"), ("ReplyCache", "__init__"),
+    ("SocketHost", "__init__"), ("ResilientTransport", "__init__"),
+    ("ResilientTransport", "call"), ("RouterFaultInjector", "__init__"),
+    ("RouterFaultInjector", "kill_storm"),
+    ("NetworkFaultInjector", "__init__"),
+    ("NetworkFaultInjector", "storm")])
 def test_serving_methods_take_the_reference_parameters(cls, method):
     """The serving methods' parameters (keyword-only ones included) are
     the reference's names, kinds and defaults, in order; the port's own

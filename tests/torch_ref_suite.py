@@ -13,7 +13,17 @@ module's source with its imports pointed at ``paddle_tpu_torch``:
 
 Every test class, test function and fixture of the reference then runs
 its own assertions on the port's engines, collectors, monitors, ledgers
-and recovery host, at the reference's sizes and seeds. The module's
+and recovery host, at the reference's sizes and seeds.
+
+The fleet suites (``spec_models=True``: router, fleet, net) build their
+workers from data-only specs (``build_server_from_spec``), which the
+port seeds with a CPU ``torch.Generator``, not jax's PRNG. For them the
+suite's own ``paddle.seed`` + ``FusedMultiTransformer`` builder makes
+the model the port's ``build_model_from_spec`` makes (so its hashes and
+streams agree with the spawned workers'), every spec ``_spec`` returns
+carries ``device="cpu"`` (spawned children too), children run one
+thread each, and ``from tests.test_<x> import ...`` reaches the port
+twin of that suite (a module ``tests._port_test_<x>``). The module's
 ``counting_clock`` fixture counts the port's clock reads instead of the
 JAX package's, and ``_on_cpu`` makes a pool built without a device
 (``PagedKVCache(...)`` in a test body) a CPU pool, as a caller on the CPU
@@ -21,6 +31,8 @@ asks for. Nothing of the JAX package runs but the model builders.
 """
 import os
 import re
+import sys
+import types
 
 import numpy as np
 import pytest
@@ -30,6 +42,7 @@ import paddle_tpu
 from paddle_tpu.incubate.nn import FusedMultiTransformer as _JaxFMT
 from paddle_tpu.inference import MoeServingCore as _JaxMoe
 from paddle_tpu_torch import device as _device
+from paddle_tpu_torch.incubate.nn import FusedMultiTransformer as _PortFMT
 from paddle_tpu_torch import weights
 from paddle_tpu_torch.inference import paged_cache as _paged
 from paddle_tpu_torch.inference import scheduler as _sched
@@ -47,10 +60,13 @@ def _state(model) -> dict:
 class _Paddle:
     """The slice of ``paddle`` the reference serving suites call."""
 
+    last_seed = 0
+
     @staticmethod
     def seed(s):
         paddle_tpu.seed(s)
         torch.manual_seed(s)
+        _Paddle.last_seed = int(s)
 
     @staticmethod
     def to_tensor(x, dtype=None):
@@ -67,6 +83,16 @@ def _fused_multi_transformer(embed_dim, num_heads, dim_feedforward,
                                "epsilon") if k in kw}
     return weights.fused_multi_transformer(_state(jm), num_heads,
                                            device="cpu", **opts)
+
+
+def _spec_fused_multi_transformer(embed_dim, num_heads, dim_feedforward,
+                                  *args, **kw):
+    """The port's FusedMultiTransformer as ``build_model_from_spec``
+    builds it: weights from a CPU generator seeded with the last
+    ``paddle.seed``, on the CPU."""
+    return _PortFMT(embed_dim, num_heads, dim_feedforward, *args,
+                    device="cpu", generator=torch.Generator(
+                        "cpu").manual_seed(_Paddle.last_seed), **kw)
 
 
 def _moe_serving_core(embed_dim, num_heads, dim_feedforward, num_experts=4,
@@ -91,22 +117,53 @@ _SUBS = (
 )
 
 
-def load_on_port(ref_file: str, name: str) -> dict:
+def _port_module(stem: str) -> types.ModuleType:
+    """The fleet twin of reference suite ``tests/<stem>.py`` as module
+    ``tests._port_<stem>`` (loaded once per process)."""
+    name = f"tests._port_{stem}"
+    mod = sys.modules.get(name)
+    if mod is None:
+        mod = types.ModuleType(name)
+        sys.modules[name] = mod
+        load_on_port(f"tests/{stem}.py", name, spec_models=True,
+                     ns=mod.__dict__)
+    return mod
+
+
+def _cpu_specs(make_spec):
+    def _spec(*args, **kw):
+        return dict(make_spec(*args, **kw), device="cpu")
+    return _spec
+
+
+def load_on_port(ref_file: str, name: str, spec_models: bool = False,
+                 ns: dict = None) -> dict:
     """The namespace of reference test module ``ref_file`` (a path
     relative to the repository root) compiled against the port, as
-    module ``name``."""
+    module ``name`` (into ``ns`` when given)."""
     path = os.path.join(_ROOT, ref_file)
     with open(path) as f:
         src = f.read()
     for a, b in _SUBS:
         src = src.replace(a, b)
+    if spec_models:
+        for stem in sorted(set(re.findall(r"from tests\.(test_\w+) import",
+                                          src))):
+            _port_module(stem)
+            src = src.replace(f"from tests.{stem} import",
+                              f"from tests._port_{stem} import")
     left = [m for m in re.findall(r"paddle_tpu(?!_torch)\.\w+", src)
             if m != "paddle_tpu.report"]     # the tools' schema name
     assert not left, f"{ref_file}: unported reference imports {left}"
-    ns = {"__name__": name, "__file__": path,
-          "_port_paddle": _Paddle, "_port_fmt": _fused_multi_transformer,
-          "_port_moe": _moe_serving_core}
+    ns = {} if ns is None else ns
+    ns.update({"__name__": name, "__file__": path,
+               "_port_paddle": _Paddle,
+               "_port_fmt": (_spec_fused_multi_transformer if spec_models
+                             else _fused_multi_transformer),
+               "_port_moe": _moe_serving_core})
     exec(compile(src, path, "exec"), ns)
+    if spec_models and "_spec" in ns:
+        ns["_spec"] = _cpu_specs(ns["_spec"])
     return ns
 
 
@@ -115,14 +172,16 @@ def _is_fixture(v) -> bool:
         hasattr(v, "_pytestfixturefunction")
 
 
-def suite(ref_file: str, name: str, only=None) -> dict:
+def suite(ref_file: str, name: str, only=None,
+          spec_models: bool = False) -> dict:
     """What a twin module puts in its globals: the reference module's
     test classes, test functions, fixtures and module marks
     (``load_on_port``), plus a ``counting_clock`` that counts the port's
     clock reads and the ``_on_cpu`` pool default. ``only`` names the
     tests to take instead (``"TestClass"``, ``"TestClass.test_x"``,
-    ``"test_fn"``; the module marks stay behind)."""
-    ns = load_on_port(ref_file, name)
+    ``"test_fn"``; the module marks stay behind). ``spec_models``: a
+    fleet suite (see the module docstring)."""
+    ns = load_on_port(ref_file, name, spec_models)
     out = {k: v for k, v in ns.items() if _is_fixture(v)}
     if only is None:
         out.update({k: v for k, v in ns.items()
@@ -139,6 +198,8 @@ def suite(ref_file: str, name: str, only=None) -> dict:
             out[cls_name] = cls
     out["counting_clock"] = counting_clock
     out["_on_cpu"] = _on_cpu
+    if spec_models:
+        out["_one_thread_children"] = _one_thread_children
     return out
 
 
@@ -148,6 +209,13 @@ def _on_cpu(monkeypatch):
         _paged, "resolve_device",
         lambda device=None: _device.resolve_device(
             "cpu" if device is None else device))
+
+
+@pytest.fixture(autouse=True)
+def _one_thread_children(monkeypatch):
+    """Spawned worker processes inherit the environment: one intra-op
+    thread each, as this process runs."""
+    monkeypatch.setenv("OMP_NUM_THREADS", "1")
 
 
 @pytest.fixture
