@@ -190,7 +190,19 @@ fails the run:
    delivered once and every worker's audit ok; children's start-up
    seconds, slice bytes and ship seconds, respawn seconds, reconnects
    and net counters printed;
-22. print the kernels line, the card line and, last, the contract line.
+22. (run after phase 21) head-sharded serving at the same width:
+   phase 3's traffic through ``tsm.shard(2)`` and ``tsm.shard(4)``
+   (logical shards on the one card, per-shard qkv column slices) over
+   phase 3's float pool and over an int8 pool (held to an mp=1 run of
+   the same float weights over int8 pages): streams and scheduling
+   counts equal to mp=1's, one all-reduce per layer per model call,
+   ragged launches layers x mp per call, per-device pool bytes the
+   total over mp; an mp=2 snapshot restored at mp=1 and an mp=1
+   snapshot at mp=2, and an mp=2 slice resumed in an mp=1 pool, each
+   continuing phase 3's streams; mp=2 hidden states of phase 4's
+   teacher-forced run bitwise mp=1's with the replicated projection
+   (within TOL_REL with the column slices); tokens/s printed only;
+23. print the kernels line, the card line and, last, the contract line.
 Every number printed carries the card's name and power limit; each row
 of the kernels line says in ``timed`` which call it timed and how.
 """
@@ -875,13 +887,15 @@ def phase_serve(torch, device, cfg, tsm, prompts, tag, say, label,
     outs = eng.outcomes
     preempt = sum(o.preemptions for o in outs)
     st = eng.engine.prefill_stats
+    # a head-sharded core launches once per layer per shard
+    per_call = cfg["layers"] * getattr(tsm.core, "mp", 1)
     say(f"{tag} {label}: {len(rids)} requests x {n_new} tokens in "
         f"{secs:.3f} s = {len(rids) * n_new / secs:.2f} tokens/s; "
         f"{rounds} rounds, {len(rows)} model calls, {st.mixed_steps} "
         f"mixed steps, {preempt} preemptions "
         f"({eng.engine.resilience_stats.retried} re-admissions), "
         f"ragged launches {launches['paged_attention_ragged']} "
-        f"(= {cfg['layers']} x {len(rows)} model calls), peak memory "
+        f"(= {per_call} x {len(rows)} model calls), peak memory "
         f"{peak / 2**20:.1f} MiB")
     require(all(o.status == "finished" for o in outs) and
             len(outs) == len(rids), "a request did not finish")
@@ -893,8 +907,8 @@ def phase_serve(torch, device, cfg, tsm, prompts, tag, say, label,
             "malformed token stream")
     if device.type == "cuda":
         require(launches["paged_attention_ragged"] ==
-                cfg["layers"] * len(rows) > 0,
-                f"ragged launches {launches} != layers x model calls")
+                per_call * len(rows) > 0,
+                f"ragged launches {launches} != {per_call} x model calls")
     return dict(launches=launches, streams=streams, engine=eng, rows=rows,
                 heads=len(heads), secs=secs, peak=peak,
                 counts=dict(rounds=rounds, model_calls=len(rows),
@@ -2005,7 +2019,8 @@ def phase_resilience(torch, device, cfg, tsm, tsm8, prompts, qprompts,
     # 4. a slice: one running request moves to a second engine
     src = engine()
     rid = src.submit(prompts[0])
-    _drive(src, [rid], n_new, {}, stop=lambda e: len(e.generated(rid)) >= 8)
+    _drive(src, [rid], n_new, {},
+           stop=lambda e: len(e.generated(rid)) >= n_new // 4)
     head = src.generated(rid)
     slc = src.export_slice(rid)
     src.check_invariants()
@@ -2885,6 +2900,162 @@ def phase_fleet(torch, device, cfg, prompts, seed, tag, say):
             for h in handles + [ws.handle for rt in routers
                                 for ws in rt._workers.values()]:
                 getattr(h, "handle", h).kill()
+
+
+# -- phase 22: head-sharded serving ---------------------------------------
+def _pool_bytes(cfg, kv):
+    """Bytes of phase 3's pool (num_blocks pages of every layer) at mp 1:
+    the payload, plus one float32 scale per (K|V, head, position) of an
+    int8 pool."""
+    per_pos = cfg["d"] * (1 if kv == "int8" else 4) + \
+        (4 * cfg["heads"] if kv == "int8" else 0)
+    return (cfg["layers"] * cfg["num_blocks"] * 2 * cfg["block_size"] *
+            per_pos)
+
+
+def phase_sharded(torch, device, cfg, tsm, prompts, serve, toks, pH, tag,
+                  say):
+    """Phase 22: phase 3's traffic through ``tsm.shard(mp)``, mp 2 and 4,
+    as logical shards on the one card (qkv "weights": per-shard column
+    slices), over phase 3's float pool and over an int8 pool (its mp=1
+    reference: the same float weights over int8 pages). Streams equal the
+    mp=1 run's, one all-reduce per layer per model call, ragged launches
+    layers x mp per call, per-device pool bytes the total over mp, the
+    scheduling counts mp=1's; an mp=2 snapshot restores at mp=1 and an
+    mp=1 snapshot at mp=2, an mp=2 slice imports into an mp=1 pool, each
+    continuing phase 3's streams; "activations" hidden states bitwise
+    phase 4's teacher-forced mp=1 rows ("weights": within TOL_REL).
+    tokens/s at mp 1, 2 and 4 are printed only."""
+    from paddle_tpu_torch.inference import SpeculativeEngine
+    L, n_new, nb = cfg["layers"], cfg["new_tokens"], cfg["num_blocks"]
+    ref = serve["streams"]
+
+    def engine(model, **kw):
+        kw = dict(dict(max_batch=cfg["max_batch"],
+                       block_size=cfg["block_size"], num_blocks=nb,
+                       chunk_tokens=cfg["chunk_tokens"],
+                       prefill_token_budget=cfg["budget"]), **kw)
+        return SpeculativeEngine(model, None, k=0, **kw)
+
+    t0 = time.perf_counter()
+    q1 = phase_serve(torch, device, cfg, tsm, prompts, tag, say,
+                     "sharded: the int8-pool reference (mp=1, float "
+                     "weights)", nb, kv_dtype="int8")
+    del q1["engine"]
+    base = {"float32": serve, "int8": q1}
+    tps = {}
+    for kv in ("float32", "int8"):
+        tps[(kv, 1)] = len(prompts) * n_new / base[kv]["secs"]
+        for mp in (2, 4):
+            t = tsm.shard(mp)
+            r = phase_serve(torch, device, cfg, t, prompts, tag, say,
+                            f"sharded serving mp={mp} ({kv} pool, qkv "
+                            f"{t.core.qkv_shard}, logical shards)", nb,
+                            kv_dtype=kv)
+            eng = r["engine"].engine
+            calls = len(r["rows"])
+            tps[(kv, mp)] = len(prompts) * n_new / r["secs"]
+            want = _pool_bytes(cfg, kv)
+            reg = eng.registry.as_dict()["sharded.allreduce_count"]
+            same = sum(a == b for a, b in zip(r["streams"],
+                                              base[kv]["streams"]))
+            say(f"{tag} sharded mp={mp} {kv}: allreduce_count "
+                f"{t.core.allreduce_count} (= {L} x {calls} model calls; "
+                f"registry {reg}); pool bytes per device "
+                f"{eng.cache.pool_bytes()} of {eng.cache.pool_bytes_total()}"
+                f" total (mp=1 pool {want}); streams equal to mp=1's "
+                f"{same} of {len(prompts)}; counts {r['counts']}")
+            require(r["streams"] == base[kv]["streams"],
+                    f"mp={mp} {kv} streams differ from mp=1's")
+            require(r["counts"] == base[kv]["counts"],
+                    f"mp={mp} {kv} scheduled {r['counts']}, mp=1 "
+                    f"{base[kv]['counts']}")
+            require(t.core.allreduce_count == L * calls == reg,
+                    f"allreduce_count {t.core.allreduce_count} != "
+                    f"{L} x {calls}")
+            require(eng.cache.pool_bytes() * mp ==
+                    eng.cache.pool_bytes_total() == want,
+                    "per-device pool bytes != total / mp")
+            del r, eng, t
+            gc.collect()
+    say(f"{tag} sharded tokens/s (printed only; logical shards on one "
+        f"card): " + ", ".join(f"{kv} mp={mp} {v:.2f}"
+                               for (kv, mp), v in tps.items()))
+
+    # snapshots across widths, cut a third of the way through phase 3's
+    # rounds
+    cut = serve["counts"]["rounds"] // 3
+    for src_mp, dst_mp in ((2, 1), (1, 2)):
+        eng = engine(tsm.shard(src_mp) if src_mp > 1 else tsm)
+        rids = [eng.submit(p) for p in prompts]
+        done = {}
+        _drive(eng, rids, n_new, done, stop=_after(cut))
+        require(len(done) < len(rids), "every request finished before "
+                "the snapshot")
+        snap, n_done = eng.snapshot(), len(done)
+        del eng
+        gc.collect()
+        eng = SpeculativeEngine.restore(
+            tsm.shard(dst_mp) if dst_mp > 1 else tsm, None, snap)
+        require(eng.engine.cache.mp == dst_mp and
+                snap["engine"]["cache"]["geometry"]["mp"] == src_mp,
+                "restore did not rebuild at the target width")
+        _drive(eng, rids, n_new, done)
+        got = [done[r] for r in rids]
+        say(f"{tag} sharded snapshot mp={src_mp} -> mp={dst_mp} at round "
+            f"{cut}: {len(snap['engine']['cache']['blocks'])} pages, "
+            f"{n_done} requests done at the cut; streams "
+            f"equal to phase 3's {sum(a == b for a, b in zip(got, ref))} "
+            f"of {len(ref)}")
+        require(got == ref, f"the mp={src_mp} snapshot restored at "
+                f"mp={dst_mp} left phase 3's streams")
+        del eng, snap
+        gc.collect()
+
+    # an mp=2 slice into an mp=1 pool
+    src = engine(tsm.shard(2))
+    rid = src.submit(prompts[0])
+    _drive(src, [rid], n_new, {},
+           stop=lambda e: len(e.generated(rid)) >= n_new // 4)
+    head = src.generated(rid)
+    slc = src.export_slice(rid)
+    dst = engine(tsm, prefix_cache=True)
+    got = dst.import_slice(slc)
+    rid2 = dst.submit(src.tokens(rid), resume=True)
+    tail = {}
+    _drive(dst, [rid2], n_new - len(head), tail)
+    stream = head + tail[rid2]
+    dst.check_invariants()
+    hits = dst.engine.prefix_stats.hit_blocks
+    say(f"{tag} sharded slice mp=2 -> mp=1: {len(slc['hashes'])} pages "
+        f"({slc['payload'].shape[3]} heads, canonical), {got} imported, "
+        f"{hits} adopted; stream equal to phase 3's "
+        f"{sum(x == y for x, y in zip(stream, ref[0]))} of {n_new}")
+    require(got == len(slc["hashes"]) == hits > 0 and stream == ref[0],
+            "the mp=2 slice did not continue phase 3's stream at mp=1")
+    del src, dst, slc
+
+    # hidden states: phase 4's teacher-forced paged run (mp=1) again
+    for mode in ("activations", "weights"):
+        core = tsm.shard(2, qkv_shard=mode).core
+        h, eng = teacher_force(torch, device, cfg, core, tsm, prompts[:4],
+                               toks)
+        del eng
+        err = float((h - pH).abs().max())
+        bitwise = bool(torch.equal(h, pH))
+        say(f"{tag} sharded hidden states mp=2 qkv {mode} vs mp=1 (4 "
+            f"prompts teacher-forced, {n_new} steps, "
+            f"{core.allreduce_count} all-reduces): bitwise equal "
+            f"{bitwise}, max_abs_diff {err:.3e} (max|h| "
+            f"{float(pH.abs().max()):.3e})")
+        if mode == "activations":
+            require(bitwise, "activations-mode hidden states are not "
+                    "bitwise mp=1's")
+        else:
+            require(err <= TOL_REL * float(pH.abs().max()),
+                    "weights-mode hidden states beyond TOL_REL")
+    say(f"{tag} phase 22 (sharded serving): "
+        f"{time.perf_counter() - t0:.1f} s")
 
 
 def phase_profile(torch, device, cfg, tsm, tsm_moe, tag, say):
@@ -3943,6 +4114,8 @@ def run(device, cfg, seed=0, say=print, card=None):
                      toks[:cfg["spec_requests"]], first_small, seed, tag,
                      say)
     phase_fleet(torch, device, cfg, prompts, seed, tag, say)
+    phase_sharded(torch, device, cfg, tsm, prompts, serve, toks, pH, tag,
+                  say)
     del tsm8
     rows["gmm"]["launches"] = mserve["launches"]["gmm"]
     rows["paged_attention_ragged"]["launches"] = \

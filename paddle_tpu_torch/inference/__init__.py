@@ -19,7 +19,8 @@ from .scheduler import (DEFAULT_TENANT,  # noqa: F401
                         PagedServingEngine, Tenant, chunked_prefill)
 from .serving import (ContinuousBatchingEngine,  # noqa: F401
                       ParallelStats, PrefillStats, PrefixCacheStats,
-                      ResilienceStats, SpecDecodeStats, TenantStats)
+                      ResilienceStats, ShardedServingCore,
+                      SpecDecodeStats, TenantStats)
 from .speculative import (SpeculativeEngine,  # noqa: F401
                           TokenServingModel, branch_lane_seed,
                           logit_mask_fn, register_logit_mask)
@@ -45,7 +46,8 @@ __all__ = ["Alert", "BlockAllocator", "BlockOOM",
            "ParallelStats", "PrefillStats", "PrefixCacheStats",
            "RecoverableServer", "RecoveryError", "RequestJournal",
            "RequestOutcome", "ResilienceStats", "SNAPSHOT_VERSION",
-           "SeriesBuffer", "SloPolicy", "SloTracker",
+           "SeriesBuffer", "ShardedServingCore", "SloPolicy",
+           "SloTracker",
            "SnapshotVersionError", "SpecDecodeStats", "SpeculativeEngine",
            "StatsBase", "Tenant", "TenantStats", "TokenServingModel",
            "TraceCollector", "WASTE_CAUSES", "WorkModel",

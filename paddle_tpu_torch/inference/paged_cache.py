@@ -62,8 +62,24 @@ exactly. Pool writes are IN PLACE (``pool[blk, 0, :, off, :] = k``): the
 JAX class rebinds a new pool array per append, here the one pool tensor
 per layer is updated, which is what keeps peak KV memory equal to the
 pool. A bfloat16 pool's snapshot payload is float32 (numpy has no
-bfloat16; the upcast is exact and restore casts back). Tensor-parallel
-pools are not ported.
+bfloat16; the upcast is exact and restore casts back).
+
+TENSOR-PARALLEL POOLS (``mp`` > 1, the JAX class's
+paged_cache.py:1087-1330): the pool is partitioned over attention heads.
+``pools[layer * mp + s]`` is shard s's ``[num_blocks, 2, H/mp, bs, D]``
+head slice (heads ``[s*H/mp, (s+1)*H/mp)``) on ``shard_devices[s]``, and
+``scales`` likewise on an int8 pool. Everything else (allocator, tables,
+refcounts, LRU, chain hashes, tenant charges, decode mask) is host
+metadata that does not change with ``mp``. Each layer view's ``shard(s)``
+is the view a ``ShardedServingCore`` drives with shard s's head slice of
+q/k/v; the shard views of one model call share that call's ``_Route`` /
+``_RaggedLayout`` (built once, not once per shard). Snapshots and
+slices stay CANONICAL: full-head pages, the shards concatenated on the
+head axis going out and split coming in, so they restore and import at
+any width. With ``shard_devices`` naming one device repeated (one card,
+or the CPU) the shards are LOGICAL; on distinct cards a route's tensors
+are copied once to each shard's card (``_Route.on``), a path no machine
+with one card runs (unverified).
 """
 from __future__ import annotations
 
@@ -75,7 +91,6 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..framework.unported import require_defaults
 from ..ops.hopper.paged_attention import RaggedPlan, paged_attention_ragged
 
 __all__ = ["BlockOOM", "BlockAllocator", "PagedKVCache",
@@ -276,7 +291,7 @@ class _Route:
     and tables — built once per model call and shared by every layer."""
 
     __slots__ = ("blk", "off", "kv_lens", "bt", "plan", "tile_q",
-                 "tile_kv")
+                 "tile_kv", "_dev")
 
     def __init__(self, blk, off, kv_lens, bt, q_lens, device,
                  tile_q=None, tile_kv=None):
@@ -291,18 +306,40 @@ class _Route:
         # kernel's defaults)
         self.tile_q = tile_q
         self.tile_kv = tile_kv
+        self._dev: Dict[str, "_Route"] = {}
+
+    def on(self, device: torch.device) -> "_Route":
+        """This route with its tensors on ``device`` (``device`` is a
+        tensor's, so indexed): itself where they already are, else a
+        copy made once per device and kept (a shard on another card;
+        the plan caches its own tables per device)."""
+        if device == self.blk.device:
+            return self
+        key = str(device)
+        got = self._dev.get(key)
+        if got is None:
+            got = object.__new__(_Route)
+            got.blk, got.off, got.kv_lens = (
+                t.to(device) for t in (self.blk, self.off, self.kv_lens))
+            got.bt = None if self.bt is None else self.bt.to(device)
+            got.plan, got.tile_q, got.tile_kv = (self.plan, self.tile_q,
+                                                 self.tile_kv)
+            got._dev = {}
+            self._dev[key] = got
+        return got
 
 
-def _append(cache: "PagedKVCache", layer: int, route: _Route, k, v) -> None:
-    """Packed in-place append: row r of k/v [N, H, D] lands at
-    pool[blk[r], :, :, off[r], :] — quantized, with its scales, on an
-    int8 pool. Rows routed to the trash block may collide there; nothing
-    reads it unmasked."""
-    pool = cache.pools[layer]
+def _append(cache: "PagedKVCache", pi: int, route: _Route, k, v) -> None:
+    """Packed in-place append into pool entry ``pi`` (``pool_index``):
+    row r of k/v [N, H/mp, D] lands at pool[blk[r], :, :, off[r], :] —
+    quantized, with its scales, on an int8 pool. Rows routed to the
+    trash block may collide there; nothing reads it unmasked."""
+    pool = cache.pools[pi]
+    route = route.on(pool.device)
     if cache.quantized:
         kq, ks = _quant_rows(k)
         vq, vs = _quant_rows(v)
-        sc = cache.scales[layer]
+        sc = cache.scales[pi]
         pool[route.blk, 0, :, route.off, :] = kq
         pool[route.blk, 1, :, route.off, :] = vq
         sc[route.blk, 0, :, route.off] = ks
@@ -313,31 +350,52 @@ def _append(cache: "PagedKVCache", layer: int, route: _Route, k, v) -> None:
 
 
 class _View:
-    """What every layer view shares: its pool, its scale pages (int8
-    pools) and its shape."""
+    """What every layer view shares: its (layer, shard) pool entry, its
+    scale pages (int8 pools), its shape and the head-count guard."""
 
     is_paged = True
 
+    def _bind(self, cache: "PagedKVCache", layer: int, shard: int) -> None:
+        self._cache = cache
+        self._layer = layer
+        self._shard = int(shard)
+        self._pi = cache.pool_index(layer, self._shard)
+
     @property
     def pool(self) -> torch.Tensor:
-        return self._cache.pools[self._layer]
+        return self._cache.pools[self._pi]
 
     @property
     def kv_scales(self) -> Optional[torch.Tensor]:
         """Per-page dequantization scales (int8 pools), else None."""
         c = self._cache
-        return c.scales[self._layer] if c.quantized else None
+        return c.scales[self._pi] if c.quantized else None
 
     @property
     def shape(self):
         return self.pool.shape
 
+    def _check_heads(self, q) -> None:
+        """A full-head q against a sharded pool would scatter H rows into
+        an H/mp page (or be read as a GQA group by the kernel): refuse
+        it, naming the fix (the JAX class's paged_cache.py:524-533)."""
+        c = self._cache
+        if c.mp > 1 and int(q.shape[2]) != c.heads_per_shard:
+            raise ValueError(
+                f"sharded pool (mp={c.mp}) expects the per-shard "
+                f"head slice ({c.heads_per_shard} heads), got "
+                f"{int(q.shape[2])} — drive a sharded cache through "
+                f"a ShardedServingCore (per-shard qkv), not a "
+                f"single-chip model")
+
     def _attend(self, q, route: _Route, q_lens):
-        return paged_attention_ragged(q, self.pool, route.bt, q_lens,
-                                      route.kv_lens, tile_q=route.tile_q,
-                                      tile_kv=route.tile_kv,
+        pool = self.pool
+        r = route.on(pool.device)
+        return paged_attention_ragged(q, pool, r.bt, q_lens,
+                                      r.kv_lens, tile_q=r.tile_q,
+                                      tile_kv=r.tile_kv,
                                       kv_scales=self.kv_scales,
-                                      plan=route.plan)
+                                      plan=r.plan)
 
 
 class PagedLayerCache(_View):
@@ -346,22 +404,27 @@ class PagedLayerCache(_View):
     L tokens per row at positions t[b] .. t[b]+L-1 through the (decode-
     masked) batch table and returns the attention [B, L, nh, hd]."""
 
-    def __init__(self, cache: "PagedKVCache", layer: int):
-        self._cache = cache
-        self._layer = layer
+    def __init__(self, cache: "PagedKVCache", layer: int, shard: int = 0):
+        self._bind(cache, layer, shard)
+
+    def shard(self, s: int) -> "PagedLayerCache":
+        """This layer's view of mp shard ``s``: the same tables and
+        routes, shard s's pages, driven with its head slice of q/k/v."""
+        return PagedLayerCache(self._cache, self._layer, shard=s)
 
     def decode(self, q, k, v, t):
-        """q/k/v: [B, L, H, D]; t: int [B] per-row START positions
+        """q/k/v: [B, L, H/mp, D]; t: int [B] per-row START positions
         (host array or tensor). PRECONDITION: ``ensure(row, t[row]+L,
         write_from=t[row])`` for every active row."""
         c = self._cache
         B, L = q.shape[0], q.shape[1]
         if B != c.max_seqs:
             raise ValueError(f"batch {B} != cache max_seqs {c.max_seqs}")
+        self._check_heads(q)
         tv = _host_rows(t, B)
-        route = c._decode_route(tv, L, check=self._layer == 0)
+        route = c._decode_route(tv, L, check=self._pi == 0)
         H, D = q.shape[2], q.shape[3]
-        _append(c, self._layer, route, k.reshape(B * L, H, D),
+        _append(c, self._pi, route, k.reshape(B * L, H, D),
                 v.reshape(B * L, H, D))
         out = self._attend(q.reshape(B * L, H, D), route, (L,) * B)
         return out.reshape(B, L, H, D)
@@ -377,24 +440,29 @@ class PagedPrefillView(_View):
     writes to the trash block."""
 
     def __init__(self, cache: "PagedKVCache", layer: int, slot: int,
-                 write_start: int = 0):
-        self._cache = cache
-        self._layer = layer
+                 write_start: int = 0, shard: int = 0):
+        self._bind(cache, layer, shard)
         self._slot = slot
         self._write_start = int(write_start)
 
+    def shard(self, s: int) -> "PagedPrefillView":
+        """This (layer, slot) chunk view of mp shard ``s``."""
+        return PagedPrefillView(self._cache, self._layer, self._slot,
+                                write_start=self._write_start, shard=s)
+
     def decode(self, q, k, v, t):
-        """q/k/v: [1, C, H, D], one chunk starting at position t[0].
+        """q/k/v: [1, C, H/mp, D], one chunk starting at position t[0].
         PRECONDITION: ``ensure(slot, t[0]+C, write_from=t[0])``."""
         c = self._cache
         B, C = q.shape[0], q.shape[1]
         if B != 1:
             raise ValueError(
                 f"chunk prefill is a batch-1 call, got batch {B}")
+        self._check_heads(q)
         start = int(_host_rows(t, 1)[0])
         route = c._prefill_route(self._slot, start, C, self._write_start,
-                                 check=self._layer == 0)
-        _append(c, self._layer, route, k[0], v[0])
+                                 check=self._pi == 0)
+        _append(c, self._pi, route, k[0], v[0])
         return self._attend(q[0], route, (C,))[None]
 
 
@@ -475,20 +543,26 @@ class PagedRaggedView(_View):
     per layer (the kernel on CUDA, its plain version on the CPU)."""
 
     def __init__(self, cache: "PagedKVCache", layer: int,
-                 layout: _RaggedLayout):
-        self._cache = cache
-        self._layer = layer
+                 layout: _RaggedLayout, shard: int = 0):
+        self._bind(cache, layer, shard)
         self._layout = layout
 
+    def shard(self, s: int) -> "PagedRaggedView":
+        """This layer's ragged view of mp shard ``s``: the SAME layout
+        (routing, tables, plan) rides along."""
+        return PagedRaggedView(self._cache, self._layer, self._layout,
+                               shard=s)
+
     def decode(self, q, k, v, t=None):
-        """q/k/v: [1, R, H, D] — the packed mixed batch. ``t`` is
+        """q/k/v: [1, R, H/mp, D] — the packed mixed batch. ``t`` is
         ignored: the layout carries every row's absolute position."""
         lay = self._layout
         if q.shape[0] != 1 or q.shape[1] != lay.total_rows:
             raise ValueError(
                 f"ragged call expects [1, {lay.total_rows}, H, D], "
                 f"got {tuple(q.shape)}")
-        _append(self._cache, self._layer, lay.route, k[0], v[0])
+        self._check_heads(q)
+        _append(self._cache, self._pi, lay.route, k[0], v[0])
         return self._attend(q[0], lay.route, lay.q_lens)[None]
 
 
@@ -506,25 +580,42 @@ class PagedKVCache:
     tables. ``views`` is the list consumed as ``caches=`` by the fused
     decoder; allocation/free/fork are host-side, the pool writes are
     in-place tensor scatters on ``device``. ``dtype`` is a torch dtype
-    or its name ("float32", "bfloat16", "int8")."""
+    or its name ("float32", "bfloat16", "int8"). ``mp`` > 1 splits the
+    pool over heads into ``mp`` shards on ``shard_devices`` (default
+    ``parallel.mesh.serving_shard_devices(mp, device)``; see the module
+    docstring)."""
 
     def __init__(self, num_layers: int, num_heads: int, head_dim: int,
                  block_size: int, num_blocks: int, max_seqs: int,
                  max_blocks_per_seq: Optional[int] = None,
                  dtype="float32", prefix_cache: bool = False,
                  mp: int = 1, shard_devices=None, *, device=None):
-        # tensor-parallel pools (mp > 1) are not ported
-        require_defaults("PagedKVCache", mp=(mp, 1),
-                         shard_devices=(shard_devices, None))
         # the dtype's name is what snapshots and slices record (the JAX
         # class's geometry key)
         self.dtype_name = dtype if isinstance(dtype, str) else \
             str(dtype).replace("torch.", "")
         if isinstance(dtype, str):
             dtype = getattr(torch, dtype)
+        if device is None and shard_devices is not None:
+            device = shard_devices[0]
         self.device = resolve_device(device)
         self.num_layers = int(num_layers)
         self.num_heads = int(num_heads)
+        self.mp = int(mp)
+        if self.mp < 1:
+            raise ValueError(f"mp must be >= 1, got {mp}")
+        if self.num_heads % self.mp:
+            raise ValueError(
+                f"num_heads {self.num_heads} must divide evenly over "
+                f"mp={self.mp} tensor-parallel shards")
+        if shard_devices is None:
+            from ..parallel.mesh import serving_shard_devices
+            shard_devices = serving_shard_devices(self.mp, self.device)
+        if len(shard_devices) < self.mp:
+            raise ValueError(f"need {self.mp} shard devices, got "
+                             f"{len(shard_devices)}")
+        self.shard_devices = [torch.device(d)
+                              for d in shard_devices[:self.mp]]
         self.head_dim = int(head_dim)
         self.block_size = int(block_size)
         self.num_blocks = int(num_blocks)
@@ -548,18 +639,22 @@ class PagedKVCache:
         # shared, hash-indexed and cached-free blocks; re-shares drop
         # the entry
         self._audit_fp: Dict[int, bytes] = {}
+        # pools[layer * mp + s]: shard s's head slice on its device (one
+        # entry per layer at mp 1)
+        Hs = self.heads_per_shard
+        n = self.num_layers * self.mp
         self.pools: List[torch.Tensor] = [
-            torch.zeros((self.num_blocks, 2, self.num_heads,
-                         self.block_size, self.head_dim), dtype=dtype,
-                        device=self.device)
-            for _ in range(self.num_layers)]
-        # int8 pools: [num_blocks, 2, H, block_size] float32 scales per
-        # layer; zeros dequantize to exact zeros, like a zeroed pool
+            torch.zeros((self.num_blocks, 2, Hs, self.block_size,
+                         self.head_dim), dtype=dtype,
+                        device=self.shard_devices[pi % self.mp])
+            for pi in range(n)]
+        # int8 pools: [num_blocks, 2, H/mp, block_size] float32 scales
+        # per entry; zeros dequantize to exact zeros, like a zeroed pool
         self.scales: Optional[List[torch.Tensor]] = [
-            torch.zeros((self.num_blocks, 2, self.num_heads,
-                         self.block_size), dtype=torch.float32,
-                        device=self.device)
-            for _ in range(self.num_layers)] if self.quantized else None
+            torch.zeros((self.num_blocks, 2, Hs, self.block_size),
+                        dtype=torch.float32,
+                        device=self.shard_devices[pi % self.mp])
+            for pi in range(n)] if self.quantized else None
         # all entries at the trash block until allocated
         self.block_tables = np.zeros(
             (self.max_seqs, self.max_blocks_per_seq), np.int32)
@@ -588,13 +683,50 @@ class PagedKVCache:
     def for_model(cls, model, block_size, num_blocks, max_seqs,
                   max_blocks_per_seq=None, dtype="float32",
                   prefix_cache=False):
-        """A pool matching ``model``'s geometry and device."""
+        """A pool matching ``model``'s geometry and device, and its
+        tensor-parallel layout: a ShardedServingCore carries ``mp`` and
+        ``shard_devices`` (the JAX class's paged_cache.py:1220-1232)."""
         return cls(model.num_layers, model.num_heads, model.head_dim,
                    block_size, num_blocks, max_seqs,
                    max_blocks_per_seq=max_blocks_per_seq, dtype=dtype,
-                   prefix_cache=prefix_cache, device=model.device)
+                   prefix_cache=prefix_cache,
+                   mp=getattr(model, "mp", 1),
+                   shard_devices=getattr(model, "shard_devices", None),
+                   device=model.device)
 
     # -- geometry -----------------------------------------------------
+    @property
+    def heads_per_shard(self) -> int:
+        """Heads each mp shard stores (num_heads at mp 1); shard s holds
+        heads [s*H/mp, (s+1)*H/mp)."""
+        return self.num_heads // self.mp
+
+    def pool_index(self, layer: int, shard: int = 0) -> int:
+        """Index of (layer, shard)'s entry in ``pools`` / ``scales``."""
+        return layer * self.mp + shard
+
+    def rebind_shard_pools(self, layer: int, global_pool,
+                           global_scales=None) -> None:
+        """Write a full-head ``[num_blocks, 2, H, bs, D]`` pool (and
+        ``[num_blocks, 2, H, bs]`` scales on an int8 pool) into this
+        layer's shard entries, each shard its head slice, IN PLACE: the
+        entries keep their identity, so nothing that holds them loses its
+        buffer (the JAX class rebinds per-device arrays instead,
+        paged_cache.py:1256-1283)."""
+        want = (self.num_blocks, 2, self.num_heads, self.block_size,
+                self.head_dim)
+        if tuple(global_pool.shape) != want:
+            raise ValueError(f"global pool must be {want}, got "
+                             f"{tuple(global_pool.shape)}")
+        if self.quantized and global_scales is None:
+            raise ValueError("an int8 pool needs global_scales")
+        Hs = self.heads_per_shard
+        for s in range(self.mp):
+            pi = self.pool_index(layer, s)
+            self.pools[pi].copy_(global_pool[:, :, s * Hs:(s + 1) * Hs])
+            if global_scales is not None:
+                self.scales[pi].copy_(
+                    global_scales[:, :, s * Hs:(s + 1) * Hs])
     @property
     def capacity_per_seq(self) -> int:
         return self.max_blocks_per_seq * self.block_size
@@ -607,21 +739,25 @@ class PagedKVCache:
         return self.num_blocks - 1 - self.allocator.num_free
 
     def pool_bytes(self) -> int:
-        """Device bytes of the pool: payload, plus the scale pages of an
-        int8 pool."""
+        """Pool bytes ONE device holds: payload, plus the scale pages of
+        an int8 pool, over the mp shards (the whole pool at mp 1)."""
+        return self.pool_bytes_total() // self.mp
+
+    def pool_bytes_total(self) -> int:
+        """Pool bytes summed over every shard (pool_bytes() at mp 1)."""
         n = sum(p.numel() * p.element_size() for p in self.pools)
         if self.quantized:
             n += sum(s.numel() * s.element_size() for s in self.scales)
         return n
 
     def kv_bytes_per_token(self) -> int:
-        """Device bytes one token's K/V occupies across every layer:
-        2 x heads x (head_dim x payload itemsize + scale bytes) x
-        layers."""
+        """Device bytes one token's K/V occupies across every layer on
+        ONE shard: 2 x heads/mp x (head_dim x payload itemsize + scale
+        bytes) x layers."""
         per_head = self.head_dim * self.pools[0].element_size()
         if self.quantized:
             per_head += self.scales[0].element_size()
-        return int(2 * self.num_heads * per_head * self.num_layers)
+        return int(2 * self.heads_per_shard * per_head * self.num_layers)
 
     # -- tenant accounting --------------------------------------------
     def _charge(self, slot: int, delta: int) -> None:
@@ -671,6 +807,11 @@ class PagedKVCache:
             "free": len(a._free),
             "usable": self.num_blocks - 1,
         }
+        if self.mp > 1:
+            # the tiers are replicated, the payload divided: bytes per
+            # shard, so a reader summing workers does not count mp x
+            out["mp"] = self.mp
+            out["pool_bytes_per_shard"] = self.pool_bytes()
         if not tiers_only:
             out["blocks_per_slot"] = {
                 s: len(bl) for s, bl in enumerate(self.seq_blocks) if bl}
@@ -811,10 +952,14 @@ class PagedKVCache:
                 if b not in frozen:
                     del self._audit_fp[b]
             if frozen:
+                # every (layer, shard) entry: a write into any shard's
+                # slice of a frozen page trips the audit
                 ids = torch.tensor(sorted(frozen), device=self.device)
-                arrs = [p[ids].cpu().numpy() for p in self.pools]
+                arrs = [p[ids.to(p.device)].cpu().numpy()
+                        for p in self.pools]
                 if self.quantized:
-                    arrs += [s[ids].cpu().numpy() for s in self.scales]
+                    arrs += [s[ids.to(s.device)].cpu().numpy()
+                             for s in self.scales]
                 for i, b in enumerate(sorted(frozen)):
                     fp = self._fingerprint(i, arrs)
                     old = self._audit_fp.get(b)
@@ -833,31 +978,47 @@ class PagedKVCache:
         return torch.empty((), dtype=self.dtype).numpy().dtype
 
     def _pull(self, arrs, blocks, scales: bool = False) -> np.ndarray:
-        """[n, L, ...] host copy of ``blocks``' rows of every layer's
-        pool (or scale pages): one gather on the device per layer, one
-        transfer."""
+        """[n, L, 2, H, ...] host copy of ``blocks``' rows of every
+        layer's pool (or scale pages) in the CANONICAL full-head layout:
+        a sharded pool's shard slices concatenated on the head axis, so
+        the payload is the same at every width. One gather on the device
+        per entry, one transfer."""
         if not blocks:
-            shape = arrs[0].shape[1:]
-            return np.zeros((0, len(arrs)) + tuple(shape),
+            shape = (2, self.num_heads) + tuple(arrs[0].shape[3:])
+            return np.zeros((0, self.num_layers) + shape,
                             self._np_dtype(scales))
         ids = torch.tensor(blocks, dtype=torch.long, device=self.device)
-        out = torch.stack([a[ids] for a in arrs], dim=1)
+        layers = []
+        for i in range(self.num_layers):
+            parts = [a[ids.to(a.device)].to(self.device) for a in
+                     arrs[self.pool_index(i):self.pool_index(i + 1)]]
+            layers.append(parts[0] if self.mp == 1
+                          else torch.cat(parts, dim=2))
+        out = torch.stack(layers, dim=1)
         if out.dtype == torch.bfloat16:
             out = out.float()
         return out.cpu().numpy()
 
     def _land(self, ids: List[int], payload: np.ndarray,
               spay: Optional[np.ndarray]) -> None:
-        """Write payload rows [n, L, 2, H, bs, D] (and scale rows
-        [n, L, 2, H, bs] on an int8 pool) into pool blocks ``ids``."""
-        idx = torch.tensor(ids, dtype=torch.long, device=self.device)
-        for i, pool in enumerate(self.pools):
-            pool[idx] = torch.from_numpy(np.ascontiguousarray(
-                payload[:, i])).to(device=self.device, dtype=pool.dtype)
-        if self.quantized:
-            for i, sc in enumerate(self.scales):
-                sc[idx] = torch.from_numpy(np.ascontiguousarray(
-                    spay[:, i], np.float32)).to(self.device)
+        """Write canonical payload rows [n, L, 2, H, bs, D] (and scale
+        rows [n, L, 2, H, bs] on an int8 pool) into pool blocks ``ids``:
+        each shard takes its head slice of every page."""
+        Hs = self.heads_per_shard
+        for i in range(self.num_layers):
+            for s in range(self.mp):
+                pi = self.pool_index(i, s)
+                heads = slice(s * Hs, (s + 1) * Hs)
+                pool = self.pools[pi]
+                idx = torch.tensor(ids, dtype=torch.long,
+                                   device=pool.device)
+                pool[idx] = torch.from_numpy(np.ascontiguousarray(
+                    payload[:, i, :, heads])).to(device=pool.device,
+                                                 dtype=pool.dtype)
+                if self.quantized:
+                    self.scales[pi][idx] = torch.from_numpy(
+                        np.ascontiguousarray(spay[:, i, :, heads],
+                                             np.float32)).to(pool.device)
 
     def snapshot(self, base: Optional[dict] = None) -> dict:
         """Host-side checkpoint of the whole pool: geometry, the
@@ -889,7 +1050,9 @@ class PagedKVCache:
             "max_blocks_per_seq": self.max_blocks_per_seq,
             "dtype": self.dtype_name,
             "prefix_cache": self.prefix_cache,
-            "mp": 1,
+            # the source width, for tooling; the payload is canonical
+            # (full heads) and restore(mp=...) splits it for any width
+            "mp": self.mp,
         }
         clean = set()
         if base is not None:
@@ -941,13 +1104,10 @@ class PagedKVCache:
         least-recently-used cached-free blocks are dropped, with their
         index entries, when the target is smaller, and a live set that
         cannot fit raises ``BlockOOM`` with the occupancy breakdown. A
-        delta snapshot needs its ``base``. Ends with the deep audit."""
-        if mp not in (None, 1) or int(snap["geometry"].get("mp", 1)) != 1:
-            raise NotImplementedError(
-                "PagedKVCache.restore: tensor-parallel pools (mp > 1) "
-                "are not ported")
-        require_defaults("PagedKVCache.restore",
-                         shard_devices=(shard_devices, None))
+        delta snapshot needs its ``base``. ``mp`` (default: the
+        snapshot's) rebuilds at any tensor-parallel width on
+        ``shard_devices``: the payload is canonical, each target shard
+        takes its head slice of every page. Ends with the deep audit."""
         referenced = [int(b) for b in snap.get("base_blocks", ())]
         if referenced:
             if base is None:
@@ -980,7 +1140,8 @@ class PagedKVCache:
                     g["block_size"], nb, g["max_seqs"],
                     max_blocks_per_seq=g["max_blocks_per_seq"],
                     dtype=g["dtype"], prefix_cache=g["prefix_cache"],
-                    device=device)
+                    mp=int(g.get("mp", 1)) if mp is None else int(mp),
+                    shard_devices=shard_devices, device=device)
         # cached-free blocks that fit, the most recently released kept
         # (dropping the LRU end is the live allocator's reclaim order)
         n_cached = min(len(cached), usable - len(live))
@@ -1104,14 +1265,21 @@ class PagedKVCache:
         [start, start + C) of ``layer``, skipping positions below
         ``write_start`` (an adopted prefix). ``ensure(slot, start + C,
         write_from=start)`` must have run. The model path goes through
-        ``prefill_views``; this serves callers holding projected K/V."""
+        ``prefill_views``; this serves callers holding projected K/V.
+        A sharded pool refuses it: its pages are written per shard."""
+        if self.mp > 1:
+            raise ValueError(
+                "write_prefill_chunk takes full-head K/V; a sharded "
+                "pool's pages are written per shard through the "
+                "prefill views (ShardedServingCore)")
         C = int(k.shape[1])
         pos = np.arange(start, start + C)
         blk = self.block_tables[slot][pos // self.block_size]
         route = _Route(np.where(pos >= write_start, blk, 0),
                        pos % self.block_size, [start + C], None, (C,),
                        self.device)
-        _append(self, layer, route, torch.as_tensor(k)[0].to(self.device),
+        _append(self, self.pool_index(layer), route,
+                torch.as_tensor(k)[0].to(self.device),
                 torch.as_tensor(v)[0].to(self.device))
 
     # -- device tables --------------------------------------------------
@@ -1310,16 +1478,17 @@ class PagedKVCache:
           multiplicity    {block: how many of the slots reference it}
           refcount        {block: allocator refcount} (>= multiplicity;
                           the prefix cache may hold more references)
-          bytes_saved     pool bytes the sharing avoided: (multiplicity
-                          - 1) block copies over the shared blocks, at
-                          kv_bytes_per_token() x block_size
+          bytes_saved     pool bytes the sharing avoided, over every
+                          shard: (multiplicity - 1) block copies over
+                          the shared blocks, at kv_bytes_per_token() x
+                          block_size x mp
         """
         mult: Dict[int, int] = {}
         for slot in slots:
             for b in self.seq_blocks[int(slot)]:
                 mult[int(b)] = mult.get(int(b), 0) + 1
         shared = sorted(b for b, m in mult.items() if m >= 2)
-        bpb = self.kv_bytes_per_token() * self.block_size
+        bpb = self.kv_bytes_per_token() * self.block_size * self.mp
         return {
             "shared_blocks": shared,
             "private_blocks": sorted(b for b, m in mult.items()

@@ -408,6 +408,10 @@ class PagedServingEngine:
             lambda: dict(self.cache.pool_occupancy(tiers_only=True),
                          peak=self.cache.peak_blocks_used))
         self.registry.attach("queue", self._queue_gauges)
+        # sharded cores export the all-reduce counter and the compiled
+        # step's dispatch counters (0 here: nothing is compiled)
+        if hasattr(model, "sharded_metrics"):
+            self.registry.attach("sharded", model.sharded_metrics)
         # MoE cores export per-expert load / overflow / routing totals;
         # dense models leave the namespace absent
         if hasattr(model, "moe_metrics"):
@@ -1676,7 +1680,11 @@ class PagedServingEngine:
 
     def _ragged_active(self) -> bool:
         """Pack this step? ``ragged_step`` (True or "force") with a
-        token budget."""
+        token budget. The port packs whenever that is legal, on the CPU
+        and on CUDA alike, which already is all a core's
+        ``prefers_packed_step`` asks for (the reference's
+        scheduler.py:1917-1920, where packing otherwise waits for the
+        kernel path)."""
         return bool(self.ragged_step) and \
             self.prefill_token_budget is not None
 
@@ -2074,8 +2082,14 @@ class PagedServingEngine:
                   ragged_step=cfg.get("ragged_step", True),
                   tile_q=cfg.get("tile_q"),
                   tile_kv=cfg.get("tile_kv"))
-        eng.cache = PagedKVCache.restore(snap["cache"], num_blocks=nb,
-                                         device=model.device)
+        # the pool's tensor-parallel width is the CALLER'S model's, not
+        # the snapshot's: the payload is canonical (full-head pages), so
+        # an mp=N snapshot restores behind an mp=1 model and the other
+        # way round (the reference's scheduler.py:2774-2779)
+        eng.cache = PagedKVCache.restore(
+            snap["cache"], num_blocks=nb, mp=getattr(model, "mp", 1),
+            shard_devices=getattr(model, "shard_devices", None),
+            device=model.device)
         if injector is not None:
             eng.cache.allocator.fault_hook = \
                 lambda n: injector.on_alloc("target", n)

@@ -6,8 +6,13 @@ serving stats classes (counterpart of paddle_tpu/inference/serving.py).
 own position; one fused decode step advances every active slot through
 the decode-attention kernel (per-row lengths), and finished slots are
 freed and refilled without stopping the batch. It is the dense oracle
-the paged engine is held against. ``ShardedServingCore`` comes in a
-later slice.
+the paged engine is held against.
+
+``ShardedServingCore`` is the head-sharded (tensor-parallel) twin of a
+float FusedMultiTransformer core over the sharded ``PagedKVCache``: each
+mp shard projects (or slices) its heads' q/k/v, appends to and attends
+over its own pool slice through one ragged-kernel launch per layer, and
+the layer closes with ONE all-reduce of the shards' zero-padded outputs.
 """
 from __future__ import annotations
 
@@ -20,7 +25,7 @@ from .telemetry import StatsBase
 
 __all__ = ["ContinuousBatchingEngine", "ParallelStats",
            "PrefillStats", "PrefixCacheStats", "ResilienceStats",
-           "SpecDecodeStats", "TenantStats"]
+           "ShardedServingCore", "SpecDecodeStats", "TenantStats"]
 
 # The stats siblings below share ONE declarative base
 # (telemetry.StatsBase): each lists its counter FIELDS, the DERIVED
@@ -346,3 +351,282 @@ class ContinuousBatchingEngine:
                 time_step=np.asarray(self.lens, np.int32))
         self.lens[self.active] += 1
         return out
+
+
+def _pad_heads(a: torch.Tensor, shard: int, heads_per_shard: int,
+               num_heads: int) -> torch.Tensor:
+    """a [b, l, H/mp, D] -> [b, l, H, D], zeros outside shard ``shard``'s
+    head slice: the shard's contribution to the layer's all-reduce (the
+    JAX package's serving.py:281-295). The contributions' supports are
+    disjoint, so their sum is the full-head output exactly (x + 0.0 is
+    exact)."""
+    out = a.new_zeros(a.shape[:2] + (num_heads,) + a.shape[3:])
+    lo = shard * heads_per_shard
+    out[:, :, lo:lo + heads_per_shard] = a
+    return out
+
+
+class ShardedServingCore(torch.nn.Module):
+    """Tensor-parallel (head-sharded) serving twin of a float
+    FusedMultiTransformer core (the JAX package's
+    inference/serving.py:317-682); the pool half is
+    ``PagedKVCache(mp=N)``, which ``PagedKVCache.for_model`` builds from
+    this core's ``mp`` and ``shard_devices``.
+
+      * qkv: ``qkv_shard="activations"`` runs the base's replicated
+        projection once per layer and hands each shard its head slice of
+        the result (the single-card GEMM, so hidden states are bitwise
+        the unsharded core's); ``"weights"`` gives each shard its own
+        column slice of ``qkv.weight`` / ``qkv.bias`` (columns
+        ``arange(s*Hs*hd, (s+1)*Hs*hd) + j*E``, j = 0..2, the q, k and v
+        groups of its heads, :433-438), copied once at wrap time onto the
+        shard's device. ``"auto"`` picks ``"weights"`` on a CUDA device
+        and ``"activations"`` on the CPU (the reference's TPU/CPU split,
+        :411-420).
+      * attention: shard s appends to and attends over its own pool
+        slice through its views' ``shard(s)``: one
+        ``paged_attention_ragged`` launch per layer per shard with H/mp
+        heads, all shards reusing the model call's route and plan.
+      * the layer closes with ONE all-reduce (``_allreduce``): the
+        shards' outputs zero-padded to the full heads are summed in shard
+        order, exactly, and out_proj, the FFN and the LayerNorms run
+        replicated on the sum. ``allreduce_count`` grows by one per layer
+        per model call when mp > 1.
+
+    ``devices`` (default ``parallel.mesh.serving_shard_devices(mp,
+    base.device)``): on one card, or the CPU, the shards are LOGICAL (the
+    same device repeated). On distinct cards each shard's q/k/v (or its
+    input, in "weights" mode) is copied to its card and each output back
+    to shard 0's before the sum, the reference's reduce-to-shard-0; that
+    host-staged distinct-card path is UNVERIFIED (no machine with two
+    cards has run it). The compiled step the reference engages on
+    distinct devices (``compiled_step``, :473-483; its
+    compiled_step.py) is not ported (ROADMAP item 10b): ``"auto"``
+    resolves to False on logical shards, and a value that would engage
+    it raises NotImplementedError rather than change path.
+    ``out_shard`` is parsed and recorded (:461-471); the eager path
+    always closes replicated, as the reference's does.
+
+    Paged caches only (decode, verify, chunked prefill and the packed
+    ragged step); int8 cores and MoE cores are refused (:380-390).
+    Weights are read at wrap time: shard after they are final."""
+
+    def __init__(self, base, mp: int, devices=None,
+                 qkv_shard: str = "auto", compiled_step="auto",
+                 out_shard: str = "auto"):
+        if getattr(base, "_quantized", False):
+            raise ValueError(
+                "int8 cores drop their float weights at quantize "
+                "time — shard the float core first (int8 core "
+                "projections are a ROADMAP follow-up)")
+        if hasattr(base, "moe_spec"):
+            raise ValueError(
+                "MoE cores shard over EXPERTS, not attention heads — "
+                "use MoeServingCore.shard_experts(ep) "
+                "(inference/moe_serving.py); composing ep x mp is a "
+                "ROADMAP follow-up")
+        super().__init__()
+        self.base = base
+        self.mp = int(mp)
+        if self.mp < 1:
+            raise ValueError(f"mp must be >= 1, got {mp}")
+        if base.num_heads % self.mp:
+            raise ValueError(
+                f"num_heads {base.num_heads} must divide evenly over "
+                f"mp={self.mp} shards")
+        if devices is None:
+            from ..parallel.mesh import serving_shard_devices
+            devices = serving_shard_devices(self.mp, base.device)
+        if len(devices) < self.mp:
+            raise ValueError(f"need {self.mp} shard devices, got "
+                             f"{len(devices)}")
+        self.shard_devices = [torch.device(d) for d in devices[:self.mp]]
+        on_cuda = self.shard_devices[0].type == "cuda"
+        if qkv_shard == "auto":
+            qkv_shard = "weights" if on_cuda else "activations"
+        if qkv_shard not in ("weights", "activations"):
+            raise ValueError(f"qkv_shard must be 'auto' | 'weights' |"
+                             f" 'activations', got {qkv_shard!r}")
+        self.qkv_shard = qkv_shard
+        if out_shard == "auto":
+            out_shard = "rows" if on_cuda else "replicated"
+        if out_shard not in ("rows", "replicated"):
+            raise ValueError(f"out_shard must be 'auto' | 'rows' | "
+                             f"'replicated', got {out_shard!r}")
+        self.out_shard = out_shard
+        fully_distinct = len(set(self.shard_devices)) == self.mp
+        if compiled_step == "auto":
+            compiled_step = self.mp > 1 and fully_distinct
+        if compiled_step not in (True, False):
+            raise ValueError(f"compiled_step must be 'auto' | True | "
+                             f"False, got {compiled_step!r}")
+        if compiled_step and (self.mp < 2 or not fully_distinct):
+            raise ValueError(
+                "compiled_step=True needs mp >= 2 distinct shard "
+                "devices; logical same-device shards serve on the "
+                "host-staged path")
+        if compiled_step:
+            raise NotImplementedError(
+                f"the compiled sharded step over {self.mp} distinct "
+                f"devices is not ported (ROADMAP item 10b); pass "
+                f"compiled_step=False to serve on the host-staged path")
+        self.compiled_step = False
+        # per-(layer, shard) qkv column slices ("weights" mode only)
+        self._qkv_w: List[List[torch.Tensor]] = []
+        self._qkv_b: List[List[Optional[torch.Tensor]]] = []
+        if qkv_shard == "weights":
+            E, Hs, hd = base.embed_dim, self.heads_per_shard, base.head_dim
+            for blk in base.layers:
+                w = blk.qkv.weight.detach()
+                b = None if blk.qkv.bias is None else blk.qkv.bias.detach()
+                ws, bs = [], []
+                for s, dev in enumerate(self.shard_devices):
+                    cols = torch.cat([
+                        torch.arange(s * Hs * hd, (s + 1) * Hs * hd)
+                        + j * E for j in range(3)]).to(w.device)
+                    ws.append(w[:, cols].to(dev).contiguous())
+                    bs.append(None if b is None
+                              else b[cols].to(dev).contiguous())
+                self._qkv_w.append(ws)
+                self._qkv_b.append(bs)
+        # one all-reduce per layer per model call when mp > 1
+        self.allreduce_count = 0
+
+    # -- geometry, delegated to the base (the reference's :489-535) ----
+    @property
+    def device(self) -> torch.device:
+        return self.base.device
+
+    @property
+    def num_layers(self):
+        return self.base.num_layers
+
+    @property
+    def num_heads(self):
+        return self.base.num_heads
+
+    @property
+    def head_dim(self):
+        return self.base.head_dim
+
+    @property
+    def embed_dim(self):
+        return self.base.embed_dim
+
+    @property
+    def heads_per_shard(self) -> int:
+        return self.base.num_heads // self.mp
+
+    @property
+    def layers(self):
+        return self.base.layers
+
+    @property
+    def normalize_before(self):
+        return self.base.normalize_before
+
+    @property
+    def _act_name(self):
+        return self.base._act_name
+
+    @property
+    def activation(self):
+        return self.base.activation
+
+    def truncated(self, num_layers):
+        """The base's first-``num_layers`` twin, UNSHARDED (a speculative
+        draft is small by construction; the reference builds it from the
+        base layers too, its speculative.py:305-310)."""
+        return self.base.truncated(num_layers)
+
+    def gen_paged_cache(self, block_size, num_blocks, max_seqs,
+                        max_blocks_per_seq=None, dtype="float32",
+                        prefix_cache=False):
+        """A sharded pool matching this core's width and devices."""
+        from .paged_cache import PagedKVCache
+        return PagedKVCache.for_model(
+            self, block_size, num_blocks, max_seqs,
+            max_blocks_per_seq=max_blocks_per_seq, dtype=dtype,
+            prefix_cache=prefix_cache)
+
+    def reset_allreduce_count(self) -> None:
+        self.allreduce_count = 0
+
+    @property
+    def prefers_packed_step(self) -> bool:
+        """Scheduler hint of a compiled core (take the packed ragged
+        step whenever it is legal); False: nothing is compiled here."""
+        return False
+
+    def sharded_metrics(self) -> dict:
+        """MetricsRegistry source (``sharded.*``): the all-reduce
+        counter beside the compiled step's dispatch counters, which are
+        0 with nothing compiled (the reference's :548-561)."""
+        return {"allreduce_count": self.allreduce_count, "mp": self.mp,
+                "compiled": 0, "jit_calls": 0, "retraces": 0,
+                "dispatches_per_step": 0, "psums_per_call": 0}
+
+    def _allreduce(self, parts: List[torch.Tensor]) -> torch.Tensor:
+        """THE one collective per layer: the shards' zero-padded
+        contributions summed in shard order on shard 0's device (each
+        copied there first on distinct cards, the reference's
+        reduce-to-shard-0, :563-594). Counted only when mp > 1."""
+        if len(parts) == 1:
+            return parts[0]
+        self.allreduce_count += 1
+        total = parts[0]
+        for p in parts[1:]:
+            total = total + p.to(total.device)
+        return total
+
+    def forward(self, src, attn_mask=None, caches=None, time_step=None):
+        if caches is None or time_step is None or \
+                not getattr(caches[0], "is_paged", False):
+            raise NotImplementedError(
+                "ShardedServingCore serves the PAGED cache protocol "
+                "only (caches=PagedKVCache views + time_step) — "
+                "dense caches have no sharded pool to win")
+        cache = getattr(caches[0], "_cache", None)
+        if cache is None or cache.mp != self.mp:
+            raise ValueError(
+                f"cache mesh width {getattr(cache, 'mp', '?')} != "
+                f"model mp {self.mp} — build the pool via "
+                f"PagedKVCache.for_model(sharded_core, ...)")
+        x = src
+        b, l = x.shape[0], x.shape[1]
+        E, H, hd = self.embed_dim, self.num_heads, self.head_dim
+        Hs = self.heads_per_shard
+        for i, blk in enumerate(self.base.layers):
+            residual = x
+            h = blk.ln(x) if self.normalize_before else x
+            if self.qkv_shard == "activations":
+                # the replicated projection, the single-card GEMM; each
+                # shard takes a head slice of it (stride(-1) stays 1)
+                qf, kf, vf = (t.reshape(b, l, H, hd)
+                              for t in blk.qkv(h).split(E, dim=-1))
+            parts = []
+            for s, dev in enumerate(self.shard_devices):
+                if self.qkv_shard == "weights":
+                    y = torch.nn.functional.linear(
+                        h.to(dev), self._qkv_w[i][s].t(),
+                        self._qkv_b[i][s])
+                    q, k, v = (t.reshape(b, l, Hs, hd)
+                               for t in y.split(Hs * hd, dim=-1))
+                else:
+                    heads = slice(s * Hs, (s + 1) * Hs)
+                    q, k, v = (t[:, :, heads].to(dev)
+                               for t in (qf, kf, vf))
+                view = caches[i] if self.mp == 1 else caches[i].shard(s)
+                a = view.decode(q, k, v, time_step)
+                parts.append(a if self.mp == 1 else
+                             _pad_heads(a, s, Hs, H))
+            attn = self._allreduce(parts).to(x.device)
+            x = residual + blk.out_proj(attn.reshape(b, l, E))
+            if not self.normalize_before:
+                x = blk.ln(x)
+            residual = x
+            hh = blk.ffn_ln(x) if self.normalize_before else x
+            x = residual + blk.ffn2(self.activation(blk.ffn1(hh)))
+            if not self.normalize_before:
+                x = blk.ffn_ln(x)
+        return x, list(caches)

@@ -235,21 +235,43 @@ class TokenServingModel:
         toks = np.minimum(toks, p.shape[-1] - 1)
         return toks.reshape(p.shape[:-1]), p
 
+    def _with_core(self, core) -> "TokenServingModel":
+        """This surface over another core: the embedding and the readout
+        head (int8 payload and scales included) shared by reference."""
+        twin = TokenServingModel(core, self._embed_np, self.lm_head)
+        if self._head_int8 is not None:
+            twin.weight_dtype = self.weight_dtype
+            twin._head_int8, twin._head_scale = (self._head_int8,
+                                                 self._head_scale)
+        return twin
+
+    def shard(self, mp: int, devices=None, qkv_shard: str = "auto",
+              compiled_step="auto",
+              out_shard: str = "auto") -> "TokenServingModel":
+        """Head-sharded tensor-parallel twin of this surface (the JAX
+        package's speculative.py:294-321): the core becomes a
+        ``ShardedServingCore`` over ``mp`` shards (a sharded core's base
+        is re-wrapped), the embedding and readout are shared by
+        reference. Engines built on it get a matching sharded
+        ``PagedKVCache`` (``for_model`` reads ``mp``/``shard_devices``);
+        a ``truncated_draft`` of it stays unsharded."""
+        from .serving import ShardedServingCore
+        core = self.core.base if isinstance(self.core, ShardedServingCore) \
+            else self.core
+        return self._with_core(ShardedServingCore(
+            core, mp, devices=devices, qkv_shard=qkv_shard,
+            compiled_step=compiled_step, out_shard=out_shard))
+
     def truncated_draft(self, num_layers: int) -> "TokenServingModel":
         """A draft that runs only the first ``num_layers`` of the core
         behind the same embedding and readout, sharing every weight with
         the target (``core.truncated``: the same block modules; an MoE
-        core hands back its own routed twin). The cheapest draft: useful
-        when the deep layers refine rather than redirect the argmax."""
+        core hands back its own routed twin, a sharded core its base's
+        unsharded one). The cheapest draft: useful when the deep layers
+        refine rather than redirect the argmax."""
         if num_layers >= self.core.num_layers:
             raise ValueError("draft must be shallower than the target")
-        draft = TokenServingModel(self.core.truncated(num_layers),
-                                  self._embed_np, self.lm_head)
-        if self._head_int8 is not None:
-            draft.weight_dtype = self.weight_dtype
-            draft._head_int8, draft._head_scale = (self._head_int8,
-                                                   self._head_scale)
-        return draft
+        return self._with_core(self.core.truncated(num_layers))
 
 
 class _SpecSeq:

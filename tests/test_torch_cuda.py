@@ -1548,3 +1548,91 @@ def test_pipe_workers_on_the_card_survive_a_sigkill(tmp_path):
     finally:
         for w in workers:
             w.kill()
+
+
+def _sharded_pair(kv_dtype="float32"):
+    """(mp=1 surface, its embedding) of a small card model with a rolled
+    readout, so greedy streams walk the vocabulary."""
+    D, H, FFN, LAYERS, V = 64, 4, 128, 2, 128
+    rng = np.random.RandomState(9)
+    emb = rng.randn(V, D).astype(np.float32)
+    core = FusedMultiTransformer(D, H, FFN, num_layers=LAYERS,
+                                 device="cuda",
+                                 generator=torch.Generator(
+                                     device="cuda").manual_seed(3))
+    return TokenServingModel(core, emb, lm_head=np.roll(emb, -1, 0).T.copy())
+
+
+def _serve_sharded(tsm, kv_dtype):
+    rng = np.random.RandomState(4)
+    eng = SpeculativeEngine(tsm, None, k=0, max_batch=3, block_size=4,
+                            num_blocks=48, chunk_tokens=8,
+                            prefill_token_budget=12, kv_dtype=kv_dtype)
+    rids = [eng.submit(list(rng.randint(0, 128, n))) for n in (21, 6, 13)]
+    for _ in range(14):
+        eng.step()
+    eng.check_invariants()
+    return {r: eng.tokens(r) for r in rids}, eng
+
+
+@pytest.mark.parametrize("mp,mode", [(2, "activations"), (4, "activations"),
+                                     (2, "weights")])
+def test_sharded_hidden_states_equal_mp1_on_the_card(mp, mode):
+    """mp logical shards on the card against the unsharded core over the
+    same pool state, one chunked prefill and one decode call: with the
+    replicated projection every GEMM is mp=1's and each head's ragged
+    work does not depend on the launch's head count, so the hidden
+    states are bitwise equal; column-sliced qkv GEMMs ("weights") within
+    1e-5 x max|h|. Each call launches the ragged kernel layers x mp
+    times."""
+    _need_cuda()
+    t = _sharded_pair()
+    core = t.shard(mp, qkv_shard=mode).core
+    rng = np.random.RandomState(5)
+    x = torch.from_numpy(rng.randn(1, 37, 64).astype(np.float32)).cuda()
+    xd = torch.from_numpy(rng.randn(2, 1, 64).astype(np.float32)).cuda()
+    outs, launches = [], []
+    for m in (t.core, core):
+        c = m.gen_paged_cache(4, 24, 2)
+        for slot in (0, 1):
+            c.ensure(slot, 37, write_from=0)
+        tpa.reset_launch_count()
+        with torch.no_grad():
+            h0, _ = m(x, caches=c.prefill_views(0), time_step=[0])
+            m(x, caches=c.prefill_views(1), time_step=[0])
+            for slot in (0, 1):
+                c.ensure(slot, 38)
+            h1, _ = m(xd, caches=c.views, time_step=np.array([37, 37]))
+        launches.append(tpa.launch_count())
+        outs.append((h0, h1))
+    assert launches == [3 * 2, 3 * 2 * mp]
+    for a, b in zip(*outs):
+        if mode == "activations":
+            assert torch.equal(a, b)
+        else:
+            assert float((a - b).abs().max()) <= \
+                1e-5 * float(a.abs().max())
+
+
+@pytest.mark.parametrize("kv_dtype", ["float32", "int8"])
+def test_sharded_serving_streams_and_launches_on_the_card(kv_dtype):
+    """Token-budget serving through tsm.shard(2) on the card (qkv
+    "weights", the CUDA default) emits the mp=1 greedy streams over a
+    float and an int8 pool; every model call launches the ragged kernel
+    layers x 2 times and all-reduces once per layer; the int8 pool's
+    bytes per device are half its total."""
+    _need_cuda()
+    t = _sharded_pair()
+    ref, _ = _serve_sharded(t, kv_dtype)
+    t2 = t.shard(2)
+    assert t2.core.qkv_shard == "weights"
+    calls = []
+    t2.core.register_forward_pre_hook(lambda m, a: calls.append(1))
+    tpa.reset_launch_count()
+    got, eng = _serve_sharded(t2, kv_dtype)
+    assert got == ref
+    assert tpa.launch_count() == 2 * 2 * len(calls) > 0
+    assert t2.core.allreduce_count == 2 * len(calls)
+    cache = eng.engine.cache
+    assert cache.mp == 2 and cache.pool_bytes() * 2 == cache.pool_bytes_total()
+    assert all(p.is_cuda for p in cache.pools)

@@ -83,8 +83,6 @@ UNPORTED = {
     "AdamW lr_ratio": lambda: optimizer.AdamW(lr_ratio=lambda p: 1.0),
     "AdamW apply_decay_param_fun": lambda: optimizer.AdamW(
         apply_decay_param_fun=lambda n: True),
-    "PagedKVCache mp (10th)": lambda: inference.PagedKVCache(
-        1, 2, 8, 4, 10, 3, None, "float32", False, 2),
     "FusedMultiTransformer dropout_rate (4th)": lambda:
         FusedMultiTransformer(8, 2, 16, 0.1),
     "FusedMultiTransformer attrs": lambda: FusedMultiTransformer(
@@ -96,8 +94,6 @@ UNPORTED["paged_attention_ragged tile_kv (8th) other than the span"] = (
     lambda: paged_attention_ragged(
         torch.zeros(1, 2, 8), torch.zeros(3, 2, 2, 4, 8),
         torch.zeros(1, 1, dtype=torch.int32), (1,), [1], None, None, 64))
-UNPORTED["PagedKVCache.restore mp"] = lambda: inference.PagedKVCache.restore(
-    {}, mp=2)
 
 
 def _engines(**kw):
@@ -145,6 +141,17 @@ PORTED = {
     "SpeculativeEngine tenants": (
         lambda: _engines(tenants={"a": {}})[1],
         lambda e: "a" in e.tenant_report()),
+    # tensor-parallel pools: the pool splits over heads; a restore
+    # rebuilds at the width asked for
+    "PagedKVCache mp (10th)": (
+        lambda: inference.PagedKVCache(1, 2, 8, 4, 10, 3, None, "float32",
+                                       False, 2, device="cpu"),
+        lambda c: c.mp == 2 and tuple(c.pools[1].shape) == (10, 2, 1, 4, 8)),
+    "PagedKVCache.restore mp": (
+        lambda: inference.PagedKVCache.restore(inference.PagedKVCache(
+            1, 2, 8, 4, 10, 3, device="cpu").snapshot(), mp=2,
+            device="cpu"),
+        lambda c: c.mp == 2 and len(c.pools) == 2),
 }
 # the trace collector, the health monitor and the cost ledger: wired
 # onto the engine (the ledger and the monitor bind to its registry)
@@ -279,15 +286,8 @@ _GAPS = {
     **{("optimizer", c): {a: 12 for a in _OPT}
        for c in ("Adam", "AdamW", "Optimizer")},
     ("inference", "MoeServingCore"): {a: 12 for a in _LAYER},
-    # item 10: sharded serving (tensor-parallel pools and views)
-    ("inference", "PagedKVCache"): {
-        "heads_per_shard": 10, "pool_bytes_total": 10, "pool_index": 10,
-        "rebind_shard_pools": 10,
-        # item 12: the dense-scratch -> pages path of the long tail
-        "write_prefill": 12},
-    ("inference", "PagedLayerCache"): {"shard": 10},
-    ("inference", "PagedPrefillView"): {"shard": 10},
-    ("inference", "TokenServingModel"): {"shard": 10},
+    # item 12: the dense-scratch -> pages path of the long tail
+    ("inference", "PagedKVCache"): {"write_prefill": 12},
     ("incubate.nn", "FusedMultiTransformer"): {a: 12 for a in _LAYER},
     ("incubate.nn", "FusedMultiTransformerInt8"): {a: 12 for a in _LAYER},
 }

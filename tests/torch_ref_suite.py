@@ -6,7 +6,8 @@ module's source with its imports pointed at ``paddle_tpu_torch``:
 * ``paddle_tpu.inference`` (and its submodules) becomes
   ``paddle_tpu_torch.inference``, at module level and inside test bodies;
 * ``paddle`` becomes a small stand-in whose ``to_tensor`` makes a CPU
-  torch tensor and whose ``seed`` seeds both packages;
+  torch tensor and whose ``seed`` seeds both packages; a parameter's
+  ``set_value(t)`` becomes ``.data.copy_(t)``;
 * ``FusedMultiTransformer`` and ``MoeServingCore`` build the JAX model
   the reference test would build (same seed, same arguments) and return
   the port's model holding its weights (``paddle_tpu_torch.weights``).
@@ -111,6 +112,10 @@ _SUBS = (
     ("import paddle_tpu as paddle\n", "paddle = _port_paddle\n"),
     ("from paddle_tpu.incubate.nn import FusedMultiTransformer\n",
      "FusedMultiTransformer = _port_fmt\n"),
+    ("from paddle_tpu.incubate.nn.fused_transformer import "
+     "FusedMultiTransformer\n", "FusedMultiTransformer = _port_fmt\n"),
+    # a reference suite that sets weights by hand (tests/test_sharded.py)
+    (".set_value(", ".data.copy_("),
     ("from paddle_tpu.inference import MoeServingCore\n",
      "MoeServingCore = _port_moe\n"),
     ("paddle_tpu.inference", "paddle_tpu_torch.inference"),
