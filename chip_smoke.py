@@ -202,7 +202,37 @@ fails the run:
    continuing phase 3's streams; mp=2 hidden states of phase 4's
    teacher-forced run bitwise mp=1's with the replicated projection
    (within TOL_REL with the column slices); tokens/s printed only;
-23. print the kernels line, the card line and, last, the contract line.
+23. (run after phase 17) the ``nn`` training surface under AMP, each leg
+   failing the run on a failed check: (a) BERT-base pretraining as
+   bench_extra.py's AMP-O2 leg (phase 16's config, batch, labels and
+   fused encoder; ``amp.decorate`` bf16, ``auto_cast(level="O2")``,
+   ``AdamW(1e-4, multi_precision=True)``): 1 warm-up and 10 steps,
+   every loss finite and the last below the first, per step LayerNorm 2
+   x 12 and dropout 2 x (1 + 3 x 12) launches in bf16; sequences/s, MFU
+   against the bf16 dense peak, peak memory and a profile of one step
+   beside phase 16's fp32 figures; then the kernel path on the card
+   against the plain O2 path on the CPU at batch 2 (loss within
+   BOUND_AMP_LOSS, every gradient's cosine >= BOUND_AMP_COS); (b)
+   LlamaForCausalLM at bench.py's proxy widths (phase 13's, batch 16 x
+   2048, full logits, fp32 cross entropy) under O2 with multi-precision
+   AdamW: 1 warm-up and 5 steps, flash forward and backward once per
+   layer a step, RMSNorm 2 x 2 + 1 a forward; tokens/s, MFU, peak
+   memory, a profile; then greedy ``generate`` (batch 4, a 128-token
+   prompt, 32 new tokens, the KV cache, the flash kernel at Lq 1) equal
+   to a no-cache re-forward's argmax up to the first near-tie; (c)
+   GPTForCausalLM at GPTConfig's widths (the serving phases' model,
+   seq 1024, dropout 0.1) under O2 with recompute, batch 8: 1 warm-up
+   and 5 steps with the flash kernels' hash dropout and the dropout
+   kernel on the hidden dropouts (launch counts checked); a
+   recompute-on and a recompute-off step from equal weights and seeds
+   within the bf16 bounds; (d) ``nn.Transformer()`` at its defaults,
+   pre-norm, one O2 step, then an incremental greedy decode through
+   ``gen_cache`` equal to full causal re-forwards up to the first
+   near-tie; ``MoELayer(1024, 8 experts, 4096, top 2)`` over 8192
+   tokens under O2: the routing on the card exactly the CPU's from the
+   same logits, forward and backward within the bf16 bounds of the
+   float32 layer on the agreeing tokens;
+24. print the kernels line, the card line and, last, the contract line.
 Every number printed carries the card's name and power limit; each row
 of the kernels line says in ``timed`` which call it timed and how.
 """
@@ -246,6 +276,19 @@ BOUND_TRAIN_COS = 0.999
 BOUND_BERT_LOSS = 1e-5
 BOUND_BERT_GRAD = 1e-3
 BOUND_BERT_COS = 0.9999
+# phase 23 (AMP): bf16 paths against other bf16 or float32 paths. Both
+# round every op's output to bf16 (2**-8 relative) along chains of tens
+# of ops in different GEMM orders: the loss within 2e-2 relative, each
+# gradient's cosine with the other path's >= 0.99 (tensors whose max|g|
+# is below 1e-2 x the model's largest, rounding noise in bf16, take no
+# cosine), an output within 3e-2 x max|ref|
+BOUND_AMP_LOSS = 2e-2
+BOUND_AMP_COS = 0.99
+BOUND_AMP_OUT = 3e-2
+# greedy agreement of two bf16 paths: steps whose reference top-two
+# logit gap is below this x max|logit| (a few bf16 ulps of the largest
+# logit) may go either way, and the streams part from there
+TOL_TIE_BF16 = 2.0 ** -6
 # the lane oracle (phase 18): a group's branch and its lone submit draw
 # the same uniforms, but their probability rows differ in the last bits
 # (cuBLAS may pick another kernel, hence another summation order, for
@@ -297,7 +340,14 @@ FULL = dict(vocab=50304, d=1024, layers=24, heads=16, ffn=4096,
             # BERT-base pretraining (bench_extra.py:186-287, config #2)
             bert_vocab=30522, bert_hidden=768, bert_layers=12,
             bert_heads=12, bert_ffn=3072, bert_batch=32, bert_seq=128,
-            bert_steps=10, bert_plain_batch=2, bert_timing_iters=20)
+            bert_steps=10, bert_plain_batch=2, bert_timing_iters=20,
+            # phase 23: Llama generate (batch, prompt, new tokens), GPT
+            # under recompute (batch, steps), nn.Transformer (batch,
+            # lengths, vocab of its token wrapper), MoELayer tokens
+            gen_batch=4, gen_prompt=128, gen_new=32, gpt_batch=8,
+            gpt_steps=5, gpt_seq=1024, tf_batch=16, tf_len=128,
+            tf_vocab=1000, tf_new=16, moe_tokens=8192, moe_d=1024,
+            moe_hidden=4096)
 
 
 class SmokeFailure(RuntimeError):
@@ -3880,7 +3930,8 @@ def phase_bert_train(torch, device, cfg, seed, tag, say):
     """Phase 16: BERT-base pretraining (bench_extra.py's config #2:
     batch 32 x 128, AdamW(1e-4), FLAGS_tpu_fused_encoder on, float32),
     1 warm-up and ``bert_steps`` steps on one seeded batch. Returns the
-    kernels' launch counts over the measured steps."""
+    kernels' launch counts over the measured steps and the step's
+    figures (seconds, MFU, peak MiB) for phase 23."""
     import paddle_tpu_torch
     from paddle_tpu_torch.models import BertForPretraining
     from paddle_tpu_torch.ops.hopper import fused_norm as fn
@@ -3919,6 +3970,8 @@ def phase_bert_train(torch, device, cfg, seed, tag, say):
         s_step = wall / steps
         peak = (torch.cuda.max_memory_allocated() / 2 ** 20
                 if device.type == "cuda" else float("nan"))
+        figures = {"s_step": s_step, "peak": peak,
+                   "mfu": flops / s_step / FP32_FLOP_S}
         say(f"{tag} BERT-base pretraining, {n_params} params ({L} layers, "
             f"hidden {bc.hidden_size}, vocab {bc.vocab_size}), batch {B} x "
             f"seq {T}, fp32, AdamW(1e-4), fused encoder: loss "
@@ -3946,7 +3999,7 @@ def phase_bert_train(torch, device, cfg, seed, tag, say):
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
-    return counts
+    return counts, figures
 
 
 def _profile_step(torch, step, tag, say, what, groups):
@@ -4044,6 +4097,584 @@ def phase_bert_paths(torch, device, cfg, seed, tag, say):
         torch.cuda.empty_cache()
 
 
+# -- phase 23: the nn training surface under AMP -----------------------------
+
+class _LaunchDtypes:
+    """Tally the dtype of every LayerNorm / RMSNorm / dropout kernel
+    launch inside the block (wraps the wrappers' launch functions; the
+    launch counters stay theirs)."""
+
+    def __init__(self):
+        from paddle_tpu_torch.ops.hopper import fused_norm as fn
+        self._fn = fn
+        self.seen = {}
+
+    def __enter__(self):
+        fn = self._fn
+        self._saved = (fn._launch_norm, fn._launch_dropout)
+        norm, drop = self._saved
+
+        def launch_norm(kind, x, *a, **k):
+            self.seen.setdefault(kind, set()).add(str(x.dtype)[6:])
+            return norm(kind, x, *a, **k)
+
+        def launch_dropout(x, *a, **k):
+            self.seen.setdefault("dropout", set()).add(str(x.dtype)[6:])
+            return drop(x, *a, **k)
+        fn._launch_norm, fn._launch_dropout = launch_norm, launch_dropout
+        return self
+
+    def __exit__(self, *exc):
+        self._fn._launch_norm, self._fn._launch_dropout = self._saved
+        return False
+
+
+def _free(torch, device):
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _peak_mib(torch, device):
+    return (torch.cuda.max_memory_allocated() / 2 ** 20
+            if device.type == "cuda" else float("nan"))
+
+
+def _grads_agree(torch, ga, gb):
+    """(worst max-error over max|g|, worst cosine, noise tensors) of two
+    gradient dicts; a tensor whose max|g| is below 1e-2 x the largest
+    (bf16 rounding noise) takes no cosine."""
+    floor = 1e-2 * max(float(g.abs().max()) for g in gb.values())
+    worst, worst_cos, noise = 0.0, 1.0, []
+    for n in gb:
+        scale = float(gb[n].abs().max())
+        worst = max(worst, float((ga[n] - gb[n]).abs().max())
+                    / max(scale, floor))
+        if scale < floor:
+            noise.append(n)
+            continue
+        worst_cos = min(worst_cos, float(_cosine(torch, ga[n], gb[n])))
+    return worst, worst_cos, noise
+
+
+def _timed_steps(torch, device, step, steps):
+    """1 warm-up and ``steps`` timed calls of ``step`` (each returns its
+    loss); (losses, seconds per step, launch counts of the timed steps
+    from ``_amp_counts``)."""
+    losses = [float(step())]
+    _sync(torch, device)
+    _reset_train_counts()
+    t0 = time.perf_counter()
+    out = [step() for _ in range(steps)]
+    _sync(torch, device)
+    wall = time.perf_counter() - t0
+    counts = _amp_counts()
+    return losses + [float(v) for v in out], wall / steps, counts
+
+
+def _amp_counts():
+    c = _train_counts()
+    c.update(_bert_counts())
+    del c["fused_adamw"]
+    return c
+
+
+def phase_amp_bert(torch, device, cfg, seed, fp32, tag, say):
+    """Phase 23a: BERT-base pretraining as bench_extra.py's AMP-O2 leg
+    (:239-271): phase 16's config, batch, labels and fused encoder,
+    ``decorate`` bf16, ``auto_cast(level="O2")``, multi-precision AdamW;
+    1 warm-up and ``bert_steps`` steps. ``fp32``: phase 16's figures."""
+    import paddle_tpu_torch
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models import BertForPretraining
+    from paddle_tpu_torch.optimizer import AdamW
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    bc = _bert_cfg(cfg)
+    B, T, L = cfg["bert_batch"], cfg["bert_seq"], bc.num_hidden_layers
+    paddle_tpu_torch.set_flags({"FLAGS_tpu_fused_encoder": True})
+    try:
+        model = BertForPretraining(
+            bc, device=device, generator=torch.Generator().manual_seed(seed))
+        amp.decorate(model, level="O2", dtype="bfloat16")
+        opt = AdamW(1e-4, parameters=model.parameters(),
+                    multi_precision=True)
+        ids, mlm, nsp = _bert_batch(torch, device, cfg, B, seed + 4)
+
+        def step():
+            with amp.auto_cast(level="O2", dtype="bfloat16"):
+                loss, _ = model(ids, masked_lm_labels=mlm,
+                                next_sentence_label=nsp)
+            loss.backward()
+            opt.step()
+            opt.clear_grad()
+            return loss.detach()
+
+        with _LaunchDtypes() as dts:
+            losses, s_step, counts = _timed_steps(torch, device, step,
+                                                  cfg["bert_steps"])
+        flops = bert_flops_per_step(bc, B, T)
+        peak = _peak_mib(torch, device)
+        say(f"{tag} BERT-base pretraining under AMP O2 (bf16 weights, "
+            f"fp32 masters, fused encoder), batch {B} x seq {T}: loss "
+            f"{losses[0]:.4f} (warm-up) -> {losses[-1]:.4f} after "
+            f"{len(losses) - 1} steps; {s_step:.4f} s per step, "
+            f"{B / s_step:.1f} sequences/s, MFU {flops / s_step / BF16_FLOP_S:.4f}"
+            f" ({flops:.4e} FLOP a step over the {BF16_FLOP_S:.3g} bf16 "
+            f"dense peak; a step's bound there {flops / BF16_FLOP_S:.4f} s),"
+            f" peak memory {peak:.1f} MiB; launches {counts}, kernel "
+            f"dtypes {dts.seen}; phase 16 (fp32) in this run: "
+            f"{fp32['s_step']:.4f} s per step, {B / fp32['s_step']:.1f} "
+            f"sequences/s, MFU {fp32['mfu']:.4f} against the fp32 "
+            f"non-tensor peak ({flops / fp32['s_step'] / BF16_FLOP_S:.4f} "
+            f"against the bf16 peak), peak {fp32['peak']:.1f} MiB; O2 "
+            f"speed-up x{fp32['s_step'] / s_step:.2f}")
+        require(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+        require(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+        if device.type == "cuda":
+            steps = cfg["bert_steps"]
+            want = {"fused_layer_norm": 2 * L,
+                    "fused_dropout": 2 * (1 + 3 * L)}
+            got = {k: counts[k] for k in want}
+            require(got == {k: steps * n for k, n in want.items()},
+                    f"launches {got} are not {steps} x {want}")
+            require(dts.seen == {"layer_norm": {"bfloat16"},
+                                 "dropout": {"bfloat16"}},
+                    f"kernel dtypes under O2: {dts.seen}")
+            _profile_step(torch, step, tag, say, "BERT O2 training step", {
+                "GEMMs (cuBLAS)": ("gemm", "nvjet", "xmma", "cutlass",
+                                   "sm90_"),
+                "LayerNorm kernel": ("ln_kernel",),
+                "dropout kernel": ("dropout_kernel",),
+                "casts (copy kernels)": ("copy",)})
+    finally:
+        paddle_tpu_torch.set_flags({"FLAGS_tpu_fused_encoder": False})
+    del model, opt
+    _free(torch, device)
+
+
+def phase_amp_bert_paths(torch, device, cfg, seed, tag, say):
+    """Phase 23a, second leg: the O2 kernel path on the card against the
+    plain O2 path on the CPU at batch ``bert_plain_batch`` (hidden
+    dropout 0.1 with the hash mask both devices share, attention dropout
+    0), the same weights and seeds."""
+    import paddle_tpu_torch
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models import BertForPretraining
+    bc = _bert_cfg(cfg, hidden_dropout=0.1, attn_dropout=0.0)
+    B = cfg["bert_plain_batch"]
+    cpu = torch.device("cpu")
+    batch = _bert_batch(torch, cpu, cfg, B, seed + 5)
+    paddle_tpu_torch.set_flags({"FLAGS_tpu_fused_encoder": True})
+    t0 = time.perf_counter()
+    try:
+        res, state = [], None
+        for dev in (device, cpu):
+            m = BertForPretraining(
+                bc, device=dev,
+                generator=torch.Generator().manual_seed(seed + 6))
+            if state is None:
+                state = {k: v.detach().cpu() for k, v in
+                         m.state_dict().items()}
+            else:
+                m.load_state_dict(state)
+            amp.decorate(m, level="O2", dtype="bfloat16")
+            ids, mlm, nsp = (t.to(dev) for t in batch)
+            with amp.auto_cast(level="O2", dtype="bfloat16"):
+                loss, _ = m(ids, masked_lm_labels=mlm,
+                            next_sentence_label=nsp)
+            require(loss.dtype == torch.bfloat16,
+                    f"the O2 loss is {loss.dtype}, the reference's is bf16")
+            loss.backward()
+            res.append((loss.float().item(),
+                        {n: p.grad.detach().float().cpu() for n, p in
+                         m.named_parameters() if p.grad is not None}))
+            del m
+    finally:
+        paddle_tpu_torch.set_flags({"FLAGS_tpu_fused_encoder": False})
+    (lk, gk), (lp, gp) = res
+    dl = abs(lk - lp) / abs(lp)
+    require(set(gk) == set(gp), "the two O2 paths differ in which "
+            "parameters get gradients")
+    worst, worst_cos, noise = _grads_agree(torch, gk, gp)
+    say(f"{tag} BERT-base O2 kernel path (card) vs plain O2 path (CPU), "
+        f"batch {B} x {cfg['bert_seq']}, hidden dropout 0.1: loss "
+        f"{lk:.5f} vs {lp:.5f} ({dl:.2e} relative, bound {BOUND_AMP_LOSS});"
+        f" gradients worst {worst:.3e} x max|g|, worst cosine "
+        f"{worst_cos:.5f} (bound {BOUND_AMP_COS}; {len(noise)} "
+        f"noise-level tensors: {noise}); {time.perf_counter() - t0:.1f} s")
+    require(dl <= BOUND_AMP_LOSS, f"O2 losses differ by {dl}")
+    require(worst_cos >= BOUND_AMP_COS,
+            "the O2 kernel path's gradients disagree with the plain path's")
+    _free(torch, device)
+
+
+def _llama_flops_per_token(c, T):
+    """phase 13's convention (LlamaSpmdTrainer.flops_per_token)."""
+    H, F_, V = c.hidden_size, c.intermediate_size, c.vocab_size
+    KV = c.num_key_value_heads * (H // c.num_attention_heads)
+    per_layer = 2 * H * H + 2 * H * KV + 3 * H * F_
+    return 6 * (c.num_hidden_layers * per_layer + V * H) \
+        + 6 * c.num_hidden_layers * H * T
+
+
+def _greedy_vs_reforward(torch, logits_of, tokens, prompt_len):
+    """(steps, per row the first step whose reference gap is a near-tie,
+    every row agrees up to it): the generated ``tokens`` [B, P + n]
+    against the argmax of one no-cache forward over them (teacher
+    forcing: position P - 1 + t predicts token P + t)."""
+    with torch.no_grad():
+        lg = logits_of(tokens[:, :-1])[:, prompt_len - 1:].float()
+    n = tokens.shape[1] - prompt_len
+    top2 = lg.topk(2, dim=-1).values
+    gap = (top2[..., 0] - top2[..., 1]).cpu().numpy()
+    tol = TOL_TIE_BF16 * float(lg.abs().max())
+    ref = lg.argmax(-1).cpu().numpy()
+    got = tokens[:, prompt_len:].cpu().numpy()
+    first, ok = [], True
+    for i in range(tokens.shape[0]):
+        small = np.flatnonzero(gap[i] < tol)
+        upto = int(small[0]) if small.size else n
+        first.append(upto)
+        ok &= bool((ref[i, :upto] == got[i, :upto]).all())
+    return n, first, ok
+
+
+def phase_amp_llama(torch, device, cfg, seed, tag, say):
+    """Phase 23b: LlamaForCausalLM at phase 13's widths under O2 with
+    multi-precision AdamW, then greedy generate with the KV cache."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.ops.hopper import flash_attention as fa
+    from paddle_tpu_torch.optimizer import AdamW
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    tc = _train_cfg(cfg)
+    B, T, L = cfg["train_batch"], cfg["train_seq"], cfg["train_layers"]
+    model = LlamaForCausalLM(tc, device=device,
+                             generator=torch.Generator().manual_seed(seed))
+    amp.decorate(model, level="O2", dtype="bfloat16")
+    opt = AdamW(1e-4, parameters=model.parameters(), multi_precision=True)
+    ids = torch.from_numpy(np.random.RandomState(seed + 2).randint(
+        0, tc.vocab_size, (B, T))).to(device)
+
+    def step():
+        with amp.auto_cast(level="O2", dtype="bfloat16"):
+            loss, _ = model(ids, labels=ids)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss.detach()
+
+    with _LaunchDtypes() as dts:
+        losses, s_step, counts = _timed_steps(torch, device, step,
+                                              cfg["train_steps"])
+    fpt = _llama_flops_per_token(tc, T)
+    tok_s = B * T / s_step
+    n_params = sum(p.numel() for p in model.parameters())
+    say(f"{tag} LlamaForCausalLM under AMP O2, {n_params} params ({L} "
+        f"layers of Llama-2-7B widths, vocab {tc.vocab_size}, full "
+        f"[B, T, vocab] logits and an fp32 cross entropy), batch {B} x "
+        f"seq {T}, multi-precision AdamW: loss {losses[0]:.4f} (warm-up) "
+        f"-> {losses[-1]:.4f} after {len(losses) - 1} steps; {s_step:.4f} "
+        f"s per step, {tok_s:.1f} tokens/s, MFU "
+        f"{fpt * tok_s / BF16_FLOP_S:.4f} ({fpt} FLOP/token over "
+        f"{BF16_FLOP_S:.3g}), peak memory {_peak_mib(torch, device):.1f} "
+        f"MiB; launches {counts}, kernel dtypes {dts.seen}")
+    require(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+    require(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    steps = cfg["train_steps"]
+    if device.type == "cuda":
+        want = {"flash_attention_fwd": L, "flash_attention_bwd": L,
+                "fused_rms_norm": 2 * L + 1}
+        got = {k: counts[k] for k in want}
+        require(got == {k: steps * n for k, n in want.items()},
+                f"launches {got} are not {steps} x {want}")
+        require(dts.seen == {"rms_norm": {"bfloat16"}},
+                f"kernel dtypes under O2: {dts.seen}")
+        _profile_step(torch, step, tag, say, "Llama O2 training step", {
+            "flash attention": ("flash_",),
+            "GEMMs (cuBLAS)": ("nvjet", "gemm", "xmma", "cutlass", "sm90_"),
+            "RMSNorm kernel": ("rms_kernel",),
+            "casts (copy kernels)": ("copy",)})
+    del opt
+    _free(torch, device)
+    # greedy decode with the cache: the flash kernel at Lq 1
+    model.eval()
+    P, n = cfg["gen_prompt"], cfg["gen_new"]
+    prompt = ids[:cfg["gen_batch"], :P]
+    before = fa.launch_count("fwd")
+    t0 = time.perf_counter()
+    with amp.auto_cast(level="O2", dtype="bfloat16"):
+        out = model.generate(prompt, max_new_tokens=n)
+        _sync(torch, device)
+        wall = time.perf_counter() - t0
+        launched = fa.launch_count("fwd") - before
+        steps_, first, ok = _greedy_vs_reforward(torch, model, out, P)
+    say(f"{tag} Llama O2 generate: batch {prompt.shape[0]}, prompt {P}, "
+        f"{n} new tokens with the KV cache in {wall:.3f} s "
+        f"({prompt.shape[0] * n / wall:.1f} tokens/s); flash forward "
+        f"launches {launched}; tokens equal to a no-cache re-forward's "
+        f"argmax up to each row's first near-tie (gap < {TOL_TIE_BF16} x "
+        f"max|logit|): {ok}, first near-ties {first} of {steps_}")
+    require(out.shape == (prompt.shape[0], P + n), "generate's shape")
+    require(ok, "cached generate departs from the re-forward's argmax "
+            "before a near-tie")
+    if device.type == "cuda":
+        require(launched == L * n, f"flash launches in generate: "
+                f"{launched}, not {L} x {n}")
+    del model
+    _free(torch, device)
+
+
+def _gpt_cfg(cfg, recompute):
+    from paddle_tpu_torch.models import GPTConfig
+    return GPTConfig(vocab_size=cfg["vocab"], hidden_size=cfg["d"],
+                     num_hidden_layers=cfg["layers"],
+                     num_attention_heads=cfg["heads"],
+                     intermediate_size=cfg["ffn"],
+                     max_position_embeddings=cfg["gpt_seq"],
+                     recompute=recompute)
+
+
+def phase_amp_gpt(torch, device, cfg, seed, tag, say):
+    """Phase 23c: GPTForCausalLM at GPTConfig's widths under O2 with
+    recompute (config #4's regime), then recompute on against off."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models import GPTForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    gc_ = _gpt_cfg(cfg, True)
+    B, T, L = cfg["gpt_batch"], cfg["gpt_seq"], gc_.num_hidden_layers
+    ids = torch.from_numpy(np.random.RandomState(seed + 7).randint(
+        0, gc_.vocab_size, (B, T))).to(device)
+    model = GPTForCausalLM(gc_, device=device,
+                           generator=torch.Generator().manual_seed(seed))
+    state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    amp.decorate(model, level="O2", dtype="bfloat16")
+    opt = AdamW(1e-4, parameters=model.parameters(), multi_precision=True)
+
+    def step():
+        with amp.auto_cast(level="O2", dtype="bfloat16"):
+            loss, _ = model(ids, labels=ids)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss.detach()
+
+    with _LaunchDtypes() as dts:
+        losses, s_step, counts = _timed_steps(torch, device, step,
+                                              cfg["gpt_steps"])
+    H, F_, V = gc_.hidden_size, gc_.intermediate_size, gc_.vocab_size
+    fpt = 6 * (L * (4 * H * H + 2 * H * F_) + V * H) + 6 * L * H * T
+    tok_s = B * T / s_step
+    say(f"{tag} GPTForCausalLM under AMP O2 with recompute, "
+        f"{sum(p.numel() for p in model.parameters())} params (GPTConfig: "
+        f"{L} layers, d {H}, vocab {V}, dropout 0.1), batch {B} x seq {T}:"
+        f" loss {losses[0]:.4f} (warm-up) -> {losses[-1]:.4f} after "
+        f"{len(losses) - 1} steps; {s_step:.4f} s per step, {tok_s:.1f} "
+        f"tokens/s, MFU {fpt * tok_s / BF16_FLOP_S:.4f} ({fpt} FLOP/token,"
+        f" recompute not counted), peak memory "
+        f"{_peak_mib(torch, device):.1f} MiB; launches {counts}, kernel "
+        f"dtypes {dts.seen}")
+    require(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+    require(losses[-1] < losses[0], f"the loss did not fall: {losses}")
+    steps = cfg["gpt_steps"]
+    if device.type == "cuda":
+        # the flash forward runs again in each block's replay; dropout
+        # runs forward (1 + 2 L), in the replay (L: torch's non-reentrant
+        # checkpoint stops a replay once the block's last saved tensor is
+        # recomputed, before the second hidden dropout, whose backward
+        # needs nothing saved) and backward (1 + 2 L)
+        want = {"flash_attention_fwd": 2 * L, "flash_attention_bwd": L,
+                "fused_dropout": 2 + 5 * L}
+        got = {k: counts[k] for k in want}
+        require(got == {k: steps * n for k, n in want.items()},
+                f"launches {got} are not {steps} x {want}")
+        require(dts.seen == {"dropout": {"bfloat16"}},
+                f"kernel dtypes under O2: {dts.seen}")
+        _profile_step(torch, step, tag, say, "GPT O2 recompute step", {
+            "flash attention": ("flash_",),
+            "GEMMs (cuBLAS)": ("nvjet", "gemm", "xmma", "cutlass", "sm90_"),
+            "dropout kernel": ("dropout_kernel",),
+            "casts (copy kernels)": ("copy",)})
+    del model, opt
+    _free(torch, device)
+    # recompute on against off: equal weights, equal generator seeds
+    grads, lvals = [], []
+    for rc in (True, False):
+        m = GPTForCausalLM(_gpt_cfg(cfg, rc), device=device,
+                           generator=torch.Generator().manual_seed(seed + 1))
+        m.load_state_dict(state)
+        amp.decorate(m, level="O2", dtype="bfloat16")
+        with amp.auto_cast(level="O2", dtype="bfloat16"):
+            loss, _ = m(ids, labels=ids)
+        loss.backward()
+        lvals.append(loss.float().item())
+        grads.append({n: p.grad.detach().float() for n, p in
+                      m.named_parameters()})
+        del m, loss
+        _free(torch, device)
+    worst, worst_cos, noise = _grads_agree(torch, grads[0], grads[1])
+    dl = abs(lvals[0] - lvals[1]) / abs(lvals[1])
+    say(f"{tag} GPT O2 recompute on vs off (dropout 0.1, one seed): loss "
+        f"{lvals[0]:.5f} vs {lvals[1]:.5f} ({dl:.2e} relative, bound "
+        f"{BOUND_AMP_LOSS}); gradients worst {worst:.3e} x max|g|, worst "
+        f"cosine {worst_cos:.6f} (bound {BOUND_AMP_COS}; {len(noise)} "
+        f"noise-level tensors)")
+    require(dl <= BOUND_AMP_LOSS and worst_cos >= BOUND_AMP_COS,
+            "recompute changes the gradients")
+    del grads, state
+    _free(torch, device)
+
+
+def phase_amp_transformer_moe(torch, device, cfg, seed, tag, say):
+    """Phase 23d: nn.Transformer() (defaults, pre-norm) with a tied token
+    embedding: one O2 step, then an incremental greedy decode through
+    gen_cache against full causal re-forwards; MoELayer under O2: the
+    routing on the card against the CPU's from the same logits, forward
+    and backward against the float32 layer."""
+    from paddle_tpu_torch import amp, nn
+    from paddle_tpu_torch.framework.op import matmul
+    from paddle_tpu_torch.incubate import MoELayer
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import AdamW
+    g = torch.Generator().manual_seed(seed + 8)
+    V, B, S = cfg["tf_vocab"], cfg["tf_batch"], cfg["tf_len"]
+    model = nn.Transformer(normalize_before=True, device=device, generator=g)
+    emb = nn.Embedding(V, model.d_model, device=device, generator=g)
+    amp.decorate([model, emb], level="O2", dtype="bfloat16")
+    params = list(model.parameters()) + list(emb.parameters())
+    opt = AdamW(1e-4, parameters=params, multi_precision=True)
+    rng = np.random.RandomState(seed + 9)
+    src, tgt = (torch.from_numpy(rng.randint(0, V, (B, S))).to(device)
+                for _ in range(2))
+    causal = model.generate_square_subsequent_mask(S - 1)
+
+    def logits_of(dec_out):
+        return matmul(dec_out, emb.weight, transpose_y=True)
+
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(2):
+        with amp.auto_cast(level="O2", dtype="bfloat16"):
+            out = model(emb(src), emb(tgt[:, :-1]), None, causal)
+            loss = F.cross_entropy(logits_of(out).reshape(-1, V),
+                                   tgt[:, 1:].reshape(-1))
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        losses.append(loss.float().item())
+    _sync(torch, device)
+    say(f"{tag} nn.Transformer() pre-norm (d {model.d_model}, "
+        f"{model.nhead} heads, 6 + 6 layers, FFN 2048, dropout 0.1) under "
+        f"O2, batch {B} x {S}: losses {losses} (warm-up, step) in "
+        f"{time.perf_counter() - t0:.2f} s")
+    require(all(np.isfinite(losses)), f"non-finite loss: {losses}")
+    del opt
+    model.eval()
+    n = cfg["tf_new"]
+    with torch.no_grad(), amp.auto_cast(level="O2", dtype="bfloat16"):
+        memory = model.encoder(emb(src))
+        cache = model.decoder.gen_cache(memory)
+        toks = tgt[:, :1]
+        step_in = toks
+        for _ in range(n):
+            h, cache = model.decoder(emb(step_in), memory, None, None, cache)
+            step_in = logits_of(h[:, -1:]).argmax(-1)
+            toks = torch.cat([toks, step_in], 1)
+
+        def reforward(seq):
+            mask = model.generate_square_subsequent_mask(seq.shape[1])
+            return logits_of(model.decoder(emb(seq), memory, mask))
+        steps_, first, ok = _greedy_vs_reforward(torch, reforward, toks, 1)
+    say(f"{tag} nn.Transformer O2 incremental greedy decode through "
+        f"gen_cache ({n} tokens, batch {B}): equal to full causal "
+        f"re-forwards up to each row's first near-tie: {ok}, first "
+        f"near-ties {first}")
+    require(ok, "the gen_cache decode departs from the re-forwards")
+    del model, emb, memory, cache
+    _free(torch, device)
+
+    # MoELayer: routing on the card vs the CPU, O2 vs float32
+    N, d, E, k = cfg["moe_tokens"], cfg["moe_d"], 8, 2
+    layer = MoELayer(d, num_expert=E, d_hidden=cfg["moe_hidden"], top_k=k,
+                     device=device,
+                     generator=torch.Generator().manual_seed(seed + 10))
+    ref = MoELayer(d, num_expert=E, d_hidden=cfg["moe_hidden"], top_k=k,
+                   device=device)
+    ref.load_state_dict(layer.state_dict())
+    amp.decorate(layer, level="O2", dtype="bfloat16")
+    with torch.no_grad():
+        # the float32 reference holds the bf16 weights exactly
+        for p, q in zip(ref.parameters(), layer.parameters()):
+            p.copy_(q.float())
+    gx = torch.Generator().manual_seed(seed + 11)
+    x = torch.randn(N, d, generator=gx).to(device)
+    proj = torch.randn(N, d, generator=gx).to(device)
+    cap = max(int(layer.capacity_factor * N * k / E), k)
+    with torch.no_grad(), amp.auto_cast(level="O2", dtype="bfloat16"):
+        lg = layer.gate(x)[0]
+    t0 = time.perf_counter()
+    card = list(MoELayer._gshard_routing(lg, k, E, cap))
+    host = list(MoELayer._gshard_routing(lg.cpu(), k, E, cap))
+    same = all(torch.equal(a.cpu(), b) for c, h in zip(card, host)
+               for a, b in list(zip(c, h))[:3])
+    vals = max(float((c[3].float().cpu() - h[3].float()).abs().max())
+               for c, h in zip(card, host))
+    kept = sum(int(c[2].sum()) for c in card)
+    say(f"{tag} MoELayer({d}, {E} experts, {cfg['moe_hidden']}, top "
+        f"{k}) routing over {N} tokens from the card's bf16 gate logits: "
+        f"expert, capacity position and kept flag on the card equal to "
+        f"the CPU's: {same}; kept weights differ by {vals:.2e}; "
+        f"{kept} of {N * k} slots kept (capacity {cap})")
+    require(same, "MoE routing on the card differs from the CPU's")
+    require(vals <= 2.0 ** -8, f"kept weights differ by {vals}")
+    outs, grads, routes = [], [], []
+    for m, amp_on in ((layer, True), (ref, False)):
+        xi = x.clone().requires_grad_()
+        with amp.auto_cast(enable=amp_on, level="O2", dtype="bfloat16"):
+            out = m(xi)
+            logits = m.gate.gate(xi)
+        (out.float() * proj).sum().add(m.l_aux.float()).backward()
+        outs.append(out.detach().float())
+        grads.append({"x": xi.grad.float(), **{
+            n: p.grad.float() for n, p in m.named_parameters()}})
+        routes.append(torch.stack([torch.stack(
+            [o.argmax(-1), kp.long()]) for o, _, kp, _ in
+            MoELayer._gshard_routing(logits.detach(), k, E, cap)]))
+        m.zero_grad(set_to_none=True)
+    agree = (routes[0] == routes[1]).all(0).all(0)
+    share = float(agree.float().mean())
+    err = float((outs[0] - outs[1])[agree].abs().max()) / float(
+        outs[1][agree].abs().max())
+    worst, worst_cos, noise = _grads_agree(torch, grads[0], grads[1])
+    say(f"{tag} MoELayer O2 vs float32 on the card: {share:.4f} of tokens "
+        f"routed alike (bf16 gate logits move near-ties); output on them "
+        f"within {err:.3e} x max|ref| (bound {BOUND_AMP_OUT}); gradients "
+        f"worst cosine {worst_cos:.5f} (bound {BOUND_AMP_COS}; "
+        f"{len(noise)} noise-level tensors); {time.perf_counter() - t0:.2f}"
+        f" s")
+    require(share >= 0.95, f"only {share} of tokens routed alike")
+    require(err <= BOUND_AMP_OUT, f"MoE O2 output off by {err}")
+    require(worst_cos >= BOUND_AMP_COS, "MoE O2 gradients disagree")
+    del layer, ref, outs, grads
+    _free(torch, device)
+
+
+def phase_amp(torch, device, cfg, seed, fp32, tag, say):
+    """Phase 23, legs a-d (see the module docstring)."""
+    t0 = time.perf_counter()
+    phase_amp_bert(torch, device, cfg, seed, fp32, tag, say)
+    phase_amp_bert_paths(torch, device, cfg, seed, tag, say)
+    phase_amp_llama(torch, device, cfg, seed, tag, say)
+    phase_amp_gpt(torch, device, cfg, seed, tag, say)
+    phase_amp_transformer_moe(torch, device, cfg, seed, tag, say)
+    say(f"{tag} phase 23 (the nn training surface under AMP): "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
 def run(device, cfg, seed=0, say=print, card=None):
     """All phases on ``device``; returns the kernels line's rows."""
     import torch
@@ -4138,10 +4769,12 @@ def run(device, cfg, seed=0, say=print, card=None):
     phase_train_paths(torch, device, cfg, seed, tag, say)
     # the BERT pretraining slice
     rows.update(phase_bert_kernels(torch, device, cfg, tag, say))
-    for name, n in phase_bert_train(torch, device, cfg, seed, tag,
-                                    say).items():
+    counts, fp32 = phase_bert_train(torch, device, cfg, seed, tag, say)
+    for name, n in counts.items():
         rows[name]["launches"] = n
     phase_bert_paths(torch, device, cfg, seed, tag, say)
+    # the nn training surface under AMP
+    phase_amp(torch, device, cfg, seed, fp32, tag, say)
     return [rows[k] for k in ("paged_attention_ragged",
                               "paged_attention_ragged_int8",
                               "decode_attention", "w8a16_matmul", "gmm",

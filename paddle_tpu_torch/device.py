@@ -13,3 +13,12 @@ def resolve_device(device=None) -> torch.device:
             "no CUDA device is available; pass device='cpu' to run the "
             "port's plain PyTorch paths on the CPU")
     return dev
+
+
+def model_kw(device=None, generator=None):
+    """The keywords a model hands its layers: the resolved device and a
+    CPU torch.Generator (``torch.Generator().manual_seed(0)`` when
+    None) that draws the weights and the dropout seeds."""
+    return dict(device=resolve_device(device),
+                generator=(torch.Generator().manual_seed(0)
+                           if generator is None else generator))

@@ -3,6 +3,9 @@
 Only the flags the port reads are defined, with the JAX package's
 defaults:
 
+- ``FLAGS_check_nan_inf`` (False): the op-boundary hook
+  (``framework/op.py``) scans every hooked op's floating inputs for
+  NaN/Inf and raises naming the op.
 - ``FLAGS_tpu_fused_dropout`` (True): ``nn.functional.dropout`` in the
   ``upscale_in_train`` mode goes through the fused dropout kernel
   (``ops/hopper/fused_norm.py``; its plain version on the CPU).
@@ -14,6 +17,7 @@ from __future__ import annotations
 from typing import Any, Dict
 
 _REGISTRY: Dict[str, Any] = {
+    "FLAGS_check_nan_inf": False,
     "FLAGS_tpu_fused_dropout": True,
     "FLAGS_tpu_fused_encoder": False,
 }
@@ -31,3 +35,5 @@ def set_flags(flags: Dict[str, Any]) -> None:
         raise ValueError(f"unknown flags {unknown}; the port defines "
                          f"{sorted(_REGISTRY)}")
     _REGISTRY.update(flags)
+    from .framework import op
+    op.refresh_watch()

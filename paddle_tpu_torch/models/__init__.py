@@ -1,11 +1,13 @@
-"""Models of the port: BERT (pretraining and classification), the Llama
-configuration and the single-device ``LlamaSpmdTrainer`` (the training
-flagship)."""
+"""Models of the port: BERT (pretraining and classification), Llama
+(``LlamaForCausalLM``), GPT (``GPTForCausalLM``) and the single-device
+``LlamaSpmdTrainer`` (the training flagship)."""
 from .bert import (BertConfig, BertForPretraining,  # noqa: F401
                    BertForSequenceClassification, BertModel)
-from .llama import LlamaConfig  # noqa: F401
+from .gpt import GPTConfig, GPTForCausalLM, GPTModel  # noqa: F401
+from .llama import LlamaConfig, LlamaForCausalLM  # noqa: F401
 from .llama_spmd import LlamaSpmdTrainer  # noqa: F401
 
 __all__ = ["BertConfig", "BertForPretraining",
-           "BertForSequenceClassification", "BertModel", "LlamaConfig",
+           "BertForSequenceClassification", "BertModel", "GPTConfig",
+           "GPTForCausalLM", "GPTModel", "LlamaConfig", "LlamaForCausalLM",
            "LlamaSpmdTrainer"]

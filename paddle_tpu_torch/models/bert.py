@@ -11,6 +11,12 @@ the JAX package's dygraph step:
     opt = AdamW(1e-4, parameters=model.parameters())
     loss, _ = model(ids, masked_lm_labels=mlm, next_sentence_label=nsp)
     loss.backward(); opt.step(); opt.clear_grad()
+
+Mixed precision as the JAX package's AMP-O2 leg: ``amp.decorate(model,
+level="O2", dtype="bfloat16")``, ``AdamW(..., multi_precision=True)``
+and the forward under ``amp.auto_cast(level="O2")``; the functionals
+cast at the op-boundary hook (``framework/op.py``), so the loss is bf16
+as in the reference.
 """
 from __future__ import annotations
 
@@ -19,7 +25,8 @@ from dataclasses import dataclass
 import torch
 
 from .. import nn
-from ..device import resolve_device
+from ..device import model_kw
+from ..framework.op import add, matmul
 from ..nn import functional as F
 
 
@@ -48,16 +55,10 @@ class BertConfig:
                           max_position_embeddings=seq)
 
 
-def _kw(device, generator):
-    return dict(device=resolve_device(device),
-                generator=(torch.Generator().manual_seed(0)
-                           if generator is None else generator))
-
-
 class BertEmbeddings(torch.nn.Module):
     def __init__(self, config: BertConfig, *, device=None, generator=None):
         super().__init__()
-        kw = _kw(device, generator)
+        kw = model_kw(device, generator)
         h = config.hidden_size
         self.word_embeddings = nn.Embedding(config.vocab_size, h, **kw)
         self.position_embeddings = nn.Embedding(
@@ -71,10 +72,10 @@ class BertEmbeddings(torch.nn.Module):
 
     def forward(self, input_ids, token_type_ids=None):
         pos = torch.arange(input_ids.shape[1], device=input_ids.device)
-        emb = self.word_embeddings(input_ids) \
-            + self.position_embeddings(pos[None])
+        emb = add(self.word_embeddings(input_ids),
+                  self.position_embeddings(pos[None]))
         if token_type_ids is not None:
-            emb = emb + self.token_type_embeddings(token_type_ids)
+            emb = add(emb, self.token_type_embeddings(token_type_ids))
         return self.dropout(self.layer_norm(emb))
 
 
@@ -82,7 +83,7 @@ class BertPooler(torch.nn.Module):
     def __init__(self, config, *, device=None, generator=None):
         super().__init__()
         self.dense = nn.Linear(config.hidden_size, config.hidden_size,
-                               **_kw(device, generator))
+                               **model_kw(device, generator))
         self.activation = nn.Tanh()
 
     def forward(self, hidden):
@@ -92,7 +93,7 @@ class BertPooler(torch.nn.Module):
 class BertModel(torch.nn.Module):
     def __init__(self, config: BertConfig, *, device=None, generator=None):
         super().__init__()
-        kw = _kw(device, generator)
+        kw = model_kw(device, generator)
         self.config = config
         self.embeddings = BertEmbeddings(config, **kw)
         enc_layer = nn.TransformerEncoderLayer(
@@ -119,7 +120,7 @@ class BertForSequenceClassification(torch.nn.Module):
     def __init__(self, config: BertConfig, num_classes=2, *, device=None,
                  generator=None):
         super().__init__()
-        kw = _kw(device, generator)
+        kw = model_kw(device, generator)
         self.bert = BertModel(config, **kw)
         self.dropout = nn.Dropout(config.hidden_dropout_prob,
                                   generator=kw["generator"])
@@ -143,7 +144,7 @@ class BertLMHead(torch.nn.Module):
     def __init__(self, config: BertConfig, embedding_weights=None, *,
                  device=None, generator=None):
         super().__init__()
-        kw = _kw(device, generator)
+        kw = model_kw(device, generator)
         self.transform = nn.Linear(config.hidden_size, config.hidden_size,
                                    **kw)
         self.activation = nn.GELU()
@@ -158,14 +159,15 @@ class BertLMHead(torch.nn.Module):
     def forward(self, x):
         x = self.layer_norm(self.activation(self.transform(x)))
         if self._tied is not None:
-            return x @ self._tied[0].t() + self.decoder.bias
+            return add(matmul(x, self._tied[0], transpose_y=True),
+                       self.decoder.bias)
         return self.decoder(x)
 
 
 class BertForPretraining(torch.nn.Module):
     def __init__(self, config: BertConfig, *, device=None, generator=None):
         super().__init__()
-        kw = _kw(device, generator)
+        kw = model_kw(device, generator)
         self.bert = BertModel(config, **kw)
         self.cls = BertLMHead(config,
                               self.bert.embeddings.word_embeddings.weight,
@@ -183,7 +185,9 @@ class BertForPretraining(torch.nn.Module):
                                    masked_lm_labels.reshape(-1),
                                    ignore_index=-100)
             if next_sentence_label is not None:
-                loss = loss + F.cross_entropy(nsp_logits,
-                                              next_sentence_label)
+                # the reference's elementwise_add: bf16 under O2 although
+                # both cross entropies are float32
+                loss = add(loss, F.cross_entropy(nsp_logits,
+                                                 next_sentence_label))
             return loss, pred
         return pred, nsp_logits

@@ -19,6 +19,7 @@ import math
 
 import torch
 
+from ...framework.op import op_inputs
 from ...framework.random import bernoulli_keep, draw_seed
 from ...ops.hopper.flash_attention import flash_attention_blhd
 
@@ -56,8 +57,12 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
     """paddle.nn.functional.scaled_dot_product_attention. ``attn_mask`` is
     ADDITIVE (0 keeps, -1e30 drops) and broadcasts against [B, H, Lq, Lk];
     ``dropout_p`` applies while ``training``, with seeds drawn from
-    ``generator`` (a CPU torch.Generator)."""
+    ``generator`` (a CPU torch.Generator). Goes through the op-boundary
+    hook as ``flash_attention`` (the JAX package's op name for every
+    path here)."""
     rate = float(dropout_p) if training else 0.0
+    query, key, value, attn_mask = op_inputs(
+        "flash_attention", query, key, value, attn_mask)
     hd = query.shape[-1]
     if query.is_cuda and attn_mask is None and hd >= 64 and hd % 64 == 0:
         if rate == 0.0:

@@ -4,6 +4,7 @@ from __future__ import annotations
 
 import torch
 
+from ...framework.op import op_inputs
 from ...framework.unported import require_defaults
 
 
@@ -20,6 +21,7 @@ def cross_entropy(input, label, weight=None, ignore_index=-100,
                      soft_label=(soft_label, False),
                      use_softmax=(use_softmax, True),
                      label_smoothing=(label_smoothing, 0.0))
+    input, label = op_inputs("cross_entropy", input, label)
     ax = axis % input.ndim
     logp = torch.log_softmax(input, dim=ax)
     hard = label

@@ -4,7 +4,8 @@ from __future__ import annotations
 import torch
 
 from ...device import resolve_device
-from ..functional.norm import layer_norm
+from ...framework.unported import require_defaults
+from ..functional.norm import layer_norm, rms_norm
 
 
 class LayerNorm(torch.nn.Module):
@@ -26,3 +27,20 @@ class LayerNorm(torch.nn.Module):
     def forward(self, x):
         return layer_norm(x, self._shape, self.weight, self.bias,
                           self._epsilon)
+
+
+class RMSNorm(torch.nn.Module):
+    """Weight-only RMS normalization over the last axis (the Llama
+    family's norm); ``F.rms_norm``, hence the RMSNorm kernel on the
+    card."""
+
+    def __init__(self, hidden_size, epsilon=1e-6, weight_attr=None,
+                 name=None, *, device=None, dtype=torch.float32):
+        require_defaults("nn.RMSNorm", weight_attr=(weight_attr, None))
+        super().__init__()
+        self._epsilon = float(epsilon)
+        self.weight = torch.nn.Parameter(torch.ones(
+            hidden_size, device=resolve_device(device), dtype=dtype))
+
+    def forward(self, x):
+        return rms_norm(x, self.weight, self._epsilon)

@@ -19,8 +19,17 @@ holding a JAX ``LlamaSpmdTrainer``'s parameter tree (and optionally its
 optimizer state), given as nested dicts of numpy arrays with the same
 keys. ``bert_for_pretraining`` builds the port's BertForPretraining
 from a JAX ``BertForPretraining.state_dict()`` as numpy (``bert.*``,
-``cls.*``, ``nsp.*``; the tied decoder reads the word embeddings). This
-module never imports JAX: the caller hands it numpy.
+``cls.*``, ``nsp.*``; the tied decoder reads the word embeddings).
+``llama_for_causal_lm`` and ``gpt_for_causal_lm`` build the port's
+causal LMs from the JAX models' state dicts (the rotary tables are not
+in them, in either package); ``transformer`` and ``moe_layer`` load a
+JAX ``nn`` transformer layer's (``MultiHeadAttention`` up to
+``Transformer``) or ``MoELayer``'s state into a port module the caller
+built with the same arguments. Every loader keeps the port module's
+dtypes: a bf16 JAX model's arrays (after ``paddle.amp.decorate``) go
+into a port model exactly (bf16 -> float32 -> bf16 is exact), which
+``amp.decorate`` then casts back. This module never imports JAX: the
+caller hands it numpy.
 """
 from __future__ import annotations
 
@@ -30,14 +39,19 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from .incubate.moe import MoELayer
 from .incubate.nn import FusedMultiTransformer, FusedMultiTransformerInt8
 from .inference.moe_serving import MoeServingCore
 from .inference.speculative import TokenServingModel
 from .models.bert import BertConfig, BertForPretraining
+from .models.gpt import GPTConfig, GPTForCausalLM
+from .models.llama import LlamaConfig, LlamaForCausalLM
 from .models.llama_spmd import LlamaSpmdTrainer, tree_get, tree_paths
 
 __all__ = ["bert_for_pretraining", "fused_multi_transformer",
-           "llama_spmd_trainer", "moe_serving_core", "token_serving_model"]
+           "gpt_for_causal_lm", "llama_for_causal_lm", "llama_spmd_trainer",
+           "moe_layer", "moe_serving_core", "token_serving_model",
+           "transformer"]
 
 
 def _layer_count(state, name: str) -> int:
@@ -56,8 +70,8 @@ def _load(model, state):
                          f"{sorted(set(own) - set(state))}, unexpected "
                          f"{sorted(set(state) - set(own))}")
     model.load_state_dict({k: torch.from_numpy(np.array(
-        v, np.int8 if k.endswith("weight_int8") else np.float32))
-        for k, v in state.items()})
+        v, np.int8 if k.endswith("weight_int8") else np.float32)).to(
+        own[k].dtype) for k, v in state.items()})
     return model
 
 
@@ -171,3 +185,45 @@ def bert_for_pretraining(state_np: Dict[str, np.ndarray], config: BertConfig,
     dropout seeds."""
     return _load(BertForPretraining(config, device=device,
                                     generator=generator), state_np)
+
+
+def llama_for_causal_lm(state_np: Dict[str, np.ndarray], config: LlamaConfig,
+                        *, device=None, generator=None) -> LlamaForCausalLM:
+    """A port LlamaForCausalLM holding ``state_np`` (the JAX model's
+    ``state_dict()`` as numpy). The JAX state dict also holds the rotary
+    tables (``rotary.cos_cached``/``sin_cached``, registered
+    ``persistable=False`` there) and, with ``tie_word_embeddings``, no
+    ``lm_head.weight``: the tables are checked against the port's own
+    buffers and dropped, the tied head reads the embedding table."""
+    model = LlamaForCausalLM(config, device=device, generator=generator)
+    state = dict(state_np)
+    buffers = dict(model.named_buffers())
+    for k in [k for k in state if k.endswith(("cos_cached", "sin_cached"))]:
+        mine = buffers[k].cpu().numpy()
+        if not np.allclose(np.asarray(state.pop(k), np.float32), mine,
+                           rtol=0, atol=1e-6):
+            raise ValueError(f"{k} is not the port's rotary table")
+    if config.tie_word_embeddings:
+        state.setdefault("lm_head.weight",
+                         state["llama.embed_tokens.weight"])
+    return _load(model, state)
+
+
+def gpt_for_causal_lm(state_np: Dict[str, np.ndarray], config: GPTConfig,
+                      *, device=None, generator=None) -> GPTForCausalLM:
+    """A port GPTForCausalLM holding ``state_np``; ``generator`` draws
+    its dropout seeds."""
+    return _load(GPTForCausalLM(config, device=device, generator=generator),
+                 state_np)
+
+
+def transformer(state_np: Dict[str, np.ndarray], module):
+    """``module`` (a port ``nn`` transformer layer built with the JAX
+    layer's arguments) holding ``state_np``."""
+    return _load(module, state_np)
+
+
+def moe_layer(state_np: Dict[str, np.ndarray], layer: MoELayer) -> MoELayer:
+    """``layer`` (a port MoELayer built with the JAX layer's arguments)
+    holding ``state_np`` (``experts.*``, ``gate.gate.*``)."""
+    return _load(layer, state_np)

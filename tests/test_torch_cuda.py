@@ -1636,3 +1636,109 @@ def test_sharded_serving_streams_and_launches_on_the_card(kv_dtype):
     cache = eng.engine.cache
     assert cache.mp == 2 and cache.pool_bytes() * 2 == cache.pool_bytes_total()
     assert all(p.is_cuda for p in cache.pools)
+
+
+# -- AMP and the nn training surface on the card -----------------------------
+
+def test_rms_norm_layer_runs_the_kernel_in_bf16():
+    """``nn.RMSNorm`` on a bf16 CUDA tensor launches the RMSNorm kernel
+    (forward) and agrees with the plain version within one bf16 ulp of
+    each element; inputs of two dtypes raise instead of falling back."""
+    _need_cuda()
+    from paddle_tpu_torch import nn
+    g = torch.Generator().manual_seed(3)
+    x = torch.randn(64, 512, generator=g).to(torch.bfloat16)
+    layer = nn.RMSNorm(512, 1e-5, device="cuda")
+    with torch.no_grad():
+        layer.weight.copy_(torch.rand(512, generator=g) + 0.5)
+    layer.to(torch.bfloat16)
+    xc = x.cuda().requires_grad_()
+    before = tfn.launch_count("rms_norm")
+    y = layer(xc)
+    assert tfn.launch_count("rms_norm") == before + 1
+    ref, _ = tfn.rms_fwd_reference(x, None, layer.weight.detach().cpu(),
+                                   1e-5)
+    err = (y.detach().cpu().float() - ref.float()).abs()
+    assert bool((err <= 2.0 ** -7 * ref.float().abs().clamp_min(
+        2.0 ** -6 * float(ref.float().abs().max()))).all())
+    y.float().sum().backward()
+    assert xc.grad.dtype == torch.bfloat16 and layer.weight.grad is not None
+    with pytest.raises(ValueError):
+        nn.functional.rms_norm(xc.detach(), layer.weight.detach().float())
+
+
+def test_flash_kernel_decodes_against_a_cache():
+    """The decode shape ``generate`` gives the flash kernel: one query
+    row per sequence against a 131-key cache (not a multiple of the
+    tile), bf16, head_dim 128, through ``F.scaled_dot_product_attention``
+    (not causal). Each row within 3e-2 x its max|ref| of the float32
+    dense path."""
+    _need_cuda()
+    from paddle_tpu_torch.nn.functional.attention import (
+        _sdpa, scaled_dot_product_attention)
+    g = torch.Generator().manual_seed(4)
+    q, k, v = (torch.randn(3, n, 8, 128, generator=g).to(torch.bfloat16)
+               for n in (1, 131, 131))
+    before = tfa.launch_count("fwd")
+    out = scaled_dot_product_attention(q.cuda(), k.cuda(), v.cuda())
+    assert tfa.launch_count("fwd") == before + 1
+    ref = _sdpa(q.float(), k.float(), v.float(), None, False, None)
+    err = (out.float().cpu() - ref).abs().amax(-1)
+    assert bool((err <= 3e-2 * ref.abs().amax(-1)).all())
+
+
+def test_bert_o2_step_on_the_card_matches_the_cpu():
+    """A BERT step under O2 (decorate bf16, auto_cast O2, fused encoder,
+    hidden dropout 0.1 with the hash mask the two devices share): the
+    LayerNorm and dropout kernels run in bf16 on the card; the loss and
+    every gradient (cosine) agree with the CPU's plain path from the same
+    weights and seeds within bf16 bounds (2e-2 relative, cosine 0.99)."""
+    _need_cuda()
+    import paddle_tpu_torch
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models import BertConfig, BertForPretraining
+    cfg = BertConfig.tiny(vocab=500, hidden=128, layers=2, heads=2,
+                          inter=256)
+    cfg.attention_probs_dropout_prob = 0.0
+    rng = np.random.RandomState(5)
+    ids = rng.randint(0, 500, (4, 32))
+    mlm = np.where(rng.rand(4, 32) < 0.3, rng.randint(0, 500, (4, 32)), -100)
+    nsp = rng.randint(0, 2, (4,))
+    paddle_tpu_torch.set_flags({"FLAGS_tpu_fused_encoder": True})
+    try:
+        res, state = [], None
+        for dev in ("cuda", "cpu"):
+            m = BertForPretraining(cfg, device=dev,
+                                   generator=torch.Generator().manual_seed(6))
+            if state is None:
+                state = {k: v.detach().cpu() for k, v in
+                         m.state_dict().items()}
+            else:
+                m.load_state_dict(state)
+            amp.decorate(m, level="O2", dtype="bfloat16")
+            before = (tfn.launch_count("layer_norm"),
+                      tfn.launch_count("dropout"))
+            with amp.auto_cast(level="O2"):
+                loss, _ = m(torch.from_numpy(ids).to(dev),
+                            masked_lm_labels=torch.from_numpy(mlm).to(dev),
+                            next_sentence_label=torch.from_numpy(nsp).to(dev))
+            loss.backward()
+            if dev == "cuda":
+                assert loss.dtype == torch.bfloat16
+                assert tfn.launch_count("layer_norm") == before[0] + 4
+                assert tfn.launch_count("dropout") == before[1] + 2 * (
+                    1 + 3 * 2)
+            res.append((loss.float().item(),
+                        {n: p.grad.float().cpu() for n, p in
+                         m.named_parameters() if p.grad is not None}))
+    finally:
+        paddle_tpu_torch.set_flags({"FLAGS_tpu_fused_encoder": False})
+    (lk, gk), (lp, gp) = res
+    assert abs(lk - lp) <= 2e-2 * abs(lp)
+    assert set(gk) == set(gp)
+    for n in gp:
+        if n.endswith("k_proj.bias"):      # exact gradient 0: noise
+            continue
+        cos = float((gk[n].flatten() @ gp[n].flatten())
+                    / (gk[n].norm() * gp[n].norm()).clamp_min(1e-30))
+        assert cos >= 0.99, (n, cos)

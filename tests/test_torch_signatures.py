@@ -3,7 +3,8 @@
 A positional call that is right for ``paddle_tpu`` must bind the same
 parameters in ``paddle_tpu_torch``: for every public name that both
 packages export from ``nn``, ``nn.functional``, ``optimizer``,
-``inference`` and ``incubate.nn``, the port's positional parameter names
+``inference``, ``incubate.nn``, ``amp``, ``models`` and ``incubate``,
+the port's positional parameter names
 are the reference's, in order (the port may stop early: a longer
 positional call then fails loudly). The port's own extras (``device``,
 ``generator``) are keyword-only. A reference parameter the port does not
@@ -22,7 +23,8 @@ from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.ops.hopper.paged_attention import \
     paged_attention_ragged
 
-MODULES = ("nn", "nn.functional", "optimizer", "inference", "incubate.nn")
+MODULES = ("nn", "nn.functional", "optimizer", "inference", "incubate.nn",
+           "amp", "models", "incubate")
 _POSITIONAL = (inspect.Parameter.POSITIONAL_ONLY,
                inspect.Parameter.POSITIONAL_OR_KEYWORD)
 
@@ -74,8 +76,6 @@ UNPORTED = {
         *_logits(), soft_label=True),
     "cross_entropy label_smoothing": lambda: F.cross_entropy(
         *_logits(), label_smoothing=0.1),
-    "TransformerEncoderLayer normalize_before (8th)": lambda:
-        nn.TransformerEncoderLayer(8, 2, 16, 0.1, "relu", None, None, True),
     "TransformerEncoderLayer weight_attr": lambda:
         nn.TransformerEncoderLayer(8, 2, 16, weight_attr=object()),
     "Adam grad_clip (7th)": lambda: optimizer.Adam(
@@ -273,16 +273,16 @@ _OPT = {"apply_gradients", "backward", "clear_gradients", "minimize",
         "set_state_dict", "state_dict"}  # item 12: the rest of optimizer
 _GAPS = {
     **{("nn", c): {a: 12 for a in _LAYER}
-       for c in ("Dropout", "Embedding", "GELU", "LayerNorm", "Linear",
-                 "Tanh")},
-    # item 11: the encoder gaps (the MultiHeadAttention cache path)
-    ("nn", "MultiHeadAttention"): dict({a: 12 for a in _LAYER},
-                                       Cache=11, StaticCache=11,
-                                       gen_cache=11),
-    ("nn", "TransformerEncoder"): dict({a: 12 for a in _LAYER},
-                                       gen_cache=11),
-    ("nn", "TransformerEncoderLayer"): dict({a: 12 for a in _LAYER},
-                                            gen_cache=11),
+       for c in ("AlphaDropout", "Dropout", "Dropout2D", "Dropout3D",
+                 "Embedding", "GELU", "LayerList", "LayerNorm", "Linear",
+                 "MultiHeadAttention", "RMSNorm", "Tanh", "Transformer",
+                 "TransformerDecoder", "TransformerDecoderLayer",
+                 "TransformerEncoder", "TransformerEncoderLayer")},
+    **{("models", c): {a: 12 for a in _LAYER}
+       for c in ("BertForPretraining", "BertForSequenceClassification",
+                 "BertModel", "GPTForCausalLM", "GPTModel",
+                 "LlamaForCausalLM")},
+    ("incubate", "MoELayer"): {a: 12 for a in _LAYER},
     **{("optimizer", c): {a: 12 for a in _OPT}
        for c in ("Adam", "AdamW", "Optimizer")},
     ("inference", "MoeServingCore"): {a: 12 for a in _LAYER},
