@@ -232,7 +232,22 @@ fails the run:
    tokens under O2: the routing on the card exactly the CPU's from the
    same logits, forward and backward within the bf16 bounds of the
    float32 layer on the agreeing tokens;
-24. print the kernels line, the card line and, last, the contract line.
+24. (run after phase 23) the training flagship on meshes of LOGICAL
+   ranks on the one card, at phase 13's widths (batch 16 x 2048, bf16,
+   fp32 moments, weights from --seed): (a) dp 2 x pp 2 x mp 2, n_micro
+   4, 2 layers, remat; (b) pp 2 x sharding 2 x sep 2, n_micro 4, 2
+   layers (ring attention at T 2048, 1024 a rank); (c) pp 2 x n_virtual
+   2 with remat_stage, 4 layers. Each leg builds the one-device trainer
+   from the same seed in this call and holds the mesh trainer's loss,
+   every gradient leaf (phase 14's BOUND_TRAIN_*) and the masters after
+   one step against it, then times 3 steps after that warm-up beside the
+   one-device trainer's s/step, and requires exactly the launches per
+   kernel and the collectives per kind that ``mesh_expected`` derives
+   from the schedule; (d) the one-device trainer under remat_policy
+   'full', 'save_attn' and 'save_dots': gradients within the bounds of
+   'full''s, the launches, peak memory ordered full < save_attn <
+   save_dots;
+25. print the kernels line, the card line and, last, the contract line.
 Every number printed carries the card's name and power limit; each row
 of the kernels line says in ``timed`` which call it timed and how.
 """
@@ -4675,6 +4690,289 @@ def phase_amp(torch, device, cfg, seed, fp32, tag, say):
         f"{time.perf_counter() - t0:.1f} s")
 
 
+# -- phase 24: the training flagship on a mesh of logical ranks ------------
+
+# the legs: mesh, layers, the trainer's options; each against the
+# one-device trainer from the same seed in the same call
+MESH_LEGS = {
+    "a": (dict(dp=2, pp=2, mp=2), 2, dict(n_micro=4, remat=True)),
+    "b": (dict(pp=2, sharding=2, sep=2), 2, dict(n_micro=4, remat=True)),
+    "c": (dict(pp=2), 4, dict(n_micro=4, remat=True, n_virtual=2,
+                              remat_stage=True)),
+}
+MESH_STEPS = 3
+
+
+def _leg_cfg(cfg, layers):
+    import dataclasses
+    return dataclasses.replace(_train_cfg(cfg), num_hidden_layers=layers)
+
+
+def _logical(tr, tree):
+    """Global block leaves in the logical [1, L, ...] layout (a staged
+    [pp, v, lps, ...] leaf is chunk-major per stage)."""
+    out = {}
+    for path, a in tree.items():
+        if path[0] == "blocks":
+            if tr._staged():
+                a = a.transpose(0, 1)
+            a = a.reshape((1, -1) + tuple(a.shape[2 + tr._staged():]))
+        out[path] = a
+    return out
+
+
+def mesh_expected(deg, L, n_micro, T, hd, remat, remat_stage=False,
+                  n_virtual=1, fused=True, ce_remat=True):
+    """Per-step kernel launches and collective calls of the mesh trainer,
+    from the schedule: a rank runs each of its stage's L / pp layers on
+    each of its n_micro micro-batches (the whole local batch at pp 1);
+    remat (or remat_stage) runs each block's forward again in the
+    backward; the cross entropy runs nC chunks of at most 256 positions
+    per rank (each a checkpoint) plus the final position's dummy chunk on
+    the last sep rank."""
+    from paddle_tpu_torch.parallel.pipeline import schedule
+    D, P, S, Q, M = (deg.get(a, 1) for a in
+                     ("dp", "pp", "sharding", "sep", "mp"))
+    nm = n_micro if P > 1 else 1
+    f = 2 if (remat or (remat_stage and P > 1)) else 1
+    execs = D * S * Q * M * L * nm
+    Tl = T // Q
+    flash = fused and Q == 1 and hd % 64 == 0 and Tl % 128 == 0
+    ranks = D * P * S * Q * M
+    launches = {"flash_attention_fwd": f * execs if flash else 0,
+                "flash_attention_bwd": execs if flash else 0,
+                "fused_rms_norm": 2 * f * execs if fused else 0,
+                "fused_adamw": (9 * ranks + 3 * D * S * Q * M)
+                if fused else 0}
+    C = min(256, Tl)
+    while Tl % C:
+        C //= 2
+    nC = Tl // C
+    ar = 0
+    if M > 1:
+        groups = D * S * Q
+        # psum after wo and after wd, forward and backward; a replay
+        # stops after the last tensor the backward needs (torch's
+        # non-reentrant checkpoint), before the region's last psum: a
+        # block's replay runs 1 of its 2, a stage's 2 lps - 1
+        ar += groups * L * nm * 4
+        if remat_stage and P > 1:
+            lps = L // (P * n_virtual)
+            ar += groups * P * n_virtual * nm * (2 * lps - 1)
+        elif remat:
+            ar += groups * L * nm
+        ar += groups * 2                          # the embedding's psum
+        # the CE's max (no backward) and two psums a chunk, again when
+        # the chunk is recomputed; the dummy chunk on the last sep rank
+        per = (nC * (3 * (2 if ce_remat else 1) + 2) if nC > 1 else 5)
+        ar += groups * per + (D * S * 5 if nC > 1 else 0)
+    if D * S * Q * M > 1:
+        ar += 2                                   # the loss's psum
+    # the gradients: a reduce-scatter (sharding > 1: every leaf at these
+    # widths has a dim sharding divides) or all-reduce per shard group
+    # of more than one replica; then an all-gather per sharding line
+    red = 0
+    for size, n_groups in ((D * S * Q, 7 * P * M), (D * S * Q * M, 2 * P),
+                           (D * S * Q, 2 * M), (D * S * Q * M, 1)):
+        red += n_groups if size > 1 else 0
+    gather = 0
+    if S > 1:
+        gather = 9 * D * P * Q * M + 3 * D * Q * M
+    sched = schedule(P, nm, n_virtual) if P > 1 else []
+    send_ticks = sum(1 for t in sched if any(not sl.emit for sl in t))
+    pp = 2 * D * S * Q * M * send_ticks
+    ring = D * S * M * L * nm * 2 * (Q - 1) * (f + 1)
+    coll = {"all_reduce": ar + (red if S == 1 else 0),
+            "reduce_scatter": red if S > 1 else 0,
+            "all_gather": gather, "ppermute": pp + ring}
+    return launches, coll
+
+
+def _opt_bytes_by_rank(tr):
+    """m / v / master bytes per sharding rank (summed over the ranks
+    of that sharding coordinate)."""
+    from paddle_tpu_torch.models.llama_spmd import tree_get, tree_paths
+    out = {}
+    for path in tree_paths(tr.params):
+        for k, v in tree_get(tr.opt_state, path).items():
+            for c, t in tr._shards(v).items():
+                key = (c[2], k)
+                out[key] = out.get(key, 0) + t.numel() * t.element_size()
+    return out
+
+
+def _compare_trainers(torch, ref, got, tag, say, what):
+    """(loss relative error, worst gradient error over max|ref|, worst
+    cosine) of two (loss, {path: grad}) results; failing the run past
+    phase 14's BOUND_TRAIN_*."""
+    dl = abs(got[0].item() - ref[0].item()) / abs(ref[0].item())
+    worst, worst_cos = 0.0, 1.0
+    for path, g in ref[1].items():
+        h = got[1][path].to(g.device)
+        worst = max(worst, _rel_err(h, g))
+        worst_cos = min(worst_cos, float(_cosine(torch, h, g)))
+    say(f"{tag}   {what}: loss {got[0].item():.6f} vs {ref[0].item():.6f} "
+        f"({dl:.2e} relative, bound {BOUND_TRAIN_LOSS}), gradients worst "
+        f"{worst:.3e} x max|ref| (bound {BOUND_TRAIN_GRAD}), worst cosine "
+        f"{worst_cos:.6f} (bound {BOUND_TRAIN_COS})")
+    require(dl <= BOUND_TRAIN_LOSS, f"{what}: losses differ by {dl}")
+    require(worst <= BOUND_TRAIN_GRAD and worst_cos >= BOUND_TRAIN_COS,
+            f"{what}: gradients disagree")
+
+
+def _masters(tr):
+    from paddle_tpu_torch.models.llama_spmd import tree_get, tree_paths
+    return {p: tr.assemble(p, tree_get(tr.opt_state, p)["master"],
+                           owned=True) for p in tree_paths(tr.params)}
+
+
+def _compare_masters(ref, got, lr, tag, say, what):
+    """After one step from equal weights: phase 14's bound (the first
+    AdamW step moves an entry by +-lr whatever the gradient's size)."""
+    bound = 2 * lr + 1e-6
+    dm = max(float((got[p].to(m.device) - m).abs().max())
+             for p, m in ref.items())
+    say(f"{tag}   {what}: masters after one step differ by {dm:.3e} "
+        f"(bound {bound:.3e})")
+    require(dm <= bound, f"{what}: masters after one step disagree")
+
+
+def _timed_train(torch, device, tr, ids, steps):
+    """(seconds per step, launches, collectives) of ``steps`` steps."""
+    from paddle_tpu_torch.parallel import collective
+    _sync(torch, device)
+    _reset_train_counts()
+    collective.reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        loss = tr.train_step(ids)
+    _sync(torch, device)
+    wall = (time.perf_counter() - t0) / steps
+    require(np.isfinite(float(loss)), "non-finite loss")
+    coll = {k: v["calls"] for k, v in collective.counts().items()}
+    return wall, _train_counts(), coll
+
+
+def _one_device(torch, device, tc, seed, ids, steps, **kw):
+    """The one-device trainer's loss and gradients at the weights from
+    ``seed``, its masters after one step, and its s/step."""
+    from paddle_tpu_torch.models import LlamaSpmdTrainer
+    one = LlamaSpmdTrainer(tc, compute_dtype=torch.bfloat16, seed=seed,
+                           device=device, **kw)
+    ref = one.grads(ids)
+    one.train_step(ids)
+    masters = _masters(one)
+    s_step, _, _ = _timed_train(torch, device, one, ids, steps)
+    lr = one.lr
+    del one
+    _free(torch, device)
+    return ref, masters, s_step, lr
+
+
+def phase_mesh(torch, device, cfg, seed, tag, say):
+    """Phase 24: the trainer on meshes of logical ranks on one device, at
+    bench.py's proxy widths, batch 16 x 2048, bf16, fp32 moments."""
+    from paddle_tpu_torch.models import LlamaSpmdTrainer
+    from paddle_tpu_torch.parallel import mesh as mesh_mod
+    t_phase = time.perf_counter()
+    B, T = cfg["train_batch"], cfg["train_seq"]
+    hd = cfg["train_hidden"] // cfg["train_heads"]
+    ids = np.random.RandomState(seed + 7).randint(0, cfg["train_vocab"],
+                                                  (B, T))
+    fused = device.type == "cuda"
+    steps = MESH_STEPS
+    for leg, (deg, L, kw) in MESH_LEGS.items():
+        tc = _leg_cfg(cfg, L)
+        ref, masters, one_s, lr = _one_device(
+            torch, device, tc, seed, ids, steps, remat=kw["remat"])
+        n = int(np.prod(list(deg.values())))
+        mesh_mod.build_mesh(**deg, devices=[device] * n)
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        tr = LlamaSpmdTrainer(tc, compute_dtype=torch.bfloat16, seed=seed,
+                              **kw)
+        require(tr._fused == fused, "the ranks' kernels are not the CUDA "
+                "path")
+        name = f"leg ({leg}) {deg}, {L} layers, {kw}"
+        loss, grads = tr.grads(ids)
+        _compare_trainers(torch, ref, (loss, _logical(tr, grads)), tag, say,
+                          f"{name} vs one device")
+        del ref, grads
+        tr.train_step(ids)                                 # the warm-up
+        _compare_masters(masters, _logical(tr, _masters(tr)), lr, tag, say,
+                         name)
+        del masters
+        s_step, launches, coll = _timed_train(torch, device, tr, ids, steps)
+        peak = _peak_mib(torch, device)
+        fpt = tr.flops_per_token(T)
+        tok_s = B * T / s_step
+        by_rank = _opt_bytes_by_rank(tr)
+        want_l, want_c = mesh_expected(
+            deg, L, kw["n_micro"], T, hd, kw["remat"],
+            kw.get("remat_stage", False), kw.get("n_virtual", 1), fused)
+        say(f"{tag} mesh {name}: {s_step:.4f} s per step ({steps} after a "
+            f"warm-up), {tok_s:.1f} tokens/s, MFU "
+            f"{fpt * tok_s / BF16_FLOP_S:.4f} ({fpt} FLOP/token over "
+            f"{BF16_FLOP_S:.3g}); the one-device trainer {one_s:.4f} s per "
+            f"step in this call ({s_step / one_s:.2f}x); peak memory "
+            f"{peak:.1f} MiB; m / v / master bytes per sharding rank "
+            + ", ".join(f"s{s} {k} {b}" for (s, k), b in sorted(
+                by_rank.items()))
+            + f"; pipeline {tr.pipeline_stats}; launches {launches} "
+            f"(expected {steps} x {want_l}); collectives {coll} (expected "
+            f"{steps} x {want_c})")
+        require(coll == {k: steps * v for k, v in want_c.items()},
+                f"leg ({leg}) collectives {coll} are not {steps} x {want_c}")
+        if device.type == "cuda":
+            require(launches == {k: steps * v for k, v in want_l.items()},
+                    f"leg ({leg}) launches {launches} are not {steps} x "
+                    f"{want_l}")
+            if leg in ("a", "b"):
+                # how much of the step the logical-rank glue leaves idle
+                _profile_step(torch, lambda: tr.train_step(ids), tag, say,
+                              f"leg ({leg}) step", {
+                                  "flash attention": ("flash_",),
+                                  "GEMMs (cuBLAS)": ("nvjet", "gemm", "xmma",
+                                                     "cutlass", "sm90_"),
+                                  "RMSNorm kernel": ("rms_kernel",),
+                                  "AdamW kernel": ("adamw_kernel",)})
+        del tr
+        mesh_mod.set_mesh(None)
+        _free(torch, device)
+    # (d) the remat policies on one device
+    tc = _leg_cfg(cfg, 2)
+    res, peaks = {}, {}
+    for pol in ("full", "save_attn", "save_dots"):
+        tr = LlamaSpmdTrainer(tc, compute_dtype=torch.bfloat16, seed=seed,
+                              device=device, remat_policy=pol)
+        res[pol] = tr.grads(ids)
+        if device.type == "cuda":
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        tr.train_step(ids)
+        peaks[pol] = _peak_mib(torch, device)
+        s_step, launches, _ = _timed_train(torch, device, tr, ids, steps)
+        want_l, _ = mesh_expected({}, 2, 1, T, hd, True, fused=fused)
+        say(f"{tag} leg (d) one device, remat_policy {pol!r}: {s_step:.4f} "
+            f"s per step, {B * T / s_step:.1f} tokens/s, peak memory of a "
+            f"step {peaks[pol]:.1f} MiB; launches {launches} (expected "
+            f"{steps} x {want_l})")
+        if device.type == "cuda":
+            require(launches == {k: steps * v for k, v in want_l.items()},
+                    f"leg (d) {pol} launches {launches}")
+        if pol != "full":
+            _compare_trainers(torch, res["full"], res[pol], tag, say,
+                              f"leg (d) {pol} vs full")
+            res[pol] = None
+        del tr
+        _free(torch, device)
+    if device.type == "cuda":
+        require(peaks["full"] < peaks["save_attn"] < peaks["save_dots"],
+                f"peak memory not ordered full < save_attn < save_dots: "
+                f"{peaks}")
+    say(f"{tag} phase 24 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def run(device, cfg, seed=0, say=print, card=None):
     """All phases on ``device``; returns the kernels line's rows."""
     import torch
@@ -4775,6 +5073,8 @@ def run(device, cfg, seed=0, say=print, card=None):
     phase_bert_paths(torch, device, cfg, seed, tag, say)
     # the nn training surface under AMP
     phase_amp(torch, device, cfg, seed, fp32, tag, say)
+    # the training flagship on meshes of logical ranks
+    phase_mesh(torch, device, cfg, seed, tag, say)
     return [rows[k] for k in ("paged_attention_ragged",
                               "paged_attention_ragged_int8",
                               "decode_attention", "w8a16_matmul", "gmm",

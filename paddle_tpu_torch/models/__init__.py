@@ -1,6 +1,6 @@
 """Models of the port: BERT (pretraining and classification), Llama
-(``LlamaForCausalLM``), GPT (``GPTForCausalLM``) and the single-device
-``LlamaSpmdTrainer`` (the training flagship)."""
+(``LlamaForCausalLM``), GPT (``GPTForCausalLM``) and ``LlamaSpmdTrainer``
+(the training flagship, on one device or a mesh of logical ranks)."""
 from .bert import (BertConfig, BertForPretraining,  # noqa: F401
                    BertForSequenceClassification, BertModel)
 from .gpt import GPTConfig, GPTForCausalLM, GPTModel  # noqa: F401

@@ -49,7 +49,8 @@ from .models.llama import LlamaConfig, LlamaForCausalLM
 from .models.llama_spmd import LlamaSpmdTrainer, tree_get, tree_paths
 
 __all__ = ["bert_for_pretraining", "fused_multi_transformer",
-           "gpt_for_causal_lm", "llama_for_causal_lm", "llama_spmd_trainer",
+           "gpt_for_causal_lm", "llama_for_causal_lm", "llama_spmd_state_np",
+           "llama_spmd_trainer",
            "moe_layer", "moe_serving_core", "token_serving_model",
            "transformer"]
 
@@ -153,29 +154,62 @@ def llama_spmd_trainer(params_np, config, *, opt_state_np=None, step=0,
                        device=None, **trainer_kw) -> LlamaSpmdTrainer:
     """A port trainer holding ``params_np`` (the JAX trainer's parameter
     tree as numpy, e.g. ``jax.tree_util.tree_map(np.asarray,
-    trainer.params)``) and, when given, ``opt_state_np`` (its
-    ``opt_state`` the same way, ``m``/``v``/``master`` per leaf; else
-    zero moments and the parameters as fp32 master), at step ``step``.
-    ``trainer_kw`` are the trainer's options (compute_dtype,
-    moments_dtype, remat, ...)."""
+    trainer.params)``: the global arrays, block leaves in the staged
+    ``[pp, v, ...]`` layout when ``n_virtual > 1``) and, when given,
+    ``opt_state_np`` (its ``opt_state`` the same way, ``m``/``v``/
+    ``master`` per leaf; else zero moments and the parameters as fp32
+    master), at step ``step``. Without ``device`` the trainer runs on the
+    installed port mesh and each rank takes its shard (and its ZeRO chunk
+    of the optimizer state). ``trainer_kw`` are the trainer's options
+    (compute_dtype, moments_dtype, remat, n_micro, ...)."""
     tr = LlamaSpmdTrainer(config, device=device, **trainer_kw)
     with torch.no_grad():
         for path in tree_paths(tr.params):
-            p = tree_get(tr.params, path)
-            src = np.array(tree_get(params_np, path), np.float32)
-            if src.shape != tuple(p.shape):
-                raise ValueError(f"{'/'.join(path)}: shape {src.shape} is "
-                                 f"not the trainer's {tuple(p.shape)}")
-            p.copy_(torch.from_numpy(src))
-            st = tree_get(tr.opt_state, path)
+            shape = tr._specs[path][0]
+            src = torch.from_numpy(np.array(tree_get(params_np, path),
+                                            np.float32))
+            if tuple(src.shape) != shape:
+                raise ValueError(f"{'/'.join(path)}: shape "
+                                 f"{tuple(src.shape)} is not the trainer's "
+                                 f"{shape}")
+            shards = tr._shards(tree_get(tr.params, path))
+            for c, p in shards.items():
+                p.copy_(src[tr._local_slices(path, c)])
             if opt_state_np is None:
-                st["master"].copy_(p.float())
-                continue
-            for k in ("m", "v", "master"):
-                st[k].copy_(torch.from_numpy(np.array(
-                    tree_get(opt_state_np, path)[k], np.float32)))
+                # zero moments, the parameters as stored as the master
+                state = {"master": src.to(next(iter(shards.values())).dtype)
+                         .float()}
+            else:
+                state = {k: torch.from_numpy(np.array(
+                    tree_get(opt_state_np, path)[k], np.float32))
+                    for k in ("m", "v", "master")}
+            for k, v in tree_get(tr.opt_state, path).items():
+                for c, t in tr._shards(v).items():
+                    if k in state:
+                        t.copy_(state[k][tr._owned_slices(path, c)])
+                    else:
+                        t.zero_()
     tr._stepno = int(step)
     return tr
+
+
+def llama_spmd_state_np(trainer: LlamaSpmdTrainer):
+    """(params, opt_state) of a port trainer as the JAX trainer's global
+    numpy trees (the JAX layout: block leaves ``[pp * v, lps, ...]``, or
+    staged ``[pp, v, lps, ...]`` when ``n_virtual > 1``), assembled from
+    the ranks' shards and ZeRO chunks."""
+    params, opt = {}, {}
+    for path in tree_paths(trainer.params):
+        p = trainer.assemble(path, tree_get(trainer.params, path))
+        st = tree_get(trainer.opt_state, path)
+        node_p, node_o = params, opt
+        for k in path[:-1]:
+            node_p = node_p.setdefault(k, {})
+            node_o = node_o.setdefault(k, {})
+        node_p[path[-1]] = p.float().cpu().numpy()
+        node_o[path[-1]] = {k: trainer.assemble(path, v, owned=True)
+                            .float().cpu().numpy() for k, v in st.items()}
+    return params, opt
 
 
 def bert_for_pretraining(state_np: Dict[str, np.ndarray], config: BertConfig,

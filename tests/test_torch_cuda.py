@@ -1137,6 +1137,57 @@ def test_trainer_kernel_path_matches_plain_path():
                                    atol=2 * 2 * a.lr, rtol=0)
 
 
+def test_trainer_mesh_matches_one_device_on_the_card():
+    """dp 2 x pp 2 x mp 2 logical ranks on the card with the kernels
+    (hd 64, T 128: the flash branch on every rank), float32, against the
+    one-device trainer from the same seed: the loss, every gradient
+    leaf, two steps' parameters; the launches of the schedule (each rank
+    runs flash and RMSNorm on its 2 micro-batches of its stage's layer,
+    AdamW on each leaf it holds)."""
+    _need_cuda()
+    from paddle_tpu_torch.parallel import collective
+    from paddle_tpu_torch.parallel import mesh as mesh_mod
+    cfg = LlamaConfig.tiny(vocab=512, hidden=256, layers=2, heads=4,
+                           kv_heads=2, inter=512, seq=128)
+    ids = torch.from_numpy(np.random.RandomState(0).randint(0, 512,
+                                                            (4, 128)))
+    one = LlamaSpmdTrainer(cfg, lr=1e-3, remat=False, seed=5,
+                           compute_dtype=torch.float32, device="cuda")
+    mesh_mod.build_mesh(dp=2, pp=2, mp=2, devices=["cuda"] * 8)
+    try:
+        tr = LlamaSpmdTrainer(cfg, lr=1e-3, remat=False, seed=5,
+                              n_micro=2, compute_dtype=torch.float32)
+        assert tr._fused
+        la, ga = tr.grads(ids)
+        lb, gb = one.grads(ids)
+        torch.testing.assert_close(la, lb, atol=1e-5, rtol=1e-5)
+        for path, g in gb.items():
+            torch.testing.assert_close(ga[path].reshape(g.shape), g,
+                                       atol=2e-4, rtol=2e-4)
+        for mod in (tfa, tfn, tfw):
+            mod.reset_launch_count()
+        collective.reset_counts()
+        for _ in range(2):
+            tr.train_step(ids)
+            one.train_step(ids)
+        torch.cuda.synchronize()
+        # per step: 8 ranks x 1 layer x 2 micro-batches; one-device: 2
+        execs = 8 * 2 + 2
+        assert (tfa.launch_count("fwd"), tfa.launch_count("bwd")) == (
+            2 * execs, 2 * execs)
+        assert tfn.launch_count("rms_norm") == 2 * 2 * execs
+        assert tfw.launch_count() == 2 * (9 * 8 + 3 * 4 + 12)
+        assert collective.counts()["ppermute"]["calls"] == 2 * 2 * 4 * 2
+        got = {p: tr.assemble(p, tree_get(tr.params, p))
+               for p in tree_paths(tr.params)}
+        for path in tree_paths(one.params):
+            torch.testing.assert_close(
+                got[path].reshape(tree_get(one.params, path).shape),
+                tree_get(one.params, path), atol=2 * 2 * tr.lr, rtol=0)
+    finally:
+        mesh_mod.set_mesh(None)
+
+
 def test_trainer_bf16_remat_relaunches_forward_kernels():
     """bf16 with remat: each block's forward runs again in the backward,
     so the forward kernels launch twice per layer per step."""

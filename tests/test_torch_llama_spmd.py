@@ -162,14 +162,24 @@ def test_trainer_matches_jax_trainer(name):
 
 
 def test_single_device_only():
+    """The mesh options that raised while the port trained on one device
+    only are accepted on a one-rank mesh (pp 1: the interleave and the
+    stage checkpoint take no effect, as in the reference); a bad
+    remat_policy still raises, and from_state_dict sits in the
+    reference's 11th position."""
     cfg = LlamaConfig.tiny()
     for kw in (dict(n_virtual=2), dict(remat_stage=True),
                dict(remat_policy="save_dots"),
                dict(remat_policy="save_attn")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            LlamaSpmdTrainer(cfg, device="cpu", **kw)
+        tr = LlamaSpmdTrainer(cfg, device="cpu", **kw)
+        for k, v in kw.items():
+            assert getattr(tr, k) == v
     with pytest.raises(ValueError, match="remat_policy"):
         LlamaSpmdTrainer(cfg, device="cpu", remat_policy="some")
+    tr = LlamaSpmdTrainer(cfg, 3e-4, 0.1, 0.9, 0.95, 1e-8, True, None, 0,
+                          torch.float32, {"ignored": 1}, "save_attn",
+                          device="cpu")
+    assert tr.remat_policy == "save_attn"
 
 
 def test_defaults_to_cuda():

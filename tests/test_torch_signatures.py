@@ -24,7 +24,7 @@ from paddle_tpu_torch.ops.hopper.paged_attention import \
     paged_attention_ragged
 
 MODULES = ("nn", "nn.functional", "optimizer", "inference", "incubate.nn",
-           "amp", "models", "incubate")
+           "amp", "models", "incubate", "models.llama_spmd")
 _POSITIONAL = (inspect.Parameter.POSITIONAL_ONLY,
                inspect.Parameter.POSITIONAL_OR_KEYWORD)
 
@@ -63,6 +63,25 @@ def test_positional_parameters_keep_the_reference_order(mod, name):
         "paddle_tpu_torch." + mod), name))
     assert port == ref[:len(port)], (port, ref)
     assert not {"device", "generator"} & set(port), port
+
+
+# the training mesh's entry points, which their modules do not share
+# whole with the reference (jax's Mesh class, the port's serving keyword)
+MESH_API = [("parallel.mesh", n) for n in (
+    "build_mesh", "get_mesh", "set_mesh", "mesh_axis_size")] + [
+    ("parallel.pipeline", n) for n in (
+        "spmd_pipeline", "interleave_stage_params", "stack_stage_params")] + [
+    ("parallel.ring_attention", n) for n in (
+        "ring_attention", "_dense_reference")] + [
+    ("models.llama_spmd", "_zero_spec")]
+
+
+@pytest.mark.parametrize("mod,name", MESH_API,
+                         ids=lambda v: v if isinstance(v, str) else None)
+def test_mesh_api_keeps_the_reference_order(mod, name):
+    ref = getattr(importlib.import_module("paddle_tpu." + mod), name)
+    port = getattr(importlib.import_module("paddle_tpu_torch." + mod), name)
+    assert _positional(port) == _positional(ref)
 
 
 def _logits():
