@@ -247,7 +247,24 @@ fails the run:
    'full', 'save_attn' and 'save_dots': gradients within the bounds of
    'full''s, the launches, peak memory ordered full < save_attn <
    save_dots;
-25. print the kernels line, the card line and, last, the contract line.
+25. (run after phase 24) Paddle's dygraph tensor parallelism on LOGICAL
+   mp ranks of the one card (``fleet.init(mp_degree=..., device=
+   "cuda")``; the mpu layers in the models' places): (a)
+   LlamaForCausalLM at phase 23b's widths and batch under O2 with
+   multi-precision AdamW at mp 2 and mp 4, (b) GPTForCausalLM at phase
+   23c's widths and batch (dropout 0.1, recompute off) at mp 2. Each
+   model loads its mp 1 twin's weights (built from --seed in this
+   call); one step's loss and every gradient within phase 23's
+   BOUND_AMP_* of the twin's (the same dropout seeds), then 3 steps
+   after a warm-up timed beside the twin's s/step; each step requires
+   exactly the launches of phase 23's legs and the collectives per kind
+   and their bytes that ``fleet_mp_expected`` derives from the Megatron
+   pairing. (c) The four mpu layers alone at Llama-2-7B widths, float32
+   (TF32 off), mp 2, against their plain layers on the same inputs:
+   ``VocabParallelEmbedding`` equal to the lookup exactly, Column, Row
+   and ``ParallelCrossEntropy`` within BOUND_MP_F32 forward and
+   backward;
+26. print the kernels line, the card line and, last, the contract line.
 Every number printed carries the card's name and power limit; each row
 of the kernels line says in ``timed`` which call it timed and how.
 """
@@ -300,6 +317,11 @@ BOUND_BERT_COS = 0.9999
 BOUND_AMP_LOSS = 2e-2
 BOUND_AMP_COS = 0.99
 BOUND_AMP_OUT = 3e-2
+# phase 25 (c): an mpu layer against its plain layer in float32, TF32
+# off: the ranks' partial products summed in rank order against one
+# GEMM (summation order only), max|err| over max|ref| of outputs and
+# gradients
+BOUND_MP_F32 = 1e-5
 # greedy agreement of two bf16 paths: steps whose reference top-two
 # logit gap is below this x max|logit| (a few bf16 ulps of the largest
 # logit) may go either way, and the streams part from there
@@ -362,7 +384,9 @@ FULL = dict(vocab=50304, d=1024, layers=24, heads=16, ffn=4096,
             gen_batch=4, gen_prompt=128, gen_new=32, gpt_batch=8,
             gpt_steps=5, gpt_seq=1024, tf_batch=16, tf_len=128,
             tf_vocab=1000, tf_new=16, moe_tokens=8192, moe_d=1024,
-            moe_hidden=4096)
+            moe_hidden=4096,
+            # phase 25 (c): rows through the mpu layers alone
+            mp_rows=4096)
 
 
 class SmokeFailure(RuntimeError):
@@ -4973,6 +4997,294 @@ def phase_mesh(torch, device, cfg, seed, tag, say):
     say(f"{tag} phase 24 took {time.perf_counter() - t_phase:.1f} s")
 
 
+def fleet_mp_expected(kind, L, mp, tokens, hidden, vocab, itemsize):
+    """{kind: (calls, bytes)} of the collectives of one training step of
+    a causal LM under ``fleet.init(mp_degree=mp)`` (the Megatron
+    pairing; none at mp 1). Llama: per layer the forward all-reduces
+    the o and down Row outputs and the backward the q/k/v/gate/up
+    Column inputs' gradients (``_c_identity``); the embedding's forward
+    and the head's backward add one each; the head gathers its vocab
+    chunks once. GPT: per layer proj and fc_out forward, qkv and fc_in
+    backward, plus the embedding; its tied head is a plain product. A
+    call hands mp tensors of [tokens, hidden] (the gather's: [tokens,
+    vocab / mp]) of ``itemsize`` bytes."""
+    out = {k: (0, 0) for k in ("all_reduce", "ppermute", "reduce_scatter",
+                               "all_gather")}
+    if mp == 1:
+        return out
+    ar = 7 * L + 2 if kind == "llama" else 4 * L + 1
+    out["all_reduce"] = (ar, ar * mp * tokens * hidden * itemsize)
+    if kind == "llama":
+        out["all_gather"] = (1, tokens * vocab * itemsize)
+    return out
+
+
+def _coll_step():
+    from paddle_tpu_torch.parallel import collective
+    return {k: (v["calls"], v["bytes"])
+            for k, v in collective.counts().items()}
+
+
+def _fleet_init(torch, device, mp):
+    """``fleet.init`` with ``mp_degree`` mp, every rank on ``device``;
+    mp 1 uninstalls the topology (the plain layers)."""
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet.topology import \
+        set_hybrid_communicate_group
+    from paddle_tpu_torch.parallel import mesh as mesh_mod
+    set_hybrid_communicate_group(None)
+    mesh_mod.set_mesh(None)
+    if mp > 1:
+        s = fleet.DistributedStrategy()
+        s.hybrid_configs["mp_degree"] = mp
+        s.tensor_parallel_configs["tensor_init_seed"] = 2024
+        fleet.init(is_collective=True, strategy=s, device=device)
+
+
+def _mp_leg(torch, device, kind, mp, build, ids, steps, want_l, ref, tag,
+            say, profile=False):
+    """One model of phase 25 at ``mp``: (loss, grads) of one step from
+    the weights ``ref["state"]`` (the generator reseeded), then 1
+    warm-up and ``steps`` timed AdamW steps; the launches and the
+    collectives of every step checked. Returns (s/step, peak MiB,
+    the step's collectives)."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import collective
+    _fleet_init(torch, device, mp)
+    model = build()
+    if ref.get("state") is None:
+        ref["state"] = {k: v.detach().clone()
+                        for k, v in model.state_dict().items()}
+    else:
+        model.load_state_dict(ref["state"])
+    amp.decorate(model, level="O2", dtype="bfloat16")
+    opt = AdamW(1e-4, parameters=model.parameters(), multi_precision=True)
+    x = torch.from_numpy(ids).to(device)
+    gen = getattr(model, "generator", None)
+
+    def step():
+        with amp.auto_cast(level="O2", dtype="bfloat16"):
+            loss, _ = model(x, labels=x)
+        loss.backward()
+        opt.step()
+        opt.clear_grad()
+        return loss.detach()
+
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    if kind == "gpt":
+        model.gpt.drop.generator.manual_seed(ref["dropout_seed"])
+    collective.reset_counts()
+    with amp.auto_cast(level="O2", dtype="bfloat16"):
+        loss, _ = model(x, labels=x)
+    loss.backward()
+    coll = _coll_step()
+    got = (loss.float().item(), {n: p.grad.detach().float().clone()
+                                 for n, p in model.named_parameters()})
+    opt.clear_grad()
+    del loss
+    B, T = ids.shape
+    H = model.config.hidden_size
+    want_c = fleet_mp_expected(kind, model.config.num_hidden_layers, mp,
+                               B * T, H, model.config.vocab_size, 2)
+    name = f"{kind} mp {mp}"
+    require(coll == want_c, f"{name}: collectives {coll} are not {want_c}")
+    if "grads" not in ref:
+        ref["loss"], ref["grads"] = got
+    else:
+        worst, worst_cos, noise = _grads_agree(torch, got[1], ref["grads"])
+        dl = abs(got[0] - ref["loss"]) / abs(ref["loss"])
+        say(f"{tag}   {name} vs mp 1: loss {got[0]:.5f} vs "
+            f"{ref['loss']:.5f} ({dl:.2e} relative, bound "
+            f"{BOUND_AMP_LOSS}); gradients worst {worst:.3e} x max|g|, "
+            f"worst cosine {worst_cos:.6f} (bound {BOUND_AMP_COS}; "
+            f"{len(noise)} noise-level tensors)")
+        require(dl <= BOUND_AMP_LOSS and worst_cos >= BOUND_AMP_COS,
+                f"{name}: loss or gradients disagree with mp 1")
+    del got
+    step()                                          # the warm-up
+    _sync(torch, device)
+    _reset_train_counts()
+    collective.reset_counts()
+    t0 = time.perf_counter()
+    losses = [float(step()) for _ in range(steps)]
+    _sync(torch, device)
+    s_step = (time.perf_counter() - t0) / steps
+    launches = _amp_counts()
+    coll_t = _coll_step()
+    peak = _peak_mib(torch, device)
+    require(all(np.isfinite(losses)), f"{name}: non-finite loss {losses}")
+    require(coll_t == {k: (steps * c, steps * b) for k, (c, b) in
+                       want_c.items()},
+            f"{name}: {steps} steps' collectives {coll_t}")
+    if device.type == "cuda":
+        require({k: launches[k] for k in want_l} ==
+                {k: steps * v for k, v in want_l.items()},
+                f"{name}: launches {launches} are not {steps} x {want_l}")
+        if profile:
+            _profile_step(torch, step, tag, say, f"{name} O2 step", {
+                "flash attention": ("flash_",),
+                "GEMMs (cuBLAS)": ("nvjet", "gemm", "xmma", "cutlass",
+                                   "sm90_"),
+                "RMSNorm kernel": ("rms_kernel",),
+                "dropout kernel": ("dropout_kernel",),
+                "casts (copy kernels)": ("copy",)})
+    say(f"{tag} {name}: {s_step:.4f} s per step ({steps} after a warm-up), "
+        f"{ids.size / s_step:.1f} tokens/s, peak memory {peak:.1f} MiB; "
+        f"losses {[round(v, 4) for v in losses]}; launches {launches} "
+        f"(expected {steps} x {want_l}); collectives a step "
+        f"{ {k: v for k, v in want_c.items() if v[0]} } "
+        f"(calls, bytes; met)")
+    del model, opt
+    _fleet_init(torch, device, 1)
+    _free(torch, device)
+    return s_step, peak, want_c
+
+
+def _mp_layers_alone(torch, device, cfg, seed, tag, say):
+    """Phase 25 (c): the four mpu layers at mp 2 against their plain
+    layers, float32, forward and backward."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.distributed.fleet import meta_parallel as mpl
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.parallel import collective
+    H, F_, V = cfg["train_hidden"], cfg["train_ffn"], cfg["train_vocab"]
+    rows = cfg["mp_rows"]
+    g = torch.Generator(device).manual_seed(seed + 25)
+    ids = torch.randint(0, V, (rows,), generator=g, device=device)
+    x = torch.randn(rows, H, generator=g, device=device)
+    dy = torch.randn(rows, F_, generator=g, device=device)
+    _fleet_init(torch, device, 2)
+    try:
+        layers = (mpl.VocabParallelEmbedding(V, H, generator=g),
+                  mpl.ColumnParallelLinear(H, F_, has_bias=False,
+                                           gather_output=True, generator=g),
+                  mpl.RowParallelLinear(F_, H, has_bias=False,
+                                        input_is_parallel=True,
+                                        generator=g))
+        emb, col, row = layers
+        logits = torch.randn(rows, V, generator=g, device=device)
+        collective.reset_counts()
+        errs = {}
+        # the embedding: exactly the lookup; its gradient
+        out = emb(ids)
+        errs["VocabParallelEmbedding forward (exact)"] = float(
+            (out.detach() - emb.weight.detach()[ids]).abs().max())
+        require(torch.equal(out, emb.weight.detach()[ids]),
+                "VocabParallelEmbedding differs from the lookup")
+        dh = torch.randn(rows, H, generator=g, device=device)
+        out.backward(dh)
+        w = emb.weight.detach().clone().requires_grad_(True)
+        F.embedding(ids, w).backward(dh)
+        errs["VocabParallelEmbedding weight grad"] = _rel_err(
+            emb.weight.grad, w.grad)
+        # Column: the gathered output and both gradients
+        xc = x.clone().requires_grad_(True)
+        yc = col(xc)
+        xr, wr = x.clone().requires_grad_(True), \
+            col.weight.detach().clone().requires_grad_(True)
+        yr = xr @ wr
+        errs["ColumnParallelLinear forward"] = _rel_err(yc.detach(),
+                                                        yr.detach())
+        yc.backward(dy)
+        yr.backward(dy)
+        errs["ColumnParallelLinear input grad"] = _rel_err(xc.grad, xr.grad)
+        errs["ColumnParallelLinear weight grad"] = _rel_err(col.weight.grad,
+                                                            wr.grad)
+        # Row on the parallel input
+        hin = torch.randn(rows, F_, generator=g, device=device)
+        hc = hin.clone().requires_grad_(True)
+        zc = row(hc)
+        hr, wr = hin.clone().requires_grad_(True), \
+            row.weight.detach().clone().requires_grad_(True)
+        zr = hr @ wr
+        errs["RowParallelLinear forward"] = _rel_err(zc.detach(),
+                                                     zr.detach())
+        zc.backward(dh)
+        zr.backward(dh)
+        errs["RowParallelLinear input grad"] = _rel_err(hc.grad, hr.grad)
+        errs["RowParallelLinear weight grad"] = _rel_err(row.weight.grad,
+                                                         wr.grad)
+        # the cross entropy on vocab-parallel logits
+        lc = logits.clone().requires_grad_(True)
+        loss = mpl.ParallelCrossEntropy()(lc, ids)
+        lr_ = logits.clone().requires_grad_(True)
+        ref = torch.nn.functional.cross_entropy(lr_, ids, reduction="none")
+        errs["ParallelCrossEntropy forward"] = _rel_err(loss[:, 0].detach(),
+                                                        ref.detach())
+        loss.sum().backward()
+        ref.sum().backward()
+        errs["ParallelCrossEntropy logits grad"] = _rel_err(lc.grad,
+                                                            lr_.grad)
+        coll = {k: v["calls"] for k, v in collective.counts().items()}
+    finally:
+        _fleet_init(torch, device, 1)
+    _sync(torch, device)
+    worst = max(v for k, v in errs.items() if "exact" not in k)
+    say(f"{tag} leg (c) the mpu layers at mp 2, float32, TF32 off, "
+        f"{rows} rows at H {H}, FFN {F_}, vocab {V}: "
+        + ", ".join(f"{k} {v:.3e}" for k, v in errs.items())
+        + f" (x max|ref|, bound {BOUND_MP_F32}); collectives {coll}")
+    require(worst <= BOUND_MP_F32, f"an mpu layer is off by {worst} x "
+            f"max|ref| (bound {BOUND_MP_F32})")
+    # the embedding's forward; Column's gather and its input gradient's
+    # all-reduce; Row's forward; the cross entropy's three
+    require(coll == {"all_reduce": 1 + 1 + 1 + 3, "all_gather": 1,
+                     "ppermute": 0, "reduce_scatter": 0},
+            f"leg (c) collectives {coll}")
+    _free(torch, device)
+
+
+def phase_fleet_mp(torch, device, cfg, seed, tag, say):
+    """Phase 25: ``fleet.init(mp_degree=...)`` on logical mp ranks of the
+    one device: Llama (phase 23b's widths) at mp 2 and 4, GPT (phase
+    23c's) at mp 2, each against its mp 1 twin; the mpu layers alone."""
+    from paddle_tpu_torch.models import GPTForCausalLM, LlamaForCausalLM
+    t_phase = time.perf_counter()
+    steps = 3
+    # (a) Llama: the weights drawn on the device (Llama has no dropout)
+    tc = _train_cfg(cfg)
+    L = tc.num_hidden_layers
+    B, T = cfg["train_batch"], cfg["train_seq"]
+    ids = np.random.RandomState(seed + 2).randint(0, tc.vocab_size, (B, T))
+    want_l = {"flash_attention_fwd": L, "flash_attention_bwd": L,
+              "fused_rms_norm": 2 * L + 1}
+
+    def llama():
+        return LlamaForCausalLM(tc, device=device, generator=torch.Generator(
+            device).manual_seed(seed))
+    ref = {}
+    res = {mp: _mp_leg(torch, device, "llama", mp, llama, ids, steps,
+                       want_l, ref, tag, say, profile=(mp == 2))
+           for mp in (1, 2, 4)}
+    del ref
+    say(f"{tag} leg (a) Llama O2 s/step at mp 1 / 2 / 4: "
+        + " / ".join(f"{res[mp][0]:.4f}" for mp in (1, 2, 4))
+        + f" ({res[2][0] / res[1][0]:.3f}x, {res[4][0] / res[1][0]:.3f}x "
+        f"mp 1's), peak MiB " + " / ".join(f"{res[mp][1]:.1f}"
+                                           for mp in (1, 2, 4)))
+    # (b) GPT: CPU generators (they also seed the dropout)
+    gc_ = _gpt_cfg(cfg, False)
+    Lg = gc_.num_hidden_layers
+    ids = np.random.RandomState(seed + 7).randint(
+        0, gc_.vocab_size, (cfg["gpt_batch"], cfg["gpt_seq"]))
+    want_g = {"flash_attention_fwd": Lg, "flash_attention_bwd": Lg,
+              "fused_dropout": 2 + 4 * Lg}
+
+    def gpt():
+        return GPTForCausalLM(gc_, device=device,
+                              generator=torch.Generator().manual_seed(seed))
+    ref = {"dropout_seed": seed + 11}
+    resg = {mp: _mp_leg(torch, device, "gpt", mp, gpt, ids, steps, want_g,
+                        ref, tag, say) for mp in (1, 2)}
+    del ref
+    say(f"{tag} leg (b) GPT O2 s/step at mp 1 / 2: {resg[1][0]:.4f} / "
+        f"{resg[2][0]:.4f} ({resg[2][0] / resg[1][0]:.3f}x), peak MiB "
+        f"{resg[1][1]:.1f} / {resg[2][1]:.1f}")
+    _mp_layers_alone(torch, device, cfg, seed, tag, say)
+    say(f"{tag} phase 25 took {time.perf_counter() - t_phase:.1f} s")
+
 def run(device, cfg, seed=0, say=print, card=None):
     """All phases on ``device``; returns the kernels line's rows."""
     import torch
@@ -5075,6 +5387,8 @@ def run(device, cfg, seed=0, say=print, card=None):
     phase_amp(torch, device, cfg, seed, fp32, tag, say)
     # the training flagship on meshes of logical ranks
     phase_mesh(torch, device, cfg, seed, tag, say)
+    # Paddle's dygraph tensor parallelism on logical mp ranks
+    phase_fleet_mp(torch, device, cfg, seed, tag, say)
     return [rows[k] for k in ("paged_attention_ragged",
                               "paged_attention_ragged_int8",
                               "decode_attention", "w8a16_matmul", "gmm",

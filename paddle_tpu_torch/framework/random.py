@@ -31,3 +31,10 @@ def bernoulli_keep(shape, keep_prob, device, generator=None):
     ``draw_seed(generator)``."""
     g = torch.Generator(device=device).manual_seed(draw_seed(generator))
     return torch.rand(shape, generator=g, device=device) < keep_prob
+
+
+def seed(value: int) -> None:
+    """Seed torch's default generators (``paddle.seed``): the draws
+    that take no generator (``draw_seed(None)``, the initializers'
+    default) start again from ``value``."""
+    torch.manual_seed(int(value))

@@ -16,3 +16,10 @@ def require_defaults(owner: str, **params) -> None:
             raise NotImplementedError(
                 f"{owner}: {name}={value!r} is not ported (only "
                 f"{name}={default!r})")
+
+
+def unported(owner: str, what: str, item: str) -> None:
+    """Raise NotImplementedError: ``owner`` does not port ``what`` yet,
+    ROADMAP Queue A item ``item`` does."""
+    raise NotImplementedError(f"{owner}: {what} is not ported yet "
+                              f"(ROADMAP Queue A item {item})")

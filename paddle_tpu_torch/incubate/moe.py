@@ -80,7 +80,7 @@ def _one_hot(idx, n, dtype):
 # -- gates -------------------------------------------------------------------
 
 
-class BaseGate(torch.nn.Module):
+class BaseGate(nn.Layer):
     def __init__(self, d_model, num_expert, topk=2, *, device=None,
                  generator=None):
         super().__init__()
@@ -151,7 +151,7 @@ _ACTS = {"gelu": torch.nn.functional.gelu, "relu": torch.relu,
          "silu": torch.nn.functional.silu, "tanh": torch.tanh}
 
 
-class ExpertFFN(torch.nn.Module):
+class ExpertFFN(nn.Layer):
     def __init__(self, d_model, d_hidden, activation="gelu", *, device=None,
                  generator=None):
         super().__init__()
@@ -165,7 +165,7 @@ class ExpertFFN(torch.nn.Module):
         return self.fc2(self.act(self.fc1(x)))
 
 
-class MoELayer(torch.nn.Module):
+class MoELayer(nn.Layer):
     """``experts``: a list of layers (stacked for the dense expert
     products when all are ``ExpertFFN`` with one activation; otherwise
     each runs on every token and the outputs mix by the combine

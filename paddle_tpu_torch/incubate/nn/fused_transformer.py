@@ -33,13 +33,13 @@ import torch
 from ...device import resolve_device
 from ...framework.unported import require_defaults
 from ...nn import functional as F
-from ...nn.layer import LayerNorm, Linear
+from ...nn.layer import Layer, LayerNorm, Linear
 from ...ops.hopper.decode_attention import decode_attention
 
 __all__ = ["FusedMultiTransformer", "FusedMultiTransformerInt8"]
 
 
-class _Block(torch.nn.Module):
+class _Block(Layer):
     def __init__(self, d, ffn, eps, **kw):
         super().__init__()
         gen = kw.pop("generator")
@@ -51,7 +51,7 @@ class _Block(torch.nn.Module):
         self.ffn2 = Linear(ffn, d, generator=gen, **kw)
 
 
-class FusedMultiTransformer(torch.nn.Module):
+class FusedMultiTransformer(Layer):
     """Pre-LN (default) decoder stack: per layer ``ln -> qkv -> attention
     -> out_proj -> +residual -> ffn_ln -> ffn1 -> act -> ffn2 ->
     +residual``. Parameter names match the JAX class's ``state_dict``

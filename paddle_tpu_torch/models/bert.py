@@ -1,6 +1,6 @@
 """BERT (the port's own copy of ``paddle_tpu/models/bert.py``): the same
 configuration, modules, parameter names and ``[in, out]`` Linear
-layouts, as ``torch.nn.Module``s.
+layouts, as ``nn.Layer``s.
 
 Every model takes ``device`` (``cuda`` unless named) and ``generator``, a
 CPU torch.Generator that draws the initial weights and every dropout
@@ -55,7 +55,7 @@ class BertConfig:
                           max_position_embeddings=seq)
 
 
-class BertEmbeddings(torch.nn.Module):
+class BertEmbeddings(nn.Layer):
     def __init__(self, config: BertConfig, *, device=None, generator=None):
         super().__init__()
         kw = model_kw(device, generator)
@@ -79,7 +79,7 @@ class BertEmbeddings(torch.nn.Module):
         return self.dropout(self.layer_norm(emb))
 
 
-class BertPooler(torch.nn.Module):
+class BertPooler(nn.Layer):
     def __init__(self, config, *, device=None, generator=None):
         super().__init__()
         self.dense = nn.Linear(config.hidden_size, config.hidden_size,
@@ -90,7 +90,7 @@ class BertPooler(torch.nn.Module):
         return self.activation(self.dense(hidden[:, 0]))
 
 
-class BertModel(torch.nn.Module):
+class BertModel(nn.Layer):
     def __init__(self, config: BertConfig, *, device=None, generator=None):
         super().__init__()
         kw = model_kw(device, generator)
@@ -116,7 +116,7 @@ class BertModel(torch.nn.Module):
         return x, self.pooler(x)
 
 
-class BertForSequenceClassification(torch.nn.Module):
+class BertForSequenceClassification(nn.Layer):
     def __init__(self, config: BertConfig, num_classes=2, *, device=None,
                  generator=None):
         super().__init__()
@@ -135,7 +135,7 @@ class BertForSequenceClassification(torch.nn.Module):
         return logits
 
 
-class BertLMHead(torch.nn.Module):
+class BertLMHead(nn.Layer):
     """transform -> GELU -> LayerNorm -> decoder. With
     ``embedding_weights`` the decoder is tied: ``x @ W_emb^T +
     decoder.bias``, and ``decoder.weight`` stays a parameter that gets no
@@ -164,7 +164,7 @@ class BertLMHead(torch.nn.Module):
         return self.decoder(x)
 
 
-class BertForPretraining(torch.nn.Module):
+class BertForPretraining(nn.Layer):
     def __init__(self, config: BertConfig, *, device=None, generator=None):
         super().__init__()
         kw = model_kw(device, generator)

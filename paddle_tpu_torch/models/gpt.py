@@ -1,13 +1,18 @@
 """The GPT-2/3 family (the port's own copy of ``paddle_tpu/models/
 gpt.py``: config #4 is the 13B-class model trained with recompute and
 AMP O2). The same configuration, modules, parameter names and
-``[in, out]`` Linear layouts, as ``torch.nn.Module``s.
+``[in, out]`` Linear layouts, as ``nn.Layer``s.
 
 Every model takes ``device`` (``cuda`` unless named) and ``generator``,
 a CPU torch.Generator that draws the initial weights and every dropout
-seed (``torch.Generator().manual_seed(0)`` when None). The reference's
-tensor-parallel branch (``_mp_active``) is not ported. The head is
-tied: ``logits = matmul(h, wte.weight, transpose_y=True)``. With
+seed (``torch.Generator().manual_seed(0)`` when None). Under
+``fleet.init`` with ``mp_degree`` > 1 (``_mp_active``) a block's ``qkv``
+and ``fc_in`` are ``ColumnParallelLinear`` without gathering, ``proj``
+and ``fc_out`` ``RowParallelLinear`` on the parallel input, and ``wte``
+a ``VocabParallelEmbedding``, as in the reference; the fused qkv output
+is the reference's global value, split into q, k and v as without mp.
+The head is tied: ``logits = matmul(h, wte.weight, transpose_y=True)``,
+a plain product with the full table under mp too. With
 ``config.recompute`` each block is recomputed in the backward
 (``framework/recompute.py``, whose replay redraws the same dropout
 masks).
@@ -20,6 +25,10 @@ import torch
 
 from .. import nn
 from ..device import model_kw
+from ..distributed.fleet.meta_parallel import (ColumnParallelLinear,
+                                               RowParallelLinear,
+                                               VocabParallelEmbedding)
+from ..distributed.fleet.topology import get_hybrid_communicate_group
 from ..framework.op import add, concat, matmul
 from ..framework.recompute import recompute
 from ..nn import functional as F
@@ -52,7 +61,12 @@ class GPTConfig:
                          max_position_embeddings=seq)
 
 
-class GPTBlock(torch.nn.Module):
+def _mp_active():
+    hcg = get_hybrid_communicate_group()
+    return hcg is not None and hcg.get_model_parallel_world_size() > 1
+
+
+class GPTBlock(nn.Layer):
     def __init__(self, config: GPTConfig, *, device=None, generator=None):
         super().__init__()
         kw = model_kw(device, generator)
@@ -62,10 +76,19 @@ class GPTBlock(torch.nn.Module):
                                  device=kw["device"])
         self.ln_2 = nn.LayerNorm(H, config.layer_norm_eps,
                                  device=kw["device"])
-        self.qkv = nn.Linear(H, 3 * H, **kw)
-        self.proj = nn.Linear(H, H, **kw)
-        self.fc_in = nn.Linear(H, config.intermediate_size, **kw)
-        self.fc_out = nn.Linear(config.intermediate_size, H, **kw)
+        if _mp_active():
+            self.qkv = ColumnParallelLinear(H, 3 * H, gather_output=False,
+                                            **kw)
+            self.proj = RowParallelLinear(H, H, input_is_parallel=True, **kw)
+            self.fc_in = ColumnParallelLinear(H, config.intermediate_size,
+                                              gather_output=False, **kw)
+            self.fc_out = RowParallelLinear(config.intermediate_size, H,
+                                            input_is_parallel=True, **kw)
+        else:
+            self.qkv = nn.Linear(H, 3 * H, **kw)
+            self.proj = nn.Linear(H, H, **kw)
+            self.fc_in = nn.Linear(H, config.intermediate_size, **kw)
+            self.fc_out = nn.Linear(config.intermediate_size, H, **kw)
         self.n_head = config.num_attention_heads
         self.head_dim = H // config.num_attention_heads
         self.attn_drop = nn.Dropout(config.attention_probs_dropout_prob,
@@ -97,12 +120,17 @@ class GPTBlock(torch.nn.Module):
         return x
 
 
-class GPTModel(torch.nn.Module):
+class GPTModel(nn.Layer):
     def __init__(self, config: GPTConfig, *, device=None, generator=None):
         super().__init__()
         kw = model_kw(device, generator)
         self.config = config
-        self.wte = nn.Embedding(config.vocab_size, config.hidden_size, **kw)
+        if _mp_active():
+            self.wte = VocabParallelEmbedding(config.vocab_size,
+                                              config.hidden_size, **kw)
+        else:
+            self.wte = nn.Embedding(config.vocab_size, config.hidden_size,
+                                    **kw)
         self.wpe = nn.Embedding(config.max_position_embeddings,
                                 config.hidden_size, **kw)
         self.drop = nn.Dropout(config.hidden_dropout_prob,
@@ -132,7 +160,7 @@ class GPTModel(torch.nn.Module):
         return x
 
 
-class GPTForCausalLM(torch.nn.Module):
+class GPTForCausalLM(nn.Layer):
     def __init__(self, config: GPTConfig, *, device=None, generator=None):
         super().__init__()
         self.config = config

@@ -3,21 +3,25 @@ llama.py:74-293``): RMSNorm, rotary position embeddings, grouped-query
 attention with a ``(k, v)`` cache, a SwiGLU MLP, ``LlamaForCausalLM``
 with greedy and sampled ``generate``. The same configuration, modules,
 parameter names and ``[in, out]`` Linear layouts, as
-``torch.nn.Module``s.
+``nn.Layer``s.
 
 Every model takes ``device`` (``cuda`` unless named) and ``generator``,
 a CPU torch.Generator that draws the initial weights
 (``torch.Generator().manual_seed(0)`` when None) and the samples of a
 sampled ``generate``. The rotary tables are buffers outside the state
-dict (``persistable=False`` in the reference). The reference's
-tensor-parallel branch (``_mp_active``: Column/RowParallelLinear and
-VocabParallelEmbedding under a hybrid mesh) goes with the trainer's
-parallelism and is not ported: here ``_mp_active()`` is False. The
-residual sums and the rotary products go through the op-boundary hook
-(``framework/op.py``) as the reference's elementwise ops, so under O2
-they meet in bf16 as there. ``tie_word_embeddings`` ties ``lm_head``'s
-[in, out] weight to the [vocab, hidden] embedding table as the reference
-does, which fits only where vocab == hidden.
+dict (``persistable=False`` in the reference). Under ``fleet.init`` with
+``mp_degree`` > 1 (``_mp_active``) the projections are the mpu layers,
+as in the reference: q/k/v/gate/up ``ColumnParallelLinear`` without
+gathering, o/down ``RowParallelLinear`` on the parallel input, a
+``VocabParallelEmbedding`` and a gathering ``lm_head``; the activations
+between them stay the reference's global values, so attention runs once
+over all heads. ``num_key_value_heads`` must divide by the mp degree
+(GQA shards the kv heads). The residual sums and the rotary products go
+through the op-boundary hook (``framework/op.py``) as the reference's
+elementwise ops, so under O2 they meet in bf16 as there.
+``tie_word_embeddings`` ties ``lm_head``'s [in, out] weight to the
+[vocab, hidden] embedding table as the reference does, which fits only
+where vocab == hidden; under mp the head is not tied.
 """
 from __future__ import annotations
 
@@ -28,6 +32,10 @@ import torch
 
 from .. import nn
 from ..device import model_kw, resolve_device
+from ..distributed.fleet.meta_parallel import (ColumnParallelLinear,
+                                               RowParallelLinear,
+                                               VocabParallelEmbedding)
+from ..distributed.fleet.topology import get_hybrid_communicate_group
 from ..framework.op import add, concat, multiply
 from ..framework.recompute import recompute
 from ..nn import functional as F
@@ -65,11 +73,17 @@ class LlamaConfig:
 
 
 def _mp_active():
-    """Tensor parallelism is not ported (see the module docstring)."""
-    return False
+    hcg = get_hybrid_communicate_group()
+    return hcg is not None and hcg.get_model_parallel_world_size() > 1
 
 
-def _linear(in_f, out_f, has_bias=False, **kw):
+def _linear(in_f, out_f, col=True, gather=False, has_bias=False, **kw):
+    if _mp_active():
+        if col:
+            return ColumnParallelLinear(in_f, out_f, has_bias=has_bias,
+                                        gather_output=gather, **kw)
+        return RowParallelLinear(in_f, out_f, has_bias=has_bias,
+                                 input_is_parallel=True, **kw)
     return nn.Linear(in_f, out_f, bias_attr=None if has_bias else False,
                      **kw)
 
@@ -86,7 +100,7 @@ def apply_rotary_pos_emb(q, k, cos, sin):
     return q_out, k_out
 
 
-class LlamaRotaryEmbedding(torch.nn.Module):
+class LlamaRotaryEmbedding(nn.Layer):
     def __init__(self, dim, max_pos=4096, theta=10000.0, *, device=None):
         super().__init__()
         self.dim = dim
@@ -107,7 +121,7 @@ class LlamaRotaryEmbedding(torch.nn.Module):
         return cos[None, :, None, :], sin[None, :, None, :]
 
 
-class LlamaAttention(torch.nn.Module):
+class LlamaAttention(nn.Layer):
     def __init__(self, config: LlamaConfig, *, device=None, generator=None):
         super().__init__()
         kw = model_kw(device, generator)
@@ -117,10 +131,17 @@ class LlamaAttention(torch.nn.Module):
         self.num_kv_heads = config.num_key_value_heads
         self.head_dim = config.hidden_size // config.num_attention_heads
         kv_out = self.num_kv_heads * self.head_dim
+        if _mp_active():
+            mp = get_hybrid_communicate_group() \
+                .get_model_parallel_world_size()
+            if self.num_kv_heads % mp:
+                raise ValueError(f"num_key_value_heads {self.num_kv_heads} "
+                                 f"does not divide by mp degree {mp}")
         self.q_proj = _linear(self.hidden_size, self.hidden_size, **kw)
         self.k_proj = _linear(self.hidden_size, kv_out, **kw)
         self.v_proj = _linear(self.hidden_size, kv_out, **kw)
-        self.o_proj = _linear(self.hidden_size, self.hidden_size, **kw)
+        self.o_proj = _linear(self.hidden_size, self.hidden_size, col=False,
+                              **kw)
         self.rotary = LlamaRotaryEmbedding(
             self.head_dim, config.max_position_embeddings, config.rope_theta,
             device=kw["device"])
@@ -151,7 +172,7 @@ class LlamaAttention(torch.nn.Module):
         return out
 
 
-class LlamaMLP(torch.nn.Module):
+class LlamaMLP(nn.Layer):
     def __init__(self, config: LlamaConfig, *, device=None, generator=None):
         super().__init__()
         kw = model_kw(device, generator)
@@ -160,14 +181,14 @@ class LlamaMLP(torch.nn.Module):
         self.up_proj = _linear(config.hidden_size, config.intermediate_size,
                                **kw)
         self.down_proj = _linear(config.intermediate_size,
-                                 config.hidden_size, **kw)
+                                 config.hidden_size, col=False, **kw)
 
     def forward(self, x):
         return self.down_proj(multiply(F.silu(self.gate_proj(x)),
                                        self.up_proj(x)))
 
 
-class LlamaDecoderLayer(torch.nn.Module):
+class LlamaDecoderLayer(nn.Layer):
     def __init__(self, config: LlamaConfig, *, device=None, generator=None):
         super().__init__()
         kw = model_kw(device, generator)
@@ -196,13 +217,17 @@ class LlamaDecoderLayer(torch.nn.Module):
         return x
 
 
-class LlamaModel(torch.nn.Module):
+class LlamaModel(nn.Layer):
     def __init__(self, config: LlamaConfig, *, device=None, generator=None):
         super().__init__()
         kw = model_kw(device, generator)
         self.config = config
-        self.embed_tokens = nn.Embedding(config.vocab_size,
-                                         config.hidden_size, **kw)
+        if _mp_active():
+            self.embed_tokens = VocabParallelEmbedding(
+                config.vocab_size, config.hidden_size, **kw)
+        else:
+            self.embed_tokens = nn.Embedding(config.vocab_size,
+                                             config.hidden_size, **kw)
         self.layers = nn.LayerList(
             [LlamaDecoderLayer(config, **kw)
              for _ in range(config.num_hidden_layers)])
@@ -236,14 +261,15 @@ def _sample(probs, generator):
     return idx.clamp_max(probs.shape[-1] - 1)
 
 
-class LlamaForCausalLM(torch.nn.Module):
+class LlamaForCausalLM(nn.Layer):
     def __init__(self, config: LlamaConfig, *, device=None, generator=None):
         super().__init__()
         kw = model_kw(device, generator)
         self.config = config
         self.generator = kw["generator"]
         self.llama = LlamaModel(config, **kw)
-        self.lm_head = _linear(config.hidden_size, config.vocab_size, **kw)
+        self.lm_head = _linear(config.hidden_size, config.vocab_size,
+                               gather=True, **kw)
         if config.tie_word_embeddings and not _mp_active():
             self.lm_head.weight = self.llama.embed_tokens.weight
 

@@ -1,12 +1,11 @@
 """Activation layers (counterpart of paddle_tpu/nn/layer/activation.py)."""
 from __future__ import annotations
 
-import torch
-
 from ..functional.activation import gelu, tanh
+from .layers import Layer
 
 
-class GELU(torch.nn.Module):
+class GELU(Layer):
     def __init__(self, approximate=False):
         super().__init__()
         self._approximate = approximate
@@ -15,6 +14,6 @@ class GELU(torch.nn.Module):
         return gelu(x, self._approximate)
 
 
-class Tanh(torch.nn.Module):
+class Tanh(Layer):
     def forward(self, x):
         return tanh(x)

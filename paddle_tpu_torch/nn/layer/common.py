@@ -10,6 +10,7 @@ from ...framework.op import op_inputs
 from ...framework.unported import require_defaults
 from ..functional.common import (alpha_dropout, dropout, dropout2d,
                                  dropout3d, embedding)
+from .layers import Layer
 
 
 def _normal_(t, std, generator):
@@ -24,7 +25,7 @@ def _normal_(t, std, generator):
                 0.0, std, generator=generator))
 
 
-class Linear(torch.nn.Module):
+class Linear(Layer):
     """y = x W + b with Paddle's weight layout [in_features,
     out_features]; Xavier-normal weight, zero bias (Paddle's defaults),
     drawn from ``generator`` when given (on any device). ``bias_attr=
@@ -55,7 +56,7 @@ class Linear(torch.nn.Module):
         return torch.nn.functional.linear(x, w.t(), b)
 
 
-class Dropout(torch.nn.Module):
+class Dropout(Layer):
     """Paddle's Dropout; seeds come from ``generator`` (a CPU
     torch.Generator; torch's default one when None)."""
 
@@ -72,7 +73,7 @@ class Dropout(torch.nn.Module):
                        generator=self.generator)
 
 
-class Dropout2D(torch.nn.Module):
+class Dropout2D(Layer):
     """Whole-channel dropout of 4-D inputs; masks from ``generator``."""
 
     def __init__(self, p=0.5, data_format="NCHW", name=None, *,
@@ -87,7 +88,7 @@ class Dropout2D(torch.nn.Module):
                          generator=self.generator)
 
 
-class Dropout3D(torch.nn.Module):
+class Dropout3D(Layer):
     """Whole-channel dropout of 5-D inputs; masks from ``generator``."""
 
     def __init__(self, p=0.5, data_format="NCDHW", name=None, *,
@@ -102,7 +103,7 @@ class Dropout3D(torch.nn.Module):
                          generator=self.generator)
 
 
-class AlphaDropout(torch.nn.Module):
+class AlphaDropout(Layer):
     """SELU-preserving dropout; masks from ``generator``."""
 
     def __init__(self, p=0.5, name=None, *, generator=None):
@@ -115,7 +116,7 @@ class AlphaDropout(torch.nn.Module):
                              generator=self.generator)
 
 
-class Embedding(torch.nn.Module):
+class Embedding(Layer):
     """Lookup table, weight [num_embeddings, embedding_dim] ~ N(0, 1)
     (Paddle's default); with ``padding_idx`` that row starts at zero and
     its ids look up zeros."""

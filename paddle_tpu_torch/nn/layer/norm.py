@@ -6,9 +6,10 @@ import torch
 from ...device import resolve_device
 from ...framework.unported import require_defaults
 from ..functional.norm import layer_norm, rms_norm
+from .layers import Layer
 
 
-class LayerNorm(torch.nn.Module):
+class LayerNorm(Layer):
     """LayerNorm with fp32 statistics; on ``cuda`` unless ``device``
     names another device."""
 
@@ -29,7 +30,7 @@ class LayerNorm(torch.nn.Module):
                           self._epsilon)
 
 
-class RMSNorm(torch.nn.Module):
+class RMSNorm(Layer):
     """Weight-only RMS normalization over the last axis (the Llama
     family's norm); ``F.rms_norm``, hence the RMSNorm kernel on the
     card."""

@@ -25,6 +25,7 @@ from ...framework.unported import require_defaults
 from .. import functional as F
 from .common import Dropout, Linear
 from .container import LayerList
+from .layers import Layer
 from .norm import LayerNorm
 
 
@@ -45,7 +46,7 @@ def _clones(layer, num_layers):
                       for i in range(num_layers)])
 
 
-class MultiHeadAttention(torch.nn.Module):
+class MultiHeadAttention(Layer):
     Cache = collections.namedtuple("Cache", ["k", "v"])
     StaticCache = collections.namedtuple("StaticCache", ["k", "v"])
 
@@ -122,7 +123,7 @@ class MultiHeadAttention(torch.nn.Module):
         return out if len(outs) == 1 else tuple(outs)
 
 
-class TransformerEncoderLayer(torch.nn.Module):
+class TransformerEncoderLayer(Layer):
     """Pre-norm (``normalize_before``) or post-norm encoder layer."""
 
     def __init__(self, d_model, nhead, dim_feedforward, dropout=0.1,
@@ -182,7 +183,7 @@ class TransformerEncoderLayer(torch.nn.Module):
         return self.self_attn.gen_cache(src, type=MultiHeadAttention.Cache)
 
 
-class TransformerEncoder(torch.nn.Module):
+class TransformerEncoder(Layer):
     """``num_layers`` copies of ``encoder_layer``, then ``norm`` when
     given."""
 
@@ -209,7 +210,7 @@ class TransformerEncoder(torch.nn.Module):
         return [layer.gen_cache(src) for layer in self.layers]
 
 
-class TransformerDecoderLayer(torch.nn.Module):
+class TransformerDecoderLayer(Layer):
     """Self attention, cross attention over ``memory``, FFN; pre- or
     post-norm. ``cache`` is ``(Cache, StaticCache)`` from ``gen_cache``."""
 
@@ -281,7 +282,7 @@ class TransformerDecoderLayer(torch.nn.Module):
         return incremental, static
 
 
-class TransformerDecoder(torch.nn.Module):
+class TransformerDecoder(Layer):
     def __init__(self, decoder_layer, num_layers, norm=None):
         super().__init__()
         self.layers = _clones(decoder_layer, num_layers)
@@ -310,7 +311,7 @@ class TransformerDecoder(torch.nn.Module):
         return cache
 
 
-class Transformer(torch.nn.Module):
+class Transformer(Layer):
     """Encoder-decoder (``paddle.nn.Transformer``); with
     ``normalize_before`` both stacks end in a LayerNorm."""
 

@@ -22,8 +22,11 @@ from a JAX ``BertForPretraining.state_dict()`` as numpy (``bert.*``,
 ``cls.*``, ``nsp.*``; the tied decoder reads the word embeddings).
 ``llama_for_causal_lm`` and ``gpt_for_causal_lm`` build the port's
 causal LMs from the JAX models' state dicts (the rotary tables are not
-in them, in either package); ``transformer`` and ``moe_layer`` load a
-JAX ``nn`` transformer layer's (``MultiHeadAttention`` up to
+in them, in either package); under ``fleet.init`` with ``mp_degree`` >
+1 they build the mpu layers, which hold full logical weights under the
+same names, so a JAX fleet model's state dict carries over
+unchanged; ``transformer`` and ``moe_layer`` load a JAX ``nn``
+transformer layer's (``MultiHeadAttention`` up to
 ``Transformer``) or ``MoELayer``'s state into a port module the caller
 built with the same arguments. Every loader keeps the port module's
 dtypes: a bf16 JAX model's arrays (after ``paddle.amp.decorate``) go

@@ -1793,3 +1793,66 @@ def test_bert_o2_step_on_the_card_matches_the_cpu():
         cos = float((gk[n].flatten() @ gp[n].flatten())
                     / (gk[n].norm() * gp[n].norm()).clamp_min(1e-30))
         assert cos >= 0.99, (n, cos)
+
+
+def test_llama_mp2_step_on_the_card_matches_mp1():
+    """``fleet.init(mp_degree=2, device="cuda")``: a Llama (GQA, head_dim
+    64, T 128: the flash kernels and the RMSNorm kernel) built from the
+    mp 1 model's state takes one float32 step (TF32 off) on logical mp
+    ranks: the loss within 1e-5 relative of mp 1's, every gradient
+    within 1e-4 x its max|g| (summation order of the Row layers'
+    rank-order sums), the same kernel launches, and the Megatron
+    pairing's collectives (7 L + 2 all-reduces, one all-gather)."""
+    _need_cuda()
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet.topology import \
+        set_hybrid_communicate_group
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.parallel import collective
+    from paddle_tpu_torch.parallel import mesh as mesh_mod
+    cfg = LlamaConfig.tiny(vocab=512, hidden=256, layers=2, heads=4,
+                           kv_heads=2, inter=512, seq=128)
+    ids = torch.from_numpy(np.random.RandomState(6).randint(
+        0, 512, (2, 128))).cuda()
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    res, state = [], None
+    try:
+        for mp in (1, 2):
+            if mp == 2:
+                s = fleet.DistributedStrategy()
+                s.hybrid_configs["mp_degree"] = 2
+                s.tensor_parallel_configs["tensor_init_seed"] = 1
+                fleet.init(strategy=s, device="cuda")
+            m = LlamaForCausalLM(cfg, device="cuda",
+                                 generator=torch.Generator().manual_seed(0))
+            if state is None:
+                state = {k: v.detach().clone()
+                         for k, v in m.state_dict().items()}
+            else:
+                m.load_state_dict(state)
+            tfa.reset_launch_count()
+            tfn.reset_launch_count()
+            collective.reset_counts()
+            loss, _ = m(ids, labels=ids)
+            loss.backward()
+            torch.cuda.synchronize()
+            res.append((loss.item(),
+                        {n: p.grad.cpu() for n, p in m.named_parameters()},
+                        (tfa.launch_count("fwd"), tfa.launch_count("bwd"),
+                         tfn.launch_count("rms_norm")),
+                        {k: v["calls"] for k, v in
+                         collective.counts().items()}))
+    finally:
+        set_hybrid_communicate_group(None)
+        mesh_mod.set_mesh(None)
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    (l1, g1, k1, c1), (l2, g2, k2, c2) = res
+    assert abs(l2 - l1) <= 1e-5 * abs(l1)
+    for n, g in g1.items():
+        assert float((g2[n] - g).abs().max()) <= 1e-4 * max(
+            float(g.abs().max()), 1e-30), n
+    assert k1 == k2 == (2, 2, 5)
+    assert c1 == {"all_reduce": 0, "ppermute": 0, "reduce_scatter": 0,
+                  "all_gather": 0}
+    assert c2 == dict(c1, all_reduce=7 * 2 + 2, all_gather=1)

@@ -160,7 +160,9 @@ def test_blhd_grads_match_jax_dense_attention(name):
                           seed=None if seed is None else jnp.int32(seed))
         return jnp.sum(jnp.moveaxis(out, 1, 2) * cot)
 
-    want = jax.grad(jax_loss, argnums=(0, 1, 2))(
+    # one compiled program (op by op, each primitive of the dense
+    # attention and its gradient compiled on its own)
+    want = jax.jit(jax.grad(jax_loss, argnums=(0, 1, 2)))(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
     tq, tk, tv = (torch.from_numpy(a).requires_grad_(True)
                   for a in (q, k, v))

@@ -97,17 +97,24 @@ def _f32(a):
     return np.asarray(a, np.float32)
 
 
+def _jax_reference(jtr, jids):
+    """The JAX trainer's logits, loss and gradients at its parameters,
+    built once as one compiled program (op by op, each primitive of the
+    forward and its gradient compiled on its own)."""
+    return jax.jit(lambda p, i: (jtr.forward(p, i), jax.value_and_grad(
+        jtr.loss_fn)(p, i, i)))(jtr.params, jids)
+
+
 @pytest.mark.parametrize("name", sorted(CONFIGS))
 def test_trainer_matches_jax_trainer(name):
     jtr, port, ids = _pair(name)
     ptr = port()
     jids = jnp.asarray(ids)
+    jlogits, (jloss, jgrads) = _jax_reference(jtr, jids)
     with torch.no_grad():
         logits = ptr.forward(ptr.params, ids)
-    np.testing.assert_allclose(logits.numpy(),
-                               np.asarray(jtr.forward(jtr.params, jids)),
+    np.testing.assert_allclose(logits.numpy(), np.asarray(jlogits),
                                atol=1e-5, rtol=0)
-    jloss, jgrads = jax.value_and_grad(jtr.loss_fn)(jtr.params, jids, jids)
     loss = ptr.loss_fn(ptr.params, ids, ids)
     np.testing.assert_allclose(loss.item(), float(jloss), rtol=1e-6)
     paths = tree_paths(ptr.params)

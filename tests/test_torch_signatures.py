@@ -3,7 +3,9 @@
 A positional call that is right for ``paddle_tpu`` must bind the same
 parameters in ``paddle_tpu_torch``: for every public name that both
 packages export from ``nn``, ``nn.functional``, ``optimizer``,
-``inference``, ``incubate.nn``, ``amp``, ``models`` and ``incubate``,
+``inference``, ``incubate.nn``, ``amp``, ``models``, ``incubate``,
+``nn.initializer``, ``distributed.fleet`` and
+``distributed.fleet.meta_parallel``,
 the port's positional parameter names
 are the reference's, in order (the port may stop early: a longer
 positional call then fails loudly). The port's own extras (``device``,
@@ -24,7 +26,8 @@ from paddle_tpu_torch.ops.hopper.paged_attention import \
     paged_attention_ragged
 
 MODULES = ("nn", "nn.functional", "optimizer", "inference", "incubate.nn",
-           "amp", "models", "incubate", "models.llama_spmd")
+           "amp", "models", "incubate", "models.llama_spmd", "nn.initializer",
+           "distributed.fleet", "distributed.fleet.meta_parallel")
 _POSITIONAL = (inspect.Parameter.POSITIONAL_ONLY,
                inspect.Parameter.POSITIONAL_OR_KEYWORD)
 
@@ -283,32 +286,14 @@ def test_positional_calls_bind_the_reference_parameters():
 # port that drops a ported attribute (as the speculative engine's
 # ``registry`` and ``logits_of`` once were) fails the test below, and so
 # does a port that adds one without taking it off this list.
-_LAYER = {"add_parameter", "add_sublayer", "astype", "clear_gradients",
-          "create_parameter", "full_name", "load_dict", "named_sublayers",
-          "register_forward_post_hook", "set_dict", "set_state_dict",
-          "sublayers"}                   # item 12: the nn.Layer surface
 _OPT = {"apply_gradients", "backward", "clear_gradients", "minimize",
         "prebuild_fused", "set_dict", "set_lr", "set_lr_scheduler",
         "set_state_dict", "state_dict"}  # item 12: the rest of optimizer
 _GAPS = {
-    **{("nn", c): {a: 12 for a in _LAYER}
-       for c in ("AlphaDropout", "Dropout", "Dropout2D", "Dropout3D",
-                 "Embedding", "GELU", "LayerList", "LayerNorm", "Linear",
-                 "MultiHeadAttention", "RMSNorm", "Tanh", "Transformer",
-                 "TransformerDecoder", "TransformerDecoderLayer",
-                 "TransformerEncoder", "TransformerEncoderLayer")},
-    **{("models", c): {a: 12 for a in _LAYER}
-       for c in ("BertForPretraining", "BertForSequenceClassification",
-                 "BertModel", "GPTForCausalLM", "GPTModel",
-                 "LlamaForCausalLM")},
-    ("incubate", "MoELayer"): {a: 12 for a in _LAYER},
     **{("optimizer", c): {a: 12 for a in _OPT}
        for c in ("Adam", "AdamW", "Optimizer")},
-    ("inference", "MoeServingCore"): {a: 12 for a in _LAYER},
     # item 12: the dense-scratch -> pages path of the long tail
     ("inference", "PagedKVCache"): {"write_prefill": 12},
-    ("incubate.nn", "FusedMultiTransformer"): {a: 12 for a in _LAYER},
-    ("incubate.nn", "FusedMultiTransformerInt8"): {a: 12 for a in _LAYER},
 }
 
 

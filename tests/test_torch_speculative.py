@@ -38,15 +38,24 @@ POOL = dict(max_batch=3, block_size=4, num_blocks=16, chunk_tokens=8,
 N_GEN = 4
 
 
+_MODELS = {}
+
+
 def _models():
-    """(JAX token model, port token model) over the same weights."""
-    paddle.seed(0)
-    jcore = JaxFMT(D, HEADS, FFN, num_layers=LAYERS)
-    state = {k: np.asarray(v.numpy()) for k, v in
-             jcore.state_dict().items()}
-    tcore = weights.fused_multi_transformer(state, HEADS, device="cpu")
-    return JaxTSM(jcore, _EMBED, _HEAD), TokenServingModel(tcore, _EMBED,
-                                                           _HEAD)
+    """(JAX token model, port token model) over the same weights, built
+    once per module: the JAX package compiles its layer captures per
+    layer instance (``framework/layer_jit.py``), so one model shared by
+    the tests compiles each capture once. Engines read the models and
+    never write them."""
+    if "m" not in _MODELS:
+        paddle.seed(0)
+        jcore = JaxFMT(D, HEADS, FFN, num_layers=LAYERS)
+        state = {k: np.asarray(v.numpy()) for k, v in
+                 jcore.state_dict().items()}
+        tcore = weights.fused_multi_transformer(state, HEADS, device="cpu")
+        _MODELS["m"] = (JaxTSM(jcore, _EMBED, _HEAD),
+                        TokenServingModel(tcore, _EMBED, _HEAD))
+    return _MODELS["m"]
 
 
 def _serve(eng, prompts=_PROMPTS, n_gen=N_GEN):
