@@ -264,7 +264,31 @@ fails the run:
    ``VocabParallelEmbedding`` equal to the lookup exactly, Column, Row
    and ``ParallelCrossEntropy`` within BOUND_MP_F32 forward and
    backward;
-26. print the kernels line, the card line and, last, the contract line.
+26. (run after phase 25) the rest of fleet's hybrid training on LOGICAL
+   ranks of the one card at phase 23b's widths and batch under O2 with
+   multi-precision AdamW: (a) ``fleet.init(pp_degree=2,
+   sharding_degree=2)``, a ``PipelineLayer`` of ``LayerDesc``s
+   (embedding, the decoder layers, RMSNorm, head) through
+   ``distributed_model`` (``PipelineParallel``, 4 micro-batches) and
+   ``distributed_optimizer`` (``DygraphShardingOptimizer``): one
+   ``train_batch``'s loss, every gradient and every master within
+   BOUND_AMP_* of LlamaForCausalLM accumulating the same micro-batches
+   by hand, the state bytes each sharding rank holds as ``_shard_spec``
+   assigns, the collectives of ``fleet_hybrid_expected`` and the
+   launches exactly, 3 timed steps beside the twin's; (d) on (a)'s
+   model: ``distributed.checkpoint`` save, load into an mp 2 and a
+   one-device LlamaForCausalLM bitwise, a further step of each within
+   the bounds, ``PPParallelAdaptor`` round trips exact; (b) offload to
+   pinned host memory against the on-card optimizer (one step within
+   the bounds, peak memory and s/step of both); (c)
+   ``group_sharded_parallel(..., "p_g_os")`` at sharding 2: parameter
+   bytes per rank halved, the forward's all-gathers exactly, one step
+   within the bounds; (e) ``MoELayer(1024, 8, 4096, top 2)`` over 8192
+   tokens at ep 2 against ep 1: routing exactly, output and gradients
+   within the bf16 bounds, ``moe_ep_expected``'s all-gathers and
+   all-to-alls exactly; (f) ``TrainStep(grad_accum_steps=4)`` within the
+   bounds of its twin, s/step;
+27. print the kernels line, the card line and, last, the contract line.
 Every number printed carries the card's name and power limit; each row
 of the kernels line says in ``timed`` which call it timed and how.
 """
@@ -5285,6 +5309,662 @@ def phase_fleet_mp(torch, device, cfg, seed, tag, say):
     _mp_layers_alone(torch, device, cfg, seed, tag, say)
     say(f"{tag} phase 25 took {time.perf_counter() - t_phase:.1f} s")
 
+
+# -- phase 26: the rest of fleet's hybrid training on logical ranks -------
+
+def fleet_hybrid_expected(leaves, n):
+    """{kind: (calls, bytes)} of the collectives of one ZeRO training
+    step at ``n`` sharding ranks over the parameters ``leaves`` [(shape,
+    itemsize)]: stage 1 all-gathers each parameter with a dimension that
+    divides by n after its update, stage 3 at the first forward after a
+    step; either way one ``all_gather`` per such parameter, handed its n
+    chunks (the parameter's bytes). Nothing else moves: the pipeline's
+    micro-batches run on one controller, and the gradients are the
+    global batch's (no p2p, no reduction)."""
+    out = {k: (0, 0) for k in ("all_reduce", "ppermute", "reduce_scatter",
+                               "all_gather")}
+    if n <= 1:
+        return out
+    div = [int(np.prod(s)) * b for s, b in leaves
+           if any(d % n == 0 and d >= n for d in s)]
+    out["all_gather"] = (len(div), sum(div))
+    return out
+
+
+def zero_bytes_expected(leaves, n, n_states):
+    """Bytes of optimizer state each of ``n`` sharding ranks holds:
+    ``n_states`` float32 tensors (moments and master) per parameter of
+    ``leaves`` [shape], a 1 / n share where a dimension divides by n,
+    whole otherwise."""
+    total = 0
+    for s in leaves:
+        numel = int(np.prod(s)) * 4 * n_states
+        total += numel // n if any(d % n == 0 and d >= n for d in s) \
+            else numel
+    return total
+
+
+def moe_ep_expected(E, cap, d, ep, k, itemsize):
+    """{kind: (calls, bytes)} of one MoELayer forward and backward at
+    ``ep`` expert-parallel ranks: one all-gather of every rank's [E]
+    int32 counts a top-k slot; the dispatch and the combine all-to-alls
+    of [E, cap, d] blocks a rank, and their adjoints in the backward."""
+    out = {k_: (0, 0) for k_ in ("all_reduce", "ppermute", "reduce_scatter",
+                                 "all_gather")}
+    if ep <= 1:
+        return out
+    out["all_gather"] = (k, k * ep * E * 4)
+    out["all_to_all"] = (4, 4 * ep * E * cap * d * itemsize)
+    return out
+
+
+def _hybrid_init(torch, device, **degrees):
+    """``fleet.init`` with ``degrees`` (pp_degree, sharding_degree, ...),
+    every rank on ``device``; no degrees uninstalls the topology."""
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.distributed.fleet.topology import \
+        set_hybrid_communicate_group
+    from paddle_tpu_torch.parallel import mesh as mesh_mod
+    set_hybrid_communicate_group(None)
+    mesh_mod.set_mesh(None)
+    if degrees:
+        s = fleet.DistributedStrategy()
+        s.hybrid_configs.update(degrees)
+        s.pipeline_configs["accumulate_steps"] = 4
+        fleet.init(is_collective=True, strategy=s, device=device)
+        return s
+    return None
+
+
+def _llama_pipe(torch, device, tc, seed, loss_fn):
+    """A PipelineLayer of LayerDescs with LlamaForCausalLM's modules:
+    embedding, the decoder layers, the final RMSNorm, the head; and the
+    map from its state-dict keys to LlamaForCausalLM's."""
+    from paddle_tpu_torch import nn
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import (
+        LayerDesc, PipelineLayer)
+    from paddle_tpu_torch.models.llama import LlamaDecoderLayer
+    g = torch.Generator(device).manual_seed(seed + 40)
+    kw = dict(device=device, generator=g)
+    L, H, V = tc.num_hidden_layers, tc.hidden_size, tc.vocab_size
+    descs = ([LayerDesc(nn.Embedding, V, H, **kw)]
+             + [LayerDesc(LlamaDecoderLayer, tc, **kw) for _ in range(L)]
+             + [LayerDesc(nn.RMSNorm, H, tc.rms_norm_eps, device=device),
+                LayerDesc(nn.Linear, H, V, bias_attr=False, **kw)])
+    pipe = PipelineLayer(descs, loss_fn=loss_fn)
+    keys = {"run_function.0.weight": "llama.embed_tokens.weight",
+            f"run_function.{L + 1}.weight": "llama.norm.weight",
+            f"run_function.{L + 2}.weight": "lm_head.weight"}
+    for k in pipe.state_dict():
+        if k.startswith("run_function.") and k not in keys:
+            i, rest = k[len("run_function."):].split(".", 1)
+            keys[k] = f"llama.layers.{int(i) - 1}.{rest}"
+    return pipe, keys
+
+
+def _opt_masters(opt, model, keys=None):
+    """{name: copy of the fp32 master} of ``model``'s parameters (names
+    mapped by ``keys``): a sharding optimizer's gathered (global view),
+    a plain one's as held."""
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import \
+        DygraphShardingOptimizer
+    sh = getattr(opt, "_sharding", None) or (
+        opt if isinstance(opt, DygraphShardingOptimizer) else None)
+    out = {}
+    for n, p in model.named_parameters():
+        if sh is not None:
+            leaf = sh._leaves[p]
+            v = sh._full(leaf, leaf.master)
+        else:
+            v = opt._master_weights[p].detach().clone()
+        out[keys.get(n, n) if keys else n] = v
+    return out
+
+
+def _masters_agree(torch, got, ref):
+    """(worst max-error over max|ref|, worst cosine of the updates
+    against the starting weights ``ref["__start"]``)."""
+    worst, worst_cos = 0.0, 1.0
+    for n, r in ref.items():
+        if n == "__start":
+            continue
+        worst = max(worst, _rel_err(got[n], r))
+        d0, d1 = got[n] - ref["__start"][n], r - ref["__start"][n]
+        if float(d1.abs().max()) > 0:
+            worst_cos = min(worst_cos, float(_cosine(torch, d0, d1)))
+    return worst, worst_cos
+
+
+class _GradCapture:
+    """An optimizer stand-in for ``train_batch``: ``step`` first copies
+    every gradient (float32, names mapped by ``keys``), then steps."""
+
+    def __init__(self, opt, model, keys):
+        self.opt, self.model, self.keys, self.grads = opt, model, keys, None
+
+    def step(self):
+        self.grads = {self.keys.get(n, n): p.grad.detach().float().clone()
+                      for n, p in self.model.named_parameters()}
+        self.opt.step()
+
+    def clear_grad(self):
+        self.opt.clear_grad()
+
+
+def _twin_step(torch, model, opt, ids, n_micro, capture=True):
+    """``n_micro`` micro-batches of ``ids`` by hand, each loss scaled by
+    1 / n_micro (the pipeline's accumulation), then one step: (mean loss,
+    {name: float32 gradient} or None)."""
+    from paddle_tpu_torch import amp
+    total = None
+    for x in ids.chunk(n_micro, 0):
+        with amp.auto_cast(level="O2", dtype="bfloat16"):
+            loss, _ = model(x, labels=x)
+        (loss * (1.0 / n_micro)).backward()
+        total = loss.detach().float() if total is None \
+            else total + loss.detach().float()
+    grads = ({n: p.grad.detach().float().clone()
+              for n, p in model.named_parameters()} if capture else None)
+    opt.step()
+    opt.clear_grad()
+    return float(total / n_micro), grads
+
+
+def _agree(torch, tag, say, what, loss, ref_loss, grads, ref_grads,
+           masters=None, ref_masters=None):
+    dl = abs(loss - ref_loss) / abs(ref_loss)
+    worst, worst_cos, noise = _grads_agree(torch, grads, ref_grads)
+    line = (f"{tag}   {what}: loss {loss:.5f} vs {ref_loss:.5f} ({dl:.2e} "
+            f"relative, bound {BOUND_AMP_LOSS}); gradients worst "
+            f"{worst:.3e} x max|g|, worst cosine {worst_cos:.6f} (bound "
+            f"{BOUND_AMP_COS}; {len(noise)} noise-level tensors)")
+    ok = dl <= BOUND_AMP_LOSS and worst_cos >= BOUND_AMP_COS
+    if masters is not None:
+        mw, mc = _masters_agree(torch, masters, ref_masters)
+        line += (f"; masters after the step worst {mw:.3e} x max|ref| "
+                 f"(bound {BOUND_AMP_LOSS}), their updates' worst cosine "
+                 f"{mc:.6f} (bound {BOUND_AMP_COS})")
+        ok = ok and mw <= BOUND_AMP_LOSS and mc >= BOUND_AMP_COS
+    say(line)
+    require(ok, f"{what}: outside the bounds")
+
+
+def _hybrid_launches(torch, device, L, n_micro, what):
+    if device.type != "cuda":
+        return
+    got = {k: v for k, v in _train_counts().items()}
+    want = {"flash_attention_fwd": L * n_micro,
+            "flash_attention_bwd": L * n_micro,
+            "fused_rms_norm": (2 * L + 1) * n_micro, "fused_adamw": 0}
+    require(got == want, f"{what}: launches {got} are not {want}")
+
+
+def _timed(torch, device, fn, steps):
+    fn()                                            # the warm-up
+    _sync(torch, device)
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        fn()
+    _sync(torch, device)
+    return (time.perf_counter() - t0) / steps
+
+
+def _pipeline_leg(torch, device, cfg, seed, tag, say, steps):
+    """Phase 26 (a), then (d) on (a)'s model: PipelineParallel over a
+    PipelineLayer at pp 2 x sharding 2 against LlamaForCausalLM
+    accumulating the same 4 micro-batches by hand."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import collective
+    tc = _train_cfg(cfg)
+    L, V, n_micro = tc.num_hidden_layers, tc.vocab_size, 4
+    B, T = cfg["train_batch"], cfg["train_seq"]
+    ids = torch.from_numpy(np.random.RandomState(seed + 2).randint(
+        0, V, (B, T))).to(device)
+    strategy = _hybrid_init(torch, device, pp_degree=2, sharding_degree=2)
+
+    def loss_fn(logits, labels):
+        return F.cross_entropy(logits[:, :-1].reshape(-1, V),
+                               labels[:, 1:].reshape(-1))
+    twin = LlamaForCausalLM(tc, device=device, generator=torch.Generator(
+        device).manual_seed(seed))
+    pipe, keys = _llama_pipe(torch, device, tc, seed, loss_fn)
+    tsd = twin.state_dict()
+    pipe.load_state_dict({k: tsd[keys[k]] for k in pipe.state_dict()})
+    amp.decorate([twin, pipe], level="O2", dtype="bfloat16")
+    start = {n: p.detach().float().clone() for n, p in
+             twin.named_parameters()}
+    model = fleet.distributed_model(pipe)
+    opt = fleet.distributed_optimizer(
+        AdamW(1e-4, parameters=pipe.parameters(), multi_precision=True),
+        strategy)
+    topt = AdamW(1e-4, parameters=twin.parameters(), multi_precision=True)
+    require(type(model).__name__ == "PipelineParallel" and
+            type(opt._sharding).__name__ == "DygraphShardingOptimizer",
+            f"distributed_model / _optimizer gave {type(model).__name__}")
+    t_loss, t_grads = _twin_step(torch, twin, topt, ids, n_micro)
+    t_masters = _opt_masters(topt, twin)
+    t_masters["__start"] = start
+    cap = _GradCapture(opt, pipe, keys)
+    _reset_train_counts()
+    collective.reset_counts()
+    with amp.auto_cast(level="O2", dtype="bfloat16"):
+        loss = float(model.train_batch([ids, ids], cap))
+    coll = _coll_step()
+    _hybrid_launches(torch, device, L, n_micro, "(a) train_batch")
+    leaves = [(tuple(p.shape), p.element_size()) for p in pipe.parameters()]
+    want_c = fleet_hybrid_expected(leaves, 2)
+    require(coll == want_c, f"(a) collectives {coll} are not {want_c}")
+    say(f"{tag} (a) PipelineParallel (pp 2 x sharding 2, logical ranks; "
+        f"PipelineLayer of {len(pipe.run_function)} LayerDescs, "
+        f"segment_parts {pipe.segment_parts}, accumulate_steps "
+        f"{model.accumulate_steps}) + DygraphShardingOptimizer over "
+        f"LlamaForCausalLM's modules at phase 23b's widths, batch {B} x "
+        f"{T} under O2: one train_batch against LlamaForCausalLM "
+        f"accumulating the same {n_micro} micro-batches by hand; "
+        f"collectives {({k: v for k, v in coll.items() if v[0]})} (calls, "
+        f"bytes; fleet_hybrid_expected met); launches "
+        f"{_train_counts() if device.type == 'cuda' else 'n/a'}")
+    _agree(torch, tag, say, "(a) pipeline vs twin", loss, t_loss,
+           cap.grads, t_grads, _opt_masters(opt, pipe, keys), t_masters)
+    del cap, t_grads, t_masters
+    sh = opt._sharding
+    per_rank = sh.bytes_per_rank()
+    shapes = [s for s, _ in leaves]
+    want_b = zero_bytes_expected(shapes, 2, 3)
+    full_b = zero_bytes_expected(shapes, 1, 3)
+    say(f"{tag} (a) optimizer state bytes per sharding rank {per_rank} "
+        f"(moments and masters: {want_b} by _shard_spec, of {full_b} "
+        f"unsharded; {sum(1 for s in shapes if any(d % 2 == 0 for d in s))}"
+        f" of {len(shapes)} leaves divide)")
+    require(per_rank == [want_b, want_b], f"(a) bytes per rank {per_rank}")
+
+    def pipe_step():
+        with amp.auto_cast(level="O2", dtype="bfloat16"):
+            return model.train_batch([ids, ids], opt)
+
+    _reset_train_counts()
+    collective.reset_counts()
+    s_pipe = _timed(torch, device, pipe_step, steps)
+    coll_t = _coll_step()
+    require(coll_t == {k: ((steps + 1) * c, (steps + 1) * b)
+                       for k, (c, b) in want_c.items()},
+            f"(a) {steps + 1} steps' collectives {coll_t}")
+    s_twin = _timed(torch, device, lambda: _twin_step(
+        torch, twin, topt, ids, n_micro, capture=False), steps)
+    say(f"{tag} (a) s/step: PipelineParallel + ZeRO-1 {s_pipe:.4f}, the "
+        f"twin {s_twin:.4f} ({s_pipe / s_twin:.3f}x), {steps} steps after "
+        f"a warm-up; {B * T / s_pipe:.1f} tokens/s")
+    del twin, topt
+    _free(torch, device)
+    _checkpoint_leg(torch, device, cfg, seed, tag, say, model, opt, pipe,
+                    keys, ids, n_micro, loss_fn)
+    del model, opt, pipe, sh
+    _hybrid_init(torch, device)
+    _free(torch, device)
+    return s_pipe
+
+
+def _checkpoint_leg(torch, device, cfg, seed, tag, say, model, opt, pipe,
+                    keys, ids, n_micro, loss_fn):
+    """Phase 26 (d): (a)'s model saved by distributed.checkpoint, loaded
+    into an mp 2 and a one-device LlamaForCausalLM; a further step of
+    each of (a)'s model and the restored one; PPParallelAdaptor."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.distributed import checkpoint as ckpt
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+    tc = _train_cfg(cfg)
+    state = {keys[k]: v for k, v in pipe.state_dict().items()}
+    with tempfile.TemporaryDirectory() as root:
+        path = os.path.join(root, "ckpt")
+        t0 = time.perf_counter()
+        ckpt.save_state_dict(state, path)
+        t_save = time.perf_counter() - t0
+        nbytes = os.path.getsize(os.path.join(path, "state.pdparams"))
+        loaded = {}
+        for mp in (2, 1):
+            _fleet_init(torch, device, mp)
+            m = LlamaForCausalLM(tc, device=device, generator=torch.Generator(
+                device).manual_seed(seed + 50 + mp))
+            amp.decorate(m, level="O2", dtype="bfloat16")
+            t0 = time.perf_counter()
+            ckpt.load_state_dict(path, target_state_dict=m.state_dict())
+            _sync(torch, device)
+            t_load = time.perf_counter() - t0
+            same = all(torch.equal(v, state[k])
+                       for k, v in m.state_dict().items())
+            say(f"{tag} (d) distributed.checkpoint: {len(state)} tensors, "
+                f"{nbytes} bytes saved in {t_save:.2f} s; loaded into the "
+                f"{'mp 2' if mp == 2 else 'one-device'} LlamaForCausalLM "
+                f"in {t_load:.2f} s, every tensor bitwise the saved one: "
+                f"{same}")
+            require(same, f"(d) the mp {mp} model's tensors differ")
+            if mp == 1:
+                loaded["model"] = m
+            del m
+    _fleet_init(torch, device, 1)
+    m = loaded.pop("model")
+    mopt = AdamW(1e-4, parameters=m.parameters(), multi_precision=True)
+    # (a)'s model steps on as the pipeline; the restored one as the twin
+    cap = _GradCapture(opt, pipe, keys)
+    with amp.auto_cast(level="O2", dtype="bfloat16"):
+        loss = float(model.train_batch([ids, ids], cap))
+    r_loss, r_grads = _twin_step(torch, m, mopt, ids, n_micro)
+    _agree(torch, tag, say, "(d) a further step of the restored "
+           "one-device model vs (a)'s model", r_loss, loss, r_grads,
+           cap.grads)
+    del m, mopt, cap, r_grads
+    # PPParallelAdaptor: the global view to 2 stages and back, exactly
+    sd = {k: v for k, v in state.items()}
+    stages = ckpt.PPParallelAdaptor.convert(sd, 1, 2, "llama.layers")
+    back = ckpt.PPParallelAdaptor.convert(stages, 2, 1, "llama.layers")
+    again = ckpt.PPParallelAdaptor.convert(back, 1, 2, "llama.layers")
+    exact = (sorted(back) == sorted(sd) and all(back[k] is sd[k] for k in sd)
+             and all(sorted(a) == sorted(b) and all(a[k] is b[k] for k in a)
+                     for a, b in zip(stages, again)))
+    say(f"{tag} (d) PPParallelAdaptor: global -> 2 stage dicts "
+        f"({[len(s) for s in stages]} keys) -> global -> stages exact: "
+        f"{exact}")
+    require(exact, "(d) PPParallelAdaptor round trip")
+    _free(torch, device)
+
+
+def _offload_leg(torch, device, cfg, seed, tag, say, steps):
+    """Phase 26 (b): one logical rank, DygraphShardingOptimizer(offload=
+    True) against the on-device AdamW from the same weights."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.distributed.fleet.meta_parallel import \
+        DygraphShardingOptimizer
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+    tc = _train_cfg(cfg)
+    B, T = cfg["train_batch"], cfg["train_seq"]
+    ids = torch.from_numpy(np.random.RandomState(seed + 2).randint(
+        0, tc.vocab_size, (B, T))).to(device)
+    _hybrid_init(torch, device)
+    state0 = None
+    res = {}
+    for offload in (False, True):
+        m = LlamaForCausalLM(tc, device=device, generator=torch.Generator(
+            device).manual_seed(seed))
+        if state0 is None:
+            state0 = {k: v.detach().clone() for k, v in
+                      m.state_dict().items()}
+        else:
+            m.load_state_dict(state0)
+        amp.decorate(m, level="O2", dtype="bfloat16")
+        start = {n: p.detach().float().clone() for n, p in
+                 m.named_parameters()}
+        opt = AdamW(1e-4, parameters=m.parameters(), multi_precision=True)
+        if offload:
+            opt = DygraphShardingOptimizer(opt, offload=True)
+        _free(torch, device)
+        if device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        loss, grads = _twin_step(torch, m, opt, ids, 1)
+        masters = {n: v.to(device) for n, v in _opt_masters(opt, m).items()}
+        masters["__start"] = start
+        s_step = _timed(torch, device, lambda: _twin_step(
+            torch, m, opt, ids, 1, capture=False), steps)
+        peak = _peak_mib(torch, device)
+        # held on the host, out of the next run's peak
+        res[offload] = dict(loss=loss, s=s_step, peak=peak, grads={
+            k: v.cpu() for k, v in grads.items()}, masters={
+            k: ({n: t.cpu() for n, t in v.items()} if k == "__start"
+                else v.cpu()) for k, v in masters.items()})
+        if offload:
+            held = [t for leaf in opt._leaves.values()
+                    for per in list(leaf.states.values())
+                    + [leaf.master or []] for t in per]
+            on_card = [t for t in held if t.device.type != "cpu"]
+            pinned = (all(t.is_pinned() for t in held)
+                      if device.type == "cuda" else True)
+            require(held and not on_card and pinned,
+                    f"(b) {len(on_card)} of {len(held)} states on the "
+                    f"card, pinned {pinned}")
+        del m, opt, grads, masters, start
+        _free(torch, device)
+    for r in res.values():
+        r["grads"] = {k: v.to(device) for k, v in r["grads"].items()}
+        r["masters"] = {k: ({n: t.to(device) for n, t in v.items()}
+                            if k == "__start" else v.to(device))
+                        for k, v in r["masters"].items()}
+    on, off = res[False], res[True]
+    largest = max(int(np.prod(v.shape)) for v in state0.values())
+    say(f"{tag} (b) DygraphShardingOptimizer(offload=True), one logical "
+        f"rank, LlamaForCausalLM at phase 23b's widths under O2: peak "
+        f"device memory {off['peak']:.1f} MiB against {on['peak']:.1f} MiB"
+        f" on the card ({on['peak'] - off['peak']:.1f} MiB less; the "
+        f"largest leaf's states {largest * 12 / 2 ** 20:.1f} MiB); s/step "
+        f"{off['s']:.4f} against {on['s']:.4f} ({off['s'] / on['s']:.3f}x,"
+        f" {steps} steps after a warm-up); states in pinned host memory")
+    _agree(torch, tag, say, "(b) offload vs on-card step", off["loss"],
+           on["loss"], off["grads"], on["grads"], off["masters"],
+           on["masters"])
+    if device.type == "cuda":
+        require(off["peak"] < on["peak"], "(b) offload did not lower the "
+                "peak")
+    del res, state0
+    _free(torch, device)
+
+
+def _stage3_leg(torch, device, cfg, seed, tag, say):
+    """Phase 26 (c): group_sharded_parallel(..., "p_g_os") at sharding
+    2 against the one-device twin."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.distributed.sharding import group_sharded_parallel
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import collective
+    tc = _train_cfg(cfg)
+    L = tc.num_hidden_layers
+    B, T = cfg["train_batch"], cfg["train_seq"]
+    ids = torch.from_numpy(np.random.RandomState(seed + 2).randint(
+        0, tc.vocab_size, (B, T))).to(device)
+    _hybrid_init(torch, device)
+    twin = LlamaForCausalLM(tc, device=device, generator=torch.Generator(
+        device).manual_seed(seed))
+    _hybrid_init(torch, device, sharding_degree=2)
+    m = LlamaForCausalLM(tc, device=device, generator=torch.Generator(
+        device).manual_seed(seed + 60))
+    m.load_state_dict(twin.state_dict())
+    amp.decorate([twin, m], level="O2", dtype="bfloat16")
+    start = {n: p.detach().float().clone() for n, p in
+             twin.named_parameters()}
+    leaves = [(tuple(p.shape), p.element_size()) for p in m.parameters()]
+    full = sum(int(np.prod(s)) * b for s, b in leaves)
+    want_p = sum(int(np.prod(s)) * b // (2 if any(d % 2 == 0 for d in s)
+                                          else 1) for s, b in leaves)
+    topt = AdamW(1e-4, parameters=twin.parameters(), multi_precision=True)
+    wrapped, opt, _ = group_sharded_parallel(
+        m, AdamW(1e-4, parameters=m.parameters(), multi_precision=True),
+        "p_g_os")
+    per_rank = wrapped.param_bytes_per_rank()
+    require(per_rank == [want_p, want_p],
+            f"(c) parameter bytes per rank {per_rank}, not {want_p}")
+    t_loss, t_grads = _twin_step(torch, twin, topt, ids, 1)
+    t_masters = _opt_masters(topt, twin)
+    t_masters["__start"] = start
+    del twin, topt
+    _free(torch, device)
+    _reset_train_counts()
+    collective.reset_counts()
+    loss, grads = _twin_step(torch, wrapped, opt, ids, 1)
+    coll = _coll_step()
+    _hybrid_launches(torch, device, L, 1, "(c) stage 3 step")
+    want_c = fleet_hybrid_expected(leaves, 2)
+    require(coll == want_c, f"(c) collectives {coll} are not {want_c}")
+    grads = {k.split("_layer.", 1)[-1]: v for k, v in grads.items()}
+    masters = {k.split("_layer.", 1)[-1]: v
+               for k, v in _opt_masters(opt, wrapped).items()}
+    say(f"{tag} (c) group_sharded_parallel(level 'p_g_os') at sharding 2 "
+        f"(logical ranks), LlamaForCausalLM at phase 23b's widths under "
+        f"O2: parameter bytes per rank between steps {per_rank} of "
+        f"{full}; one step's collectives "
+        f"{({k: v for k, v in coll.items() if v[0]})} (the forward's "
+        f"gathers; fleet_hybrid_expected met)")
+    _agree(torch, tag, say, "(c) stage 3 vs twin", loss, t_loss, grads,
+           t_grads, masters, t_masters)
+    del wrapped, opt, m, grads, masters, t_grads, t_masters
+    _hybrid_init(torch, device)
+    _free(torch, device)
+
+
+def _moe_ep_leg(torch, device, cfg, seed, tag, say):
+    """Phase 26 (e): MoELayer at ep 2 against ep 1 from the same
+    weights, under O2."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.incubate import MoELayer
+    from paddle_tpu_torch.parallel import collective
+    from paddle_tpu_torch.parallel import mesh as mesh_mod
+    N, d, E, k = cfg["moe_tokens"], cfg["moe_d"], 8, 2
+    _hybrid_init(torch, device)
+    layers = {}
+    for ep in (1, 2):
+        if ep > 1:
+            mesh_mod.build_mesh(dp=ep, devices=[device] * ep)
+        m = MoELayer(d, num_expert=E, d_hidden=cfg["moe_hidden"], top_k=k,
+                     device=device,
+                     generator=torch.Generator().manual_seed(seed + 10))
+        amp.decorate(m, level="O2", dtype="bfloat16")
+        layers[ep] = m
+    require(layers[1].ep_axis is None and layers[2].ep_axis == "dp",
+            "(e) ep axes")
+    gx = torch.Generator().manual_seed(seed + 11)
+    x = torch.randn(N, d, generator=gx).to(device)
+    proj = torch.randn(N, d, generator=gx).to(device)
+    cap = max(int(layers[1].capacity_factor * N * k / E), k)
+    with torch.no_grad(), amp.auto_cast(level="O2", dtype="bfloat16"):
+        lg = layers[1].gate(x)[0]
+        c1 = MoELayer._gshard_combine(lg, k, E, cap, torch.bfloat16)
+        collective.reset_counts()
+        c2 = torch.cat(MoELayer._ep_combine(list(lg.chunk(2, 0)), k, E, cap,
+                                            torch.bfloat16), 0)
+    routed = torch.equal(c1, c2)
+    del c1, c2
+    outs, grads = {}, {}
+    t0 = time.perf_counter()
+    for ep, m in layers.items():
+        xi = x.clone().requires_grad_()
+        collective.reset_counts()
+        with amp.auto_cast(level="O2", dtype="bfloat16"):
+            out = m(xi)
+        (out.float() * proj).sum().add(m.l_aux.float()).backward()
+        _sync(torch, device)
+        if ep == 2:
+            coll = _coll_step()
+        outs[ep] = out.detach().float()
+        grads[ep] = {"x": xi.grad.float(), **{
+            n: p.grad.float() for n, p in m.named_parameters()}}
+    wall = time.perf_counter() - t0
+    mesh_mod.set_mesh(None)
+    want_c = moe_ep_expected(E, cap, d, 2, k, 2)
+    require(coll == want_c, f"(e) collectives {coll} are not {want_c}")
+    err = _rel_err(outs[2], outs[1])
+    worst, worst_cos, noise = _grads_agree(torch, grads[2], grads[1])
+    say(f"{tag} (e) MoELayer({d}, {E} experts, {cfg['moe_hidden']}, top "
+        f"{k}) over {N} tokens under O2 at ep 2 (logical 'dp' ranks, 4 "
+        f"experts and {N // 2} tokens each) against ep 1 from the same "
+        f"weights: routing (combine tensor, capacity {cap}) exactly equal: "
+        f"{routed}; output within {err:.3e} x max|ref| (bound "
+        f"{BOUND_AMP_OUT}); gradients worst cosine {worst_cos:.6f} (bound "
+        f"{BOUND_AMP_COS}; {len(noise)} noise-level); forward and backward "
+        f"of both in {wall:.2f} s; collectives "
+        f"{({k_: v for k_, v in coll.items() if v[0]})} (moe_ep_expected "
+        f"met)")
+    require(routed, "(e) ep 2 routing differs from ep 1's")
+    require(err <= BOUND_AMP_OUT and worst_cos >= BOUND_AMP_COS,
+            "(e) ep 2 outside the bounds")
+    del layers, outs, grads
+    _free(torch, device)
+
+
+def _train_step_leg(torch, device, cfg, seed, tag, say, steps):
+    """Phase 26 (f): TrainStep(grad_accum_steps=4) on the one-device
+    Llama against the twin accumulating the same micro-batches."""
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel.train_step import TrainStep
+    tc = _train_cfg(cfg)
+    L, n_micro = tc.num_hidden_layers, 4
+    B, T = cfg["train_batch"], cfg["train_seq"]
+    ids = torch.from_numpy(np.random.RandomState(seed + 2).randint(
+        0, tc.vocab_size, (B, T))).to(device)
+    _hybrid_init(torch, device)
+    twin = LlamaForCausalLM(tc, device=device, generator=torch.Generator(
+        device).manual_seed(seed))
+    m = LlamaForCausalLM(tc, device=device, generator=torch.Generator(
+        device).manual_seed(seed + 70))
+    m.load_state_dict(twin.state_dict())
+    amp.decorate([twin, m], level="O2", dtype="bfloat16")
+    topt = AdamW(1e-4, parameters=twin.parameters(), multi_precision=True)
+    t_loss, t_grads = _twin_step(torch, twin, topt, ids, n_micro)
+    after_twin = {n: p.detach().float() for n, p in twin.named_parameters()}
+    del twin, topt
+    _free(torch, device)
+    ts = TrainStep(m, AdamW(1e-4, parameters=m.parameters(),
+                            multi_precision=True), grad_accum_steps=4)
+    seen = {}
+    apply = ts._apply
+
+    def capture():
+        seen.update({n: p.grad.detach().float() / n_micro
+                     for n, p in m.named_parameters()})
+        apply()
+    ts._apply = capture
+    micro = ids.chunk(n_micro, 0)
+
+    def step():
+        total = 0.0
+        for x in micro:
+            with amp.auto_cast(level="O2", dtype="bfloat16"):
+                total = total + ts(x, x).float()
+        return total / n_micro
+
+    _reset_train_counts()
+    loss = float(step())
+    _hybrid_launches(torch, device, L, n_micro, "(f) TrainStep")
+    ts._apply = apply
+    after = {n: p.detach().float() for n, p in m.named_parameters()}
+    perr = max(_rel_err(after[n], after_twin[n]) for n in after)
+    s_step = _timed(torch, device, step, steps)
+    say(f"{tag} (f) TrainStep(grad_accum_steps=4) on LlamaForCausalLM at "
+        f"phase 23b's widths under O2, micro-batches {B // n_micro} x {T}: "
+        f"{s_step:.4f} s per optimizer step ({steps} after a warm-up); "
+        f"parameters after the step within {perr:.3e} x max|ref| of the "
+        f"twin's (bound {BOUND_AMP_OUT}; TrainStep updates the bf16 "
+        f"parameters, the twin its fp32 masters)")
+    _agree(torch, tag, say, "(f) TrainStep vs twin", loss, t_loss, seen,
+           t_grads)
+    require(perr <= BOUND_AMP_OUT, f"(f) parameters off by {perr}")
+    del ts, m, seen, t_grads, after, after_twin
+    _free(torch, device)
+    return s_step
+
+
+def phase_fleet_hybrid(torch, device, cfg, seed, tag, say):
+    """Phase 26: the rest of fleet's hybrid training on logical ranks of
+    the one device, at phase 23b's widths: (a) PipelineParallel with
+    ZeRO-1 and (d) checkpoint save / reshard on its model, (b) offload,
+    (c) stage 3, (e) MoE over an expert-parallel axis, (f) TrainStep."""
+    t_phase = time.perf_counter()
+    say(f"{tag} phase 26 (fleet's hybrid training on logical ranks): "
+        f"pipeline + sharding, checkpoint, offload, stage 3, MoE ep, "
+        f"TrainStep")
+    steps = 3
+    _pipeline_leg(torch, device, cfg, seed, tag, say, steps)
+    _offload_leg(torch, device, cfg, seed, tag, say, 2)
+    _stage3_leg(torch, device, cfg, seed, tag, say)
+    _moe_ep_leg(torch, device, cfg, seed, tag, say)
+    _train_step_leg(torch, device, cfg, seed, tag, say, 2)
+    say(f"{tag} phase 26 took {time.perf_counter() - t_phase:.1f} s")
+
+
 def run(device, cfg, seed=0, say=print, card=None):
     """All phases on ``device``; returns the kernels line's rows."""
     import torch
@@ -5389,6 +6069,8 @@ def run(device, cfg, seed=0, say=print, card=None):
     phase_mesh(torch, device, cfg, seed, tag, say)
     # Paddle's dygraph tensor parallelism on logical mp ranks
     phase_fleet_mp(torch, device, cfg, seed, tag, say)
+    # the rest of fleet's hybrid training on logical ranks
+    phase_fleet_hybrid(torch, device, cfg, seed, tag, say)
     return [rows[k] for k in ("paged_attention_ragged",
                               "paged_attention_ragged_int8",
                               "decode_attention", "w8a16_matmul", "gmm",

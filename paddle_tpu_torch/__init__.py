@@ -7,7 +7,8 @@ from . import (amp, distributed, flags, framework, incubate,  # noqa: F401
                inference, models, nn, ops, optimizer, quantization)
 from .device import resolve_device  # noqa: F401
 from .flags import get_flag, set_flags  # noqa: F401
+from .framework.io import load, save  # noqa: F401
 
 __all__ = ["amp", "distributed", "flags", "framework", "get_flag", "incubate",
-           "inference", "models", "nn", "ops", "optimizer", "quantization",
-           "resolve_device", "set_flags"]
+           "inference", "load", "models", "nn", "ops", "optimizer",
+           "quantization", "resolve_device", "save", "set_flags"]

@@ -1,15 +1,13 @@
 """The fleet facade (counterpart of paddle_tpu/distributed/fleet/
 fleet.py:16-168): ``init`` builds the hybrid topology and the port's
 mesh, ``distributed_model`` wraps a model for the topology's parallel
-mode, ``distributed_optimizer`` wraps its optimizer.
+mode, ``distributed_optimizer`` applies the strategy's meta-optimizers
+and wraps the optimizer.
 
-The port runs the tensor- and data-parallel modes. Every rank is a
-LOGICAL rank of one process (``parallel/mesh.py``): ``init(...,
-device=...)`` places them all on that device (``"cuda"`` on one card,
-``"cpu"`` for the CPU paths); without it the mesh takes every card,
-whose mp rows the mpu layers refuse (ROADMAP Queue A item 10b). The
-pipeline and sharding modes, and the meta-optimizers other than at
-their defaults, wait for item 11b.
+Every rank is a LOGICAL rank of one process (``parallel/mesh.py``):
+``init(..., device=...)`` places them all on that device (``"cuda"`` on
+one card, ``"cpu"`` for the CPU paths); without it the mesh takes every
+card, whose mp rows the mpu layers refuse (ROADMAP Queue A item 10b).
 """
 from __future__ import annotations
 
@@ -18,7 +16,7 @@ from typing import Optional
 import torch
 
 from ...device import resolve_device
-from ...framework.unported import require_defaults, unported
+from ...framework.unported import require_defaults
 from .. import env as dist_env
 from .strategy import DistributedStrategy
 from .topology import (CommunicateTopology, HybridCommunicateGroup,
@@ -96,34 +94,41 @@ def barrier_worker():
 
 
 def distributed_model(model):
-    """``model`` wrapped for the installed topology: ``TensorParallel``
-    in the tensor-parallel mode, ``DataParallel`` in the data-parallel
-    one."""
+    """``model`` wrapped for the installed topology: ``PipelineParallel``
+    for a ``PipelineLayer`` or in the pipeline mode, ``TensorParallel``,
+    ``ShardingParallel``, else ``DataParallel``."""
     hcg = get_hybrid_communicate_group()
     from ..parallel import DataParallel
-    from .meta_parallel.meta_parallel_base import TensorParallel
+    from .meta_parallel.meta_parallel_base import (ShardingParallel,
+                                                   TensorParallel)
+    from .meta_parallel.pipeline_parallel import PipelineParallel
+    from .meta_parallel.pp_layers import PipelineLayer
+    strategy = _fleet.strategy
     mode = hcg.get_parallel_mode()
+    if mode == "pipeline_parallel" or isinstance(model, PipelineLayer):
+        return PipelineParallel(model, hcg, strategy)
     if mode == "tensor_parallel":
-        return TensorParallel(model, hcg, _fleet.strategy)
-    if mode == "data_parallel":
-        return DataParallel(model)
-    unported("fleet.distributed_model", f"the {mode} mode", "11b")
+        return TensorParallel(model, hcg, strategy)
+    if mode == "sharding_parallel":
+        return ShardingParallel(model, hcg, strategy)
+    return DataParallel(model)
 
 
 class HybridParallelOptimizer:
     """The user's optimizer under the hybrid topology. Gradients of the
     mpu layers are full logical tensors and the dp ranks' batch is one
-    global batch, so there is nothing to reduce: the wrapper hands
-    ``step`` and the rest through."""
+    global batch, so there is nothing to reduce; with
+    ``sharding_degree`` > 1 the optimizer's states are split over the
+    sharding ranks (``DygraphShardingOptimizer``, stage 1)."""
 
     def __init__(self, optimizer, hcg=None, strategy=None):
-        if strategy is not None and \
-                strategy.hybrid_configs["sharding_degree"] > 1:
-            unported("HybridParallelOptimizer", "sharding_degree > 1",
-                     "11b")
         self._inner_opt = optimizer
         self._hcg = hcg
         self._strategy = strategy
+        if strategy is not None and \
+                strategy.hybrid_configs["sharding_degree"] > 1:
+            from .meta_parallel.sharding import DygraphShardingOptimizer
+            self._sharding = DygraphShardingOptimizer(optimizer, hcg)
 
     def __getattr__(self, item):
         return getattr(self.__dict__["_inner_opt"], item)
@@ -148,18 +153,13 @@ class HybridParallelOptimizer:
     clear_gradients = clear_grad
 
 
-_META_FLAGS = ("lars", "lamb", "dgc", "gradient_merge", "localsgd")
-
-
 def distributed_optimizer(optimizer, strategy=None):
-    """``optimizer`` in a HybridParallelOptimizer. The strategy's
-    meta-optimizer flags (lars, lamb, dgc, gradient_merge, localsgd) are
-    accepted only off."""
+    """``optimizer`` rewritten by the strategy's meta-optimizer flags
+    (``meta_optimizers.apply_meta_optimizers``: lars, dgc,
+    gradient_merge, localsgd), in a HybridParallelOptimizer."""
     strategy = strategy or _fleet.strategy
-    if strategy is not None:
-        require_defaults("fleet.distributed_optimizer", **{
-            f: (bool(getattr(strategy, f, False)), False)
-            for f in _META_FLAGS})
+    from .meta_optimizers import apply_meta_optimizers
+    optimizer = apply_meta_optimizers(optimizer, strategy)
     return HybridParallelOptimizer(optimizer,
                                    get_hybrid_communicate_group(), strategy)
 

@@ -1,2 +1,3 @@
-"""Framework pieces of the port: random seeds (``random``) and the
-reference parameters it accepts without implementing (``unported``)."""
+"""Framework pieces of the port: random seeds (``random``), the
+reference parameters it accepts without implementing (``unported``) and
+``paddle.save`` / ``paddle.load`` (``io``)."""

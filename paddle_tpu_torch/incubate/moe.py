@@ -5,22 +5,33 @@ GShard and Switch gates with their aux losses, ``ExpertFFN`` and
 ``:191-214``), the generic-experts path (``:251-266``) and ``gate``
 given as a dict.
 
-On one device: the reference's expert-parallel axis (``ep_axis``) and
-``moe_group`` need a mesh and are not ported (a value other than the
-defaults raises). The expert products are plain ``einsum`` over stacked
-weights, as the JAX package computes them outside any Pallas kernel
-(``:290-302``). The routing equals the reference's exactly: its
-``jax.lax.top_k`` breaks ties toward the lower expert index, which a
-stable descending sort gives here (``torch.topk`` promises no order
-among ties). The gates' aux losses and the layer go through the
-op-boundary hook as ``gshard_aux_loss``/``switch_aux_loss``,
-``moe_combine`` and ``moe``: under O2 their inputs are bf16, as in the
-reference. One difference: the routing's softmax runs in float32 over
-the (bf16) logits, where the reference's ``jax.nn.softmax`` rounds the
-probabilities to bf16. Distinct bf16 logits then never tie, and the
-routing is the same on the card and on the CPU from the same logits
-(exp differs between the two by an ulp of float32, far below the gap
-between two bf16 logits); with float32 logits it is the reference's.
+Expert parallelism (``ep_axis``, ``:170-304``): when the installed mesh
+(``parallel/mesh.py``) has that axis wider than 1, its LOGICAL ranks
+each hold ``E / ep`` experts (in expert order) and a contiguous share of
+the tokens. The gate runs once over every token (it is replicated) and
+capacity stays a function of the global token count, as in the
+reference: a rank's capacity positions are its local cumulative count
+plus the earlier ranks' per-expert counts of that slot (an exclusive
+scan over one counted ``all_gather`` of [E] counts a slot), so the
+routing is the one-rank layer's exactly. Dispatch and combine are
+counted ``all_to_all``s (``parallel/collective.py``) of the
+capacity-padded [E, cap, d] blocks. ``moe_group`` and ``mp_group`` are
+not ported (a value other than None raises).
+
+The expert products are plain ``einsum`` over stacked weights, as the
+JAX package computes them outside any Pallas kernel (``:290-302``). The
+routing equals the reference's exactly: its ``jax.lax.top_k`` breaks
+ties toward the lower expert index, which a stable descending sort gives
+here (``torch.topk`` promises no order among ties). The gates' aux
+losses and the layer go through the op-boundary hook as
+``gshard_aux_loss``/``switch_aux_loss``, ``moe_combine`` and ``moe``:
+under O2 their inputs are bf16, as in the reference. One difference:
+the routing's softmax runs in float32 over the (bf16) logits, where the
+reference's ``jax.nn.softmax`` rounds the probabilities to bf16.
+Distinct bf16 logits then never tie, and the routing is the same on the
+card and on the CPU from the same logits (exp differs between the two
+by an ulp of float32, far below the gap between two bf16 logits); with
+float32 logits it is the reference's.
 """
 from __future__ import annotations
 
@@ -31,6 +42,8 @@ from ..device import model_kw
 from ..framework.op import add, multiply, op_inputs
 from ..framework.unported import require_defaults
 from ..nn import functional as F
+from ..parallel import collective
+from ..parallel import mesh as mesh_mod
 
 __all__ = ["MoELayer", "NaiveGate", "GShardGate", "SwitchGate",
            "number_count", "limit_by_capacity", "prune_gate_by_capacity",
@@ -177,8 +190,7 @@ class MoELayer(nn.Layer):
                  ep_axis="dp", *, device=None, generator=None, **kwargs):
         require_defaults("MoELayer", moe_group=(moe_group, None),
                          mp_group=(mp_group, None),
-                         recompute_interval=(recompute_interval, 0),
-                         ep_axis=(ep_axis, "dp"))
+                         recompute_interval=(recompute_interval, 0))
         super().__init__()
         kw = model_kw(device, generator)
         self.d_model = d_model
@@ -193,8 +205,10 @@ class MoELayer(nn.Layer):
         self.experts = nn.LayerList(experts)
         self.num_expert = len(self.experts)
         self.capacity_factor = capacity_factor
-        # the reference's ep_axis is None on a single-device mesh
-        self.ep_axis = None
+        # None unless the installed mesh's axis is wider than one rank
+        m = mesh_mod._global_mesh
+        self.ep_axis = ep_axis if m is not None and \
+            m.shape.get(ep_axis, 1) > 1 else None
         kind = gate.get("type", "gshard") if isinstance(gate, dict) \
             else None
         if gate is None or kind == "gshard":
@@ -284,6 +298,10 @@ class MoELayer(nn.Layer):
         b1 = torch.stack(flat[E:2 * E])
         w2 = torch.stack(flat[2 * E:3 * E])
         b2 = torch.stack(flat[3 * E:])
+        if self.ep_axis is not None:
+            out = self._ep_forward(xa, lg, (w1, b1, w2, b2), act, k, E,
+                                   cap)
+            return out.reshape(orig_shape)
         combine = self._gshard_combine(lg, k, E, cap, xa.dtype)
         dispatch = (combine > 0).to(xa.dtype)
         exp_in = torch.einsum("nec,nd->ecd", dispatch, xa)
@@ -291,3 +309,70 @@ class MoELayer(nn.Layer):
         exp_out = torch.einsum("ecf,efd->ecd", h, w2) + b2[:, None, :]
         out = torch.einsum("nec,ecd->nd", combine, exp_out)
         return out.reshape(orig_shape)
+
+    @staticmethod
+    def _ep_combine(lgs, k, E, cap, dtype):
+        """Each ep rank's combine tensor [n_r, E, cap] over its logits
+        ``lgs[r]``: positions from the global per-slot counts (one
+        counted all-gather of every rank's [E] counts a slot)."""
+        ep = len(lgs)
+        dev = lgs[0].device
+        tops = []
+        for lg in lgs:
+            probs = torch.softmax(lg.float(), dim=-1)
+            topv, topi = _top_k(probs, k)
+            tops.append(((topv / topv.sum(-1, keepdim=True)).to(lg.dtype),
+                         topi))
+        combines = [torch.zeros(lg.shape[0], E, cap, dtype=dtype,
+                                device=dev) for lg in lgs]
+        offset = torch.zeros(E, dtype=torch.int32, device=dev)
+        for slot in range(k):
+            onehots = [_one_hot(topi[:, slot], E, torch.int32)
+                       for _, topi in tops]
+            counts = collective.all_gather(
+                [o.sum(0, dtype=torch.int32) for o in onehots], 0)
+            every = counts[0].reshape(ep, E)
+            for r, ((topv, _), onehot) in enumerate(zip(tops, onehots)):
+                before = offset + every[:r].sum(0, dtype=torch.int32)
+                pos = ((onehot.cumsum(0, dtype=torch.int32) - 1
+                        + before[None]) * onehot).sum(-1, dtype=torch.int32)
+                keep = pos < cap
+                val = torch.where(keep, topv[:, slot],
+                                  torch.zeros((), dtype=topv.dtype,
+                                              device=dev))
+                onehot_c = _one_hot(torch.where(keep, pos, 0), cap, dtype)
+                combines[r] = combines[r] + (
+                    onehot.to(dtype)[:, :, None] * onehot_c[:, None, :]
+                    * val[:, None, None])
+            offset = offset + every.sum(0, dtype=torch.int32)
+        return combines
+
+    def _ep_forward(self, xa, lg, weights, act, k, E, cap):
+        """The expert-parallel forward over the ep axis's logical
+        ranks: tokens split contiguously, experts E / ep a rank."""
+        ep = mesh_mod._global_mesh.shape[self.ep_axis]
+        n = xa.shape[0]
+        if n % ep or E % ep:
+            raise ValueError(f"MoELayer at ep {ep}: {n} tokens and {E} "
+                             f"experts must divide by it")
+        el = E // ep
+        w1, b1, w2, b2 = weights
+        xs, lgs = xa.chunk(ep, 0), lg.chunk(ep, 0)
+        combines = self._ep_combine(lgs, k, E, cap, xa.dtype)
+        # dispatch: rank r's [E, cap, d] block, chunk q to expert rank q;
+        # the blocks of one expert rank fill disjoint positions
+        exp_in = collective.all_to_all(
+            [torch.einsum("nec,nd->ecd", (c > 0).to(x.dtype), x)
+             for c, x in zip(combines, xs)], 0, 0)
+        outs = []
+        for q in range(ep):
+            e = slice(q * el, (q + 1) * el)
+            xin = exp_in[q].reshape(ep, el, cap, -1).sum(0)
+            h = act(torch.einsum("ecd,edf->ecf", xin, w1[e])
+                    + b1[e][:, None, :])
+            y = torch.einsum("ecf,efd->ecd", h, w2[e]) + b2[e][:, None, :]
+            outs.append(y.repeat(ep, 1, 1))
+        # combine: every token rank gets every expert rank's outputs
+        exp_out = collective.all_to_all(outs, 0, 0)
+        return torch.cat([torch.einsum("nec,ecd->nd", c, y)
+                          for c, y in zip(combines, exp_out)], 0)

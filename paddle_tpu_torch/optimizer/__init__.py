@@ -1,6 +1,6 @@
-"""paddle.optimizer counterparts: ``Adam`` and ``AdamW`` with Paddle's
-update rule."""
+"""paddle.optimizer counterparts: ``SGD``, ``Momentum``, and ``Adam`` /
+``AdamW`` with Paddle's update rule."""
 from .adam import Adam, AdamW  # noqa: F401
-from .optimizer import Optimizer  # noqa: F401
+from .optimizer import Momentum, Optimizer, SGD  # noqa: F401
 
-__all__ = ["Adam", "AdamW", "Optimizer"]
+__all__ = ["Adam", "AdamW", "Momentum", "Optimizer", "SGD"]

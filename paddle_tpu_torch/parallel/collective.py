@@ -11,11 +11,12 @@ placement. Between distinct devices the data moves with ``.to(device)``;
 ranks on one device share it without a copy. No ``torch.distributed``:
 one process holds every rank (a multi-card NCCL step is later work).
 
-``psum`` and ``ppermute`` are differentiable with their true adjoints:
-the backward of an all-reduce is an all-reduce of the output gradients,
-that of a ring shift the reverse shift. ``pmax``, ``all_reduce``,
-``reduce_scatter`` and ``all_gather`` act on values that take no
-gradient (a detached max, gradients, updated parameters).
+``psum``, ``ppermute`` and ``all_to_all`` are differentiable with their
+true adjoints: the backward of an all-reduce is an all-reduce of the
+output gradients, that of a ring shift the reverse shift, that of an
+all-to-all the all-to-all with its two dimensions swapped. ``pmax``,
+``all_reduce``, ``reduce_scatter`` and ``all_gather`` act on values
+that take no gradient (a detached max, gradients, updated parameters).
 
 Every call adds one to its kind's count and the bytes of the tensors it
 was handed (gradients in a backward pass count too): ``counts()``,
@@ -28,16 +29,20 @@ from typing import Dict, List, Optional, Sequence
 
 import torch
 
-__all__ = ["all_gather", "all_reduce", "counts", "pmax", "ppermute", "psum",
-           "reduce_scatter", "reset_counts"]
+__all__ = ["all_gather", "all_reduce", "all_to_all", "counts", "pmax",
+           "ppermute", "psum", "reduce_scatter", "reset_counts"]
 
-KINDS = ("all_reduce", "ppermute", "reduce_scatter", "all_gather")
+KINDS = ("all_reduce", "ppermute", "reduce_scatter", "all_gather",
+         "all_to_all")
 _COUNTS = {k: {"calls": 0, "bytes": 0} for k in KINDS}
 
 
 def counts() -> Dict[str, Dict[str, int]]:
-    """{kind: {"calls": n, "bytes": b}} since the last reset."""
-    return {k: dict(v) for k, v in _COUNTS.items()}
+    """{kind: {"calls": n, "bytes": b}} since the last reset: always the
+    first four kinds, ``all_to_all`` only once one was counted (so the
+    dict of a step without one is what it was before that kind)."""
+    return {k: dict(v) for k, v in _COUNTS.items()
+            if k != "all_to_all" or v["calls"]}
 
 
 def reset_counts() -> None:
@@ -174,3 +179,35 @@ def ppermute(xs: Sequence[Optional[torch.Tensor]], perm,
     for (_, d), y in zip(pairs, got):
         out[d] = y
     return out
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, split_dim, concat_dim, *xs):
+        ctx.dims = (split_dim, concat_dim)
+        return tuple(_all_to_all(xs, split_dim, concat_dim))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        split_dim, concat_dim = ctx.dims
+        gs = [torch.zeros_like(g) if g is None else g for g in gs]
+        # rank i's chunk j went to rank j's slot i: send it back
+        return (None, None) + tuple(_all_to_all(gs, concat_dim, split_dim))
+
+
+def _all_to_all(xs, split_dim, concat_dim):
+    _count("all_to_all", xs)
+    n = len(xs)
+    chunks = [x.chunk(n, split_dim) for x in xs]
+    return [torch.cat([chunks[i][j].to(xs[j].device) for i in range(n)],
+                      concat_dim) for j in range(n)]
+
+
+def all_to_all(xs: Sequence[torch.Tensor], split_dim: int = 0,
+               concat_dim: int = 0) -> List[torch.Tensor]:
+    """Rank i splits xs[i] along ``split_dim`` into one chunk per rank;
+    rank j gets chunk j of every rank, concatenated in rank order along
+    ``concat_dim``."""
+    if len(xs) == 1:
+        return list(xs)
+    return list(_AllToAll.apply(split_dim, concat_dim, *xs))

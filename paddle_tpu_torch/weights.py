@@ -27,8 +27,14 @@ in them, in either package); under ``fleet.init`` with ``mp_degree`` >
 same names, so a JAX fleet model's state dict carries over
 unchanged; ``transformer`` and ``moe_layer`` load a JAX ``nn``
 transformer layer's (``MultiHeadAttention`` up to
-``Transformer``) or ``MoELayer``'s state into a port module the caller
-built with the same arguments. Every loader keeps the port module's
+``Transformer``) or ``MoELayer``'s state (experts in expert order,
+whatever the ep degree) into a port module the caller built with the
+same arguments; ``pipeline_layer`` does so for a ``PipelineLayer`` built
+from the same ``LayerDesc``s (``run_function.<i>.*``).
+``carry_param_names`` gives a port module's parameters the JAX
+parameters' names, and ``optimizer_state`` turns a JAX optimizer's
+``state_dict()`` (as numpy) into one the port's optimizers load. Every
+loader keeps the port module's
 dtypes: a bf16 JAX model's arrays (after ``paddle.amp.decorate``) go
 into a port model exactly (bf16 -> float32 -> bf16 is exact), which
 ``amp.decorate`` then casts back. This module never imports JAX: the
@@ -51,10 +57,11 @@ from .models.gpt import GPTConfig, GPTForCausalLM
 from .models.llama import LlamaConfig, LlamaForCausalLM
 from .models.llama_spmd import LlamaSpmdTrainer, tree_get, tree_paths
 
-__all__ = ["bert_for_pretraining", "fused_multi_transformer",
-           "gpt_for_causal_lm", "llama_for_causal_lm", "llama_spmd_state_np",
-           "llama_spmd_trainer",
-           "moe_layer", "moe_serving_core", "token_serving_model",
+__all__ = ["bert_for_pretraining", "carry_param_names",
+           "fused_multi_transformer", "gpt_for_causal_lm",
+           "llama_for_causal_lm", "llama_spmd_state_np",
+           "llama_spmd_trainer", "moe_layer", "moe_serving_core",
+           "optimizer_state", "pipeline_layer", "token_serving_model",
            "transformer"]
 
 
@@ -264,3 +271,32 @@ def moe_layer(state_np: Dict[str, np.ndarray], layer: MoELayer) -> MoELayer:
     """``layer`` (a port MoELayer built with the JAX layer's arguments)
     holding ``state_np`` (``experts.*``, ``gate.gate.*``)."""
     return _load(layer, state_np)
+
+
+def pipeline_layer(state_np: Dict[str, np.ndarray], layer):
+    """``layer`` (a port PipelineLayer of the JAX one's descriptors)
+    holding ``state_np``."""
+    return _load(layer, state_np)
+
+
+def carry_param_names(names, module):
+    """Name ``module``'s parameters (``named_parameters`` order) by
+    ``names``, the JAX module's parameter names in its own order, so
+    that optimizer state dicts cross between the packages by key."""
+    params = [p for _, p in module.named_parameters()]
+    if len(params) != len(names):
+        raise ValueError(f"{len(names)} names for {len(params)} parameters")
+    for p, n in zip(params, names):
+        p.param_name = n
+    return module
+
+
+def optimizer_state(state_np):
+    """A JAX optimizer's ``state_dict()`` (tensors as numpy, nested
+    ``master_weights`` too) with torch tensors, for the port's
+    ``set_state_dict``."""
+    if isinstance(state_np, dict):
+        return {k: optimizer_state(v) for k, v in state_np.items()}
+    if isinstance(state_np, np.ndarray):
+        return torch.from_numpy(np.array(state_np, np.float32))
+    return state_np

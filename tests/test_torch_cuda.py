@@ -1856,3 +1856,64 @@ def test_llama_mp2_step_on_the_card_matches_mp1():
     assert c1 == {"all_reduce": 0, "ppermute": 0, "reduce_scatter": 0,
                   "all_gather": 0}
     assert c2 == dict(c1, all_reduce=7 * 2 + 2, all_gather=1)
+
+
+def test_pipeline_zero1_step_on_the_card_matches_the_twin():
+    """Phase 26 (a) at tiny widths on the card: PipelineParallel over a
+    PipelineLayer of LlamaForCausalLM's modules at pp 2 x sharding 2
+    (logical ranks) with DygraphShardingOptimizer, under O2, against
+    LlamaForCausalLM accumulating the same 4 micro-batches by hand: the
+    loss, every gradient and every master after the step bitwise (the
+    same kernels on the same shapes), the flash and RMSNorm launches
+    and the all-gathers exactly as fleet_hybrid_expected derives."""
+    _need_cuda()
+    import chip_smoke as cs
+    from paddle_tpu_torch import amp
+    from paddle_tpu_torch.distributed import fleet
+    from paddle_tpu_torch.models import LlamaForCausalLM
+    from paddle_tpu_torch.nn import functional as F
+    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch.parallel import collective
+    dev = torch.device("cuda")
+    cfg = LlamaConfig.tiny(vocab=256, hidden=128, layers=2, heads=2,
+                           kv_heads=2, inter=256, seq=128)
+    ids = torch.randint(0, 256, (8, 128), generator=torch.Generator()
+                        .manual_seed(0)).to(dev)
+    strategy = cs._hybrid_init(torch, dev, pp_degree=2, sharding_degree=2)
+    try:
+        twin = LlamaForCausalLM(cfg, device=dev,
+                                generator=torch.Generator().manual_seed(0))
+        pipe, keys = cs._llama_pipe(torch, dev, cfg, 0, lambda o, l: (
+            F.cross_entropy(o[:, :-1].reshape(-1, 256),
+                            l[:, 1:].reshape(-1))))
+        tsd = twin.state_dict()
+        pipe.load_state_dict({k: tsd[keys[k]] for k in pipe.state_dict()})
+        amp.decorate([twin, pipe], level="O2", dtype="bfloat16")
+        model = fleet.distributed_model(pipe)
+        opt = fleet.distributed_optimizer(AdamW(
+            1e-3, parameters=pipe.parameters(), multi_precision=True),
+            strategy)
+        topt = AdamW(1e-3, parameters=twin.parameters(),
+                     multi_precision=True)
+        t_loss, t_grads = cs._twin_step(torch, twin, topt, ids, 4)
+        cap = cs._GradCapture(opt, pipe, keys)
+        tfa.reset_launch_count()
+        tfn.reset_launch_count()
+        collective.reset_counts()
+        with amp.auto_cast(level="O2", dtype="bfloat16"):
+            loss = float(model.train_batch([ids, ids], cap))
+        torch.cuda.synchronize()
+        assert (tfa.launch_count("fwd"), tfa.launch_count("bwd"),
+                tfn.launch_count("rms_norm")) == (8, 8, 20)
+        assert {k: (v["calls"], v["bytes"]) for k, v in
+                collective.counts().items()} == cs.fleet_hybrid_expected(
+            [(tuple(p.shape), 2) for p in pipe.parameters()], 2)
+        assert loss == t_loss
+        for n, g in t_grads.items():
+            assert torch.equal(cap.grads[n], g), n
+        got = cs._opt_masters(opt, pipe, keys)
+        want = cs._opt_masters(topt, twin)
+        for n, m in want.items():
+            assert torch.equal(got[n], m), n
+    finally:
+        cs._hybrid_init(torch, dev)

@@ -25,12 +25,20 @@ HID = dict(atol=1e-4, rtol=1e-4)
 POOL = dict(max_batch=3, block_size=4, num_blocks=16, chunk_tokens=8)
 
 
+_JAX = {}
+
+
 def _pair():
-    """(JAX core, port core) holding the same weights."""
-    paddle.seed(0)
-    jcore = JaxFMT(D, HEADS, FFN, num_layers=LAYERS)
-    state = {k: np.asarray(v.numpy()) for k, v in
-             jcore.state_dict().items()}
+    """(JAX core, port core) holding the same weights. The JAX core is
+    built once per module (its layer captures compile per layer
+    instance; engines read it and never write it); each call gets a
+    port core of its own."""
+    if "core" not in _JAX:
+        paddle.seed(0)
+        jcore = JaxFMT(D, HEADS, FFN, num_layers=LAYERS)
+        _JAX["core"] = jcore, {k: np.asarray(v.numpy()) for k, v in
+                               jcore.state_dict().items()}
+    jcore, state = _JAX["core"]
     return jcore, weights.fused_multi_transformer(state, HEADS,
                                                   device="cpu")
 

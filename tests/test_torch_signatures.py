@@ -4,8 +4,10 @@ A positional call that is right for ``paddle_tpu`` must bind the same
 parameters in ``paddle_tpu_torch``: for every public name that both
 packages export from ``nn``, ``nn.functional``, ``optimizer``,
 ``inference``, ``incubate.nn``, ``amp``, ``models``, ``incubate``,
-``nn.initializer``, ``distributed.fleet`` and
-``distributed.fleet.meta_parallel``,
+``nn.initializer``, ``distributed.fleet``,
+``distributed.fleet.meta_parallel``, ``distributed.fleet.meta_optimizers``,
+``distributed.fleet.utils``, ``distributed.checkpoint``,
+``distributed.sharding``, ``parallel.train_step`` and ``framework.io``,
 the port's positional parameter names
 are the reference's, in order (the port may stop early: a longer
 positional call then fails loudly). The port's own extras (``device``,
@@ -27,7 +29,10 @@ from paddle_tpu_torch.ops.hopper.paged_attention import \
 
 MODULES = ("nn", "nn.functional", "optimizer", "inference", "incubate.nn",
            "amp", "models", "incubate", "models.llama_spmd", "nn.initializer",
-           "distributed.fleet", "distributed.fleet.meta_parallel")
+           "distributed.fleet", "distributed.fleet.meta_parallel",
+           "distributed.fleet.meta_optimizers", "distributed.fleet.utils",
+           "distributed.checkpoint", "distributed.sharding",
+           "parallel.train_step", "framework.io")
 _POSITIONAL = (inspect.Parameter.POSITIONAL_ONLY,
                inspect.Parameter.POSITIONAL_OR_KEYWORD)
 
@@ -286,12 +291,12 @@ def test_positional_calls_bind_the_reference_parameters():
 # port that drops a ported attribute (as the speculative engine's
 # ``registry`` and ``logits_of`` once were) fails the test below, and so
 # does a port that adds one without taking it off this list.
-_OPT = {"apply_gradients", "backward", "clear_gradients", "minimize",
-        "prebuild_fused", "set_dict", "set_lr", "set_lr_scheduler",
-        "set_state_dict", "state_dict"}  # item 12: the rest of optimizer
 _GAPS = {
-    **{("optimizer", c): {a: 12 for a in _OPT}
-       for c in ("Adam", "AdamW", "Optimizer")},
+    # item 12: optimizer/lr.py and its scheduler hook
+    **{("optimizer", c): {"set_lr_scheduler": 12}
+       for c in ("Adam", "AdamW", "Momentum", "Optimizer", "SGD")},
+    **{("distributed.fleet.meta_optimizers", c): {"set_lr_scheduler": 12}
+       for c in ("DGCMomentum", "LarsMomentum")},
     # item 12: the dense-scratch -> pages path of the long tail
     ("inference", "PagedKVCache"): {"write_prefill": 12},
 }
