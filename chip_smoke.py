@@ -288,7 +288,27 @@ fails the run:
    within the bf16 bounds, ``moe_ep_expected``'s all-gathers and
    all-to-alls exactly; (f) ``TrainStep(grad_accum_steps=4)`` within the
    bounds of its twin, s/step;
-27. print the kernels line, the card line and, last, the contract line.
+27. (run after phase 26) training across two processes sharing the
+   card, spawned by the port's launcher (``python -m
+   paddle_tpu_torch.distributed.launch --nproc_per_node 2 chip_smoke.py
+   --mp-child CONFIG``; Gloo; each rank's results in a file of its own;
+   the launcher kills both past MP_TIMEOUT, which fails the phase): a
+   rendezvous at a taken port and a world on distinct cards raise; (a)
+   every eager collective of ``distributed.communication`` on CUDA
+   tensors, float32 and int32, each checked exactly (``all_reduce`` of
+   rank + 1 gives 3 and int32 stays int32), the calls, bytes and
+   host-staged bytes printed; (b) ``LlamaSpmdTrainer`` at phase 24's
+   widths and batch (bf16, fp32 moments, remat, weights from --seed)
+   with mp 2 split across the processes, 3 steps: the two processes'
+   losses bitwise equal and bitwise a one-process run with mp 2 as
+   LOGICAL ranks on the card, every shard and fp32 master bitwise (by
+   sha256), the collectives per kind and their bytes equal and the
+   launches of rows 4, 5, 6 and 9 half the one-process run's in each;
+   step times and each process's peak memory printed; (c) two workers,
+   each holding a CUDA context, under ``ElasticSupervisor``: rank 1
+   SIGKILLed mid-run, the pod relaunched once, the supervisor exits 0;
+   (d) rpc between the two ranks;
+28. print the kernels line, the card line and, last, the contract line.
 Every number printed carries the card's name and power limit; each row
 of the kernels line says in ``timed`` which call it timed and how.
 """
@@ -5965,6 +5985,577 @@ def phase_fleet_hybrid(torch, device, cfg, seed, tag, say):
     say(f"{tag} phase 26 took {time.perf_counter() - t_phase:.1f} s")
 
 
+# -- phase 27: training across processes ------------------------------
+MP_TIMEOUT = 900           # seconds phase 27's two ranks may run
+MP_STEPS = 3
+ELASTIC_RUN_SECS = 4.0     # a (c) worker's run once its CUDA context is up
+ELASTIC_TIMEOUT = 240      # seconds (c) may take in all
+
+# phase 27 (c)'s worker: a CUDA context, a marker line per incarnation,
+# then a few seconds of "training"
+_ELASTIC_WORKER = """
+import os, time
+import torch
+torch.ones(1, device=os.environ["ELASTIC_DEVICE"]).sum().item()
+rank = os.environ["PADDLE_TRAINER_ID"]
+with open(os.path.join(os.environ["ELASTIC_TEST_DIR"],
+                       "started_rank" + rank), "a") as f:
+    f.write(str(os.getpid()) + "\\n")
+deadline = time.time() + float(os.environ["ELASTIC_RUN_SECS"])
+while time.time() < deadline:
+    time.sleep(0.1)
+"""
+
+
+def _fma(a, b, c):
+    return a * b + c
+
+
+def _peer_card():
+    import torch
+    return (torch.cuda.get_device_name(0) if torch.cuda.is_available()
+            else "cpu")
+
+
+_MP_OUT = {}
+
+
+def _mp_say(rank, name, obj):
+    """One result line, into this rank's own file (two ranks' long
+    lines would interleave on a shared stdout)."""
+    line = f"RESULT {rank} {name} " + json.dumps(obj) + "\n"
+    with open(_MP_OUT["path"], "a") as f:
+        f.write(line)
+    print(line[:200].rstrip(), flush=True)
+
+
+def _mp_config(tcfg):
+    from paddle_tpu_torch.models import LlamaConfig
+    return LlamaConfig(
+        vocab_size=tcfg["vocab"], hidden_size=tcfg["hidden"],
+        intermediate_size=tcfg["ffn"], num_hidden_layers=tcfg["layers"],
+        num_attention_heads=tcfg["heads"],
+        num_key_value_heads=tcfg["kv_heads"],
+        max_position_embeddings=tcfg["seq"])
+
+
+def _mp_ids(tcfg):
+    if "ids" in tcfg:
+        return np.asarray(tcfg["ids"], np.int64)
+    return np.random.RandomState(tcfg["ids_seed"]).randint(
+        0, tcfg["vocab"], (tcfg["batch"], tcfg["seq"]))
+
+
+def _mp_trainer(torch, device, tcfg):
+    """The trainer of ``tcfg`` on the installed mesh: from the numpy
+    tree in ``tcfg["params"]`` (an .npz of '/'-joined paths) or from
+    ``tcfg["seed"]``."""
+    from paddle_tpu_torch import weights
+    from paddle_tpu_torch.models import LlamaSpmdTrainer
+    kw = dict(compute_dtype=getattr(torch, tcfg["dtype"]),
+              remat=tcfg["remat"], seed=tcfg["seed"])
+    if tcfg.get("params"):
+        return weights.llama_spmd_trainer(
+            weights.load_tree(tcfg["params"]), _mp_config(tcfg), **kw)
+    return LlamaSpmdTrainer(_mp_config(tcfg), **kw)
+
+
+def _digests(torch, tr):
+    """{'path@coord': sha256} of this process's parameter shards and
+    fp32 masters (bitwise comparisons across processes)."""
+    import hashlib
+    from paddle_tpu_torch.models.llama_spmd import tree_get, tree_paths
+    out = {}
+    for path in tree_paths(tr.params):
+        leaves = (("", tree_get(tr.params, path)),
+                  ("master:", tree_get(tr.opt_state, path)["master"]))
+        for pre, leaf in leaves:
+            for c, t in tr._shards(leaf).items():
+                raw = t.detach().contiguous().cpu().reshape(-1).view(
+                    torch.uint8).numpy()
+                out[f"{pre}{'/'.join(path)}@{','.join(map(str, c))}"] = \
+                    hashlib.sha256(raw.tobytes()).hexdigest()
+    return out
+
+
+def _mp_train_run(torch, device, tr, ids, steps):
+    """``steps`` steps of ``tr`` on ``ids``: each loss (float.hex), each
+    step's seconds, the launches and collectives of the steps, peak
+    memory and the digests of the shards after the last step."""
+    from paddle_tpu_torch.parallel import collective
+    _sync(torch, device)
+    _reset_train_counts()
+    collective.reset_counts()
+    losses, secs = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        loss = float(tr.train_step(ids))
+        _sync(torch, device)
+        secs.append(time.perf_counter() - t0)
+        losses.append(loss.hex())
+    return dict(losses=losses, step_s=secs, launches=_train_counts(),
+                collectives=collective.counts(),
+                peak_mib=_peak_mib(torch, device), digests=_digests(torch, tr))
+
+
+def _mp_collectives(torch, dev, rank):
+    """Every eager collective of ``distributed.communication`` across the
+    two processes on ``dev``, float32 and int32, each checked exactly;
+    returns the counts."""
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.distributed import Group, P2POp, ReduceOp
+    from paddle_tpu_torch.parallel import collective
+    from paddle_tpu_torch.parallel import mesh as mesh_mod
+    collective.reset_counts()
+    other = 1 - rank
+
+    def eq(got, want, what):
+        want = torch.as_tensor(want, dtype=got.dtype)
+        require(got.device == dev and got.dtype == want.dtype
+                and torch.equal(got.cpu(), want),
+                f"rank {rank} {what}: {got.tolist()} ({got.dtype}) is not "
+                f"{want.tolist()}")
+
+    for dt in (torch.float32, torch.int32):
+        n = str(dt).split(".")[1]
+
+        def full(v, k=4):
+            return torch.full((k,), v, dtype=dt, device=dev)
+
+        for op, x0, want in ((ReduceOp.SUM, rank + 1, 3),
+                             (ReduceOp.MAX, rank + 1, 2),
+                             (ReduceOp.MIN, rank + 1, 1),
+                             (ReduceOp.AVG, 2 * rank + 1, 2)):
+            x = full(x0)
+            dist.all_reduce(x, op=op)
+            eq(x, [want] * 4, f"all_reduce {op} {n}")
+        got = []
+        dist.all_gather(got, torch.arange(3, dtype=dt, device=dev)
+                        + 10 * rank)
+        for i, g in enumerate(got):
+            eq(g, [10 * i, 10 * i + 1, 10 * i + 2], f"all_gather {n}")
+        x = full(0)
+        dist.reduce_scatter(x, [full(rank + 1), full(10 * (rank + 1))])
+        eq(x, [(3, 30)[rank]] * 4, f"reduce_scatter {n}")
+        x = full(rank + 5)
+        dist.broadcast(x, src=1)
+        eq(x, [6] * 4, f"broadcast {n}")
+        x = full(rank + 1)
+        dist.reduce(x, dst=0)
+        eq(x, [(3, 2)[rank]] * 4, f"reduce {n}")
+        x = full(0)
+        dist.scatter(x, [full(7), full(8)] if rank == 0 else None, src=0)
+        eq(x, [7 + rank] * 4, f"scatter {n}")
+        got = []
+        dist.alltoall(got, [full(10 * rank + j) for j in range(2)])
+        for i, g in enumerate(got):
+            eq(g, [10 * i + rank] * 4, f"alltoall {n}")
+        x = torch.empty(4, dtype=dt, device=dev)
+        dist.alltoall_single(x, torch.arange(4, dtype=dt, device=dev)
+                             + 100 * rank)
+        eq(x, [2 * rank, 2 * rank + 1, 100 + 2 * rank, 101 + 2 * rank],
+           f"alltoall_single {n}")
+        if rank == 0:
+            dist.send(full(42), dst=1)
+        else:
+            x = full(0)
+            dist.recv(x, src=0)
+            eq(x, [42] * 4, f"send / recv {n}")
+        y = full(0)
+        for task in dist.batch_isend_irecv([
+                P2POp(dist.isend, full(20 + rank), other),
+                P2POp(dist.irecv, y, other)]):
+            task.wait()
+        eq(y, [20 + other] * 4, f"batch_isend_irecv {n}")
+    objs = []
+    dist.all_gather_object(objs, {"rank": rank})
+    require(objs == [{"rank": 0}, {"rank": 1}], f"all_gather_object {objs}")
+    try:
+        dist.all_reduce(torch.ones(2, device=dev), op=ReduceOp.PROD)
+        require(False, "all_reduce PROD across processes did not raise")
+    except NotImplementedError:
+        pass
+    mesh_mod.build_mesh(dp=2, mp=2, devices=[dev, dev])
+    try:
+        dist.all_reduce(torch.ones(2, device=dev),
+                        group=Group([0, 1], axis="mp"))
+        require(False, "an mp-axis group of a hybrid mesh did not raise")
+    except NotImplementedError:
+        pass
+    mesh_mod.set_mesh(None)
+    dist.barrier()
+    dist.wait(y)
+    return collective.counts()
+
+
+def _mp_dp_step(torch, dev, rank, path):
+    """The reference's two-process data-parallel step
+    (tests/test_multiprocess.py:41-51) with the port's Linear and SGD
+    from the weights in ``path``: per-rank data, gradients all-reduced
+    and halved by hand."""
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch import nn, optimizer
+    w = np.load(path)
+    lin = nn.Linear(4, 2, device=dev)
+    with torch.no_grad():
+        lin.weight.copy_(torch.from_numpy(w["weight"]))
+        lin.bias.copy_(torch.from_numpy(w["bias"]))
+    x = torch.from_numpy(np.random.default_rng(rank).standard_normal(
+        (2, 4)).astype(np.float32)).to(dev)
+    loss = (lin(x) ** 2).mean()
+    loss.backward()
+    for p in lin.parameters():
+        dist.all_reduce(p.grad)
+        p.grad.mul_(0.5)
+    optimizer.SGD(parameters=lin.parameters(), learning_rate=0.1).step()
+    return {"checksum": float(sum(float(p.sum()) for p in
+                                  lin.parameters())),
+            "weight": lin.weight.tolist(), "bias": lin.bias.tolist()}
+
+
+def _mp_rpc(rank, endpoint):
+    from paddle_tpu_torch.distributed import rpc
+    rpc.init_rpc(f"w{rank}", rank=rank, world_size=2,
+                 master_endpoint=endpoint)
+    out = (rpc.rpc_sync("w1", _fma, args=(3, 4, 5)) if rank == 0 else
+           rpc.rpc_sync("w0", _fma, args=(2, 2, 0)))
+    require(out == (17, 4)[rank], f"rpc rank {rank}: {out}")
+    peer = rpc.rpc_async(f"w{1 - rank}", _peer_card).wait()
+    infos = [tuple(i) for i in rpc.get_all_worker_infos()]
+    rpc.shutdown()
+    return {"value": out, "peer_card": peer, "workers": len(infos)}
+
+
+def _mp_refusals(torch, rank):
+    """A dead rendezvous raises naming the address and the rank; a world
+    on distinct cards raises naming item 10b. Runs before the real
+    rendezvous (it sets and restores the environment)."""
+    import socket
+    import paddle_tpu_torch.distributed as dist
+    keys = ("PADDLE_MASTER", "PADDLE_TRAINER_ID", "PADDLE_PG_TIMEOUT")
+    saved = {k: os.environ.get(k) for k in keys}
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        addr = f"127.0.0.1:{s.getsockname()[1]}"
+        os.environ.update(PADDLE_MASTER=addr, PADDLE_TRAINER_ID="0",
+                          PADDLE_PG_TIMEOUT="5")
+        try:
+            dist.init_parallel_env()
+            require(False, "a rendezvous at a taken port did not raise")
+        except RuntimeError as e:
+            require(addr in str(e) and "rank=0" in str(e),
+                    f"the rendezvous error names no address / rank: {e}")
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+    return addr
+
+
+def _mp_distinct_cards(torch, rank):
+    from paddle_tpu_torch.parallel import mesh as mesh_mod
+
+    class _Props:
+        uuid = f"card-{rank}"
+
+    real = torch.cuda.get_device_properties
+    torch.cuda.get_device_properties = lambda d: _Props()
+    try:
+        mesh_mod._check_one_card([torch.device("cuda", 0)])
+        require(False, "ranks on distinct cards did not raise")
+    except NotImplementedError as e:
+        require("10b" in str(e), f"the distinct-card error: {e}")
+    finally:
+        torch.cuda.get_device_properties = real
+
+
+def mp_child(cfg_path):
+    """One rank of phase 27 (and of the CPU twins in
+    tests/test_torch_multiprocess.py), started by the port's launcher:
+    the scenarios of the JSON file at ``cfg_path``, each printing a
+    ``RESULT <rank> <name> <json>`` line. Exits non-zero on a failed
+    check."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with open(cfg_path) as f:
+        cfg = json.load(f)
+    dev = torch.device(cfg["device"])
+    if dev.type == "cpu":
+        torch.set_num_threads(1)
+    elif dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    rank = int(os.environ["PADDLE_TRAINER_ID"])
+    _MP_OUT["path"] = os.path.join(os.path.dirname(cfg_path),
+                                   f"rank{rank}.results")
+    import paddle_tpu_torch.distributed as dist
+    from paddle_tpu_torch.parallel import mesh as mesh_mod
+    if cfg.get("refusals"):
+        _mp_say(rank, "rendezvous_refused", _mp_refusals(torch, rank))
+    dist.init_parallel_env()
+    require(dist.get_world_size() == 2 and dist.get_rank() == rank
+            and dist.get_backend() == "gloo",
+            f"process group: rank {dist.get_rank()} of "
+            f"{dist.get_world_size()} ({dist.get_backend()})")
+    _mp_say(rank, "env", {k: os.environ.get(k) for k in (
+        "PADDLE_MASTER", "PADDLE_TRAINERS_NUM", "PADDLE_TRAINER_ID")})
+    if cfg.get("refusals"):
+        _mp_distinct_cards(torch, rank)
+        _mp_say(rank, "distinct_cards_refused", True)
+    if cfg.get("collectives"):
+        _mp_say(rank, "collectives", _mp_collectives(torch, dev, rank))
+    # inputs the caller writes while the ranks start
+    deadline = time.time() + cfg.get("wait_s", 0)
+    for path in cfg.get("wait_for", ()):
+        while not os.path.exists(path):
+            require(time.time() < deadline, f"no {path} in time")
+            time.sleep(0.02)
+    if cfg.get("dp_weights"):
+        _mp_say(rank, "dp_step", _mp_dp_step(torch, dev, rank,
+                                             cfg["dp_weights"]))
+    for name, tcfg in cfg.get("trainers", {}).items():
+        # the mesh's ranks split over the two processes (one each)
+        mesh_mod.build_mesh(**tcfg.get("mesh", dict(mp=2)), devices=[dev])
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats()
+        tr = _mp_trainer(torch, dev, tcfg)
+        mine = tr.mesh.local_coords()
+        require(len(mine) == 1 and tr.mesh.owner(mine[0]) == rank,
+                f"rank {rank} holds {mine}")
+        _mp_say(rank, name, _mp_train_run(torch, dev, tr, _mp_ids(tcfg),
+                                          tcfg["steps"]))
+        del tr
+        mesh_mod.set_mesh(None)
+        _free(torch, dev)
+    if cfg.get("rpc"):
+        _mp_say(rank, "rpc", _mp_rpc(rank, cfg["rpc"]))
+    dist.barrier()
+    dist.destroy_process_group()
+    return 0
+
+
+def _free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def mp_start(child_cfg, workdir, timeout=MP_TIMEOUT):
+    """Start the two ranks of ``child_cfg`` through the port's launcher
+    (``python -m paddle_tpu_torch.distributed.launch --nproc_per_node
+    2``) in a session of their own; returns the handle ``mp_finish``
+    reads."""
+    path = os.path.join(workdir, "mp_child.json")
+    with open(path, "w") as f:
+        json.dump(child_cfg, f)
+    log = open(os.path.join(workdir, "mp_child.log"), "w+")
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "paddle_tpu_torch.distributed.launch",
+         "--nproc_per_node", "2", "--timeout", str(timeout),
+         os.path.join(root, "chip_smoke.py"), "--mp-child", path],
+        cwd=root, stdout=log, stderr=subprocess.STDOUT,
+        start_new_session=True)
+    return proc, log, timeout
+
+
+def mp_finish(handle):
+    """Wait for ``mp_start``'s ranks (killing the whole session past its
+    timeout); (exit code, {(rank, name): result}, log text)."""
+    import signal
+    proc, log, timeout = handle
+    try:
+        rc = proc.wait(timeout=timeout + 60)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        rc = proc.wait()
+    log.seek(0)
+    text = log.read()
+    log.close()
+    res = {}
+    wd = os.path.dirname(log.name)
+    for r in range(2):
+        path = os.path.join(wd, f"rank{r}.results")
+        if not os.path.exists(path):
+            continue
+        with open(path) as f:
+            for line in f:
+                _, rank, name, body = line.rstrip("\n").split(" ", 3)
+                res[int(rank), name] = json.loads(body)
+    return rc, res, text
+
+
+def mp_expected_cfg(cfg, seed):
+    """Phase 27 (b)'s trainer: phase 24's widths, batch and ids."""
+    return dict(vocab=cfg["train_vocab"], hidden=cfg["train_hidden"],
+                ffn=cfg["train_ffn"], heads=cfg["train_heads"],
+                kv_heads=cfg["train_kv_heads"], layers=cfg["train_layers"],
+                seq=cfg["train_seq"], batch=cfg["train_batch"],
+                ids_seed=seed + 7, seed=seed, dtype="bfloat16", remat=True,
+                steps=MP_STEPS)
+
+
+def _mp_elastic(torch, device, workdir, tag, say):
+    """(c): two workers, each with a CUDA context, under the elastic
+    supervisor; rank 1 is SIGKILLed mid-run, the pod is relaunched and
+    completes."""
+    import signal
+    import threading
+    from paddle_tpu_torch.distributed.fleet.elastic import ElasticSupervisor
+    t0 = time.perf_counter()
+    script = os.path.join(workdir, "elastic_worker.py")
+    with open(script, "w") as f:
+        f.write(_ELASTIC_WORKER)
+    envs = [dict(os.environ, PADDLE_TRAINER_ID=str(r),
+                 ELASTIC_TEST_DIR=workdir, ELASTIC_DEVICE=str(device),
+                 ELASTIC_RUN_SECS=str(ELASTIC_RUN_SECS)) for r in range(2)]
+    sup = ElasticSupervisor([[sys.executable, script]] * 2, envs,
+                            heartbeat_dir=os.path.join(workdir, "beats"),
+                            interval=0.2, max_restarts=2,
+                            log=lambda *a: say(f"{tag} " + " ".join(
+                                map(str, a))))
+    box = {}
+    th = threading.Thread(target=lambda: box.setdefault("rc", sup.run()))
+    th.start()
+    markers = [os.path.join(workdir, f"started_rank{r}") for r in range(2)]
+    deadline = time.time() + ELASTIC_TIMEOUT / 2
+    while time.time() < deadline and not all(map(os.path.exists, markers)):
+        time.sleep(0.05)
+    started = all(map(os.path.exists, markers))
+    if started:
+        sup._procs[1].send_signal(signal.SIGKILL)
+    th.join(timeout=ELASTIC_TIMEOUT / 2)
+    if th.is_alive():
+        sup.max_restarts = 0
+        sup._kill_all()
+        th.join(timeout=30)
+    require(started, "(c) the elastic workers never started")
+    require(not th.is_alive(), "(c) the elastic supervisor did not finish")
+    pids = []
+    for m in markers:
+        with open(m) as f:
+            pids.append([ln for ln in f.read().splitlines() if ln])
+    say(f"{tag} phase 27 (c) elastic: rank 1 SIGKILLed holding a "
+        f"{device} context; supervisor rc {box.get('rc')}, restarts {sup.restarts}, "
+        f"incarnations {[len(p) for p in pids]}, "
+        f"{time.perf_counter() - t0:.1f} s")
+    require(box.get("rc") == 0 and sup.restarts == 1
+            and [len(p) for p in pids] == [2, 2],
+            f"(c) rc {box.get('rc')}, restarts {sup.restarts}, pids {pids}")
+
+
+def phase_multiprocess(torch, device, cfg, seed, tag, say):
+    """Phase 27: training across two processes on the one card (Gloo):
+    (a) every eager collective exactly, (b) LlamaSpmdTrainer with mp 2
+    split across the processes bitwise the one-process logical mp 2 run,
+    (c) the elastic supervisor relaunching a SIGKILLed rank, (d) rpc."""
+    from paddle_tpu_torch.parallel import collective
+    from paddle_tpu_torch.parallel import mesh as mesh_mod
+    t_phase = time.perf_counter()
+    tcfg = mp_expected_cfg(cfg, seed)
+    tc = _mp_config(tcfg)
+    hd = tc.hidden_size // tc.num_attention_heads
+    # the one-process run: mp 2 as LOGICAL ranks on this device
+    mesh_mod.build_mesh(mp=2, devices=[device] * 2)
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    tr = _mp_trainer(torch, device, tcfg)
+    one = _mp_train_run(torch, device, tr, _mp_ids(tcfg), MP_STEPS)
+    del tr
+    mesh_mod.set_mesh(None)
+    _free(torch, device)
+    want_l, want_c = mesh_expected(dict(mp=2), tc.num_hidden_layers, 1,
+                                   tcfg["seq"], hd, True,
+                                   fused=device.type == "cuda")
+    say(f"{tag} phase 27 (b) one process, mp 2 LOGICAL ranks: losses "
+        f"{[float.fromhex(x) for x in one['losses']]}, s/step "
+        f"{[round(x, 4) for x in one['step_s']]}, peak {one['peak_mib']:.1f} "
+        f"MiB, launches {one['launches']}, collectives {one['collectives']}")
+    coll_calls = {k: v["calls"] for k, v in one["collectives"].items()}
+    require(coll_calls == {k: MP_STEPS * v for k, v in want_c.items()},
+            f"one-process collectives {coll_calls} are not {MP_STEPS} x "
+            f"{want_c}")
+    if device.type == "cuda":
+        require(one["launches"] == {k: MP_STEPS * v
+                                    for k, v in want_l.items()},
+                f"one-process launches {one['launches']}")
+    with tempfile.TemporaryDirectory() as wd:
+        child = dict(device=str(device), refusals=True, collectives=True,
+                     trainers={"trainer": tcfg},
+                     rpc=f"127.0.0.1:{_free_port()}")
+        t0 = time.perf_counter()
+        rc, res, text = mp_finish(mp_start(child, wd))
+        wall = time.perf_counter() - t0
+        if rc != 0:
+            say(f"{tag} phase 27 ranks' log (tail):\n" + text[-6000:])
+        require(rc == 0, f"phase 27's ranks exited {rc}")
+        for r in range(2):
+            for name in ("env", "rendezvous_refused",
+                         "distinct_cards_refused", "collectives", "trainer",
+                         "rpc"):
+                require((r, name) in res, f"rank {r} printed no {name}")
+        c = res[0, "collectives"]
+        say(f"{tag} phase 27 (a) eager collectives across 2 processes on "
+            f"{device} (float32 and int32, every check exact): calls and "
+            f"bytes per kind (rank 0) {c}; Gloo took CUDA tensors for "
+            f"{sorted(collective.GLOO_CUDA)}, the rest staged: "
+            f"{c.get('host_staged', {'bytes': 0})['bytes']} B through "
+            f"pinned host memory")
+        say(f"{tag} phase 27 (a) rank 1: {res[1, 'collectives']}")
+        t = [res[r, "trainer"] for r in range(2)]
+        for r in range(2):
+            say(f"{tag} phase 27 (b) rank {r} of 2 processes (mp split): "
+                f"losses {[float.fromhex(x) for x in t[r]['losses']]}, "
+                f"s/step {[round(x, 4) for x in t[r]['step_s']]}, peak "
+                f"{t[r]['peak_mib']:.1f} MiB, launches {t[r]['launches']}, "
+                f"collectives {t[r]['collectives']}")
+        require(t[0]["losses"] == t[1]["losses"],
+                f"the two processes' losses differ: {t[0]['losses']} vs "
+                f"{t[1]['losses']}")
+        require(t[0]["losses"] == one["losses"],
+                f"the processes' losses {t[0]['losses']} are not the "
+                f"one-process run's {one['losses']}")
+        for r in range(2):
+            mine = t[r]["digests"]
+            bad = [k for k in mine if mine[k] != one["digests"].get(k)]
+            require(mine and not bad, f"rank {r}: shards not bitwise the "
+                    f"one-process run's: {bad[:4]}")
+            require(t[r]["launches"] == {k: v // 2 for k, v in
+                                         one["launches"].items()},
+                    f"rank {r} launches {t[r]['launches']} are not half "
+                    f"the one-process run's {one['launches']}")
+            calls = {k: v for k, v in t[r]["collectives"].items()
+                     if k != "host_staged"}
+            require(calls == one["collectives"],
+                    f"rank {r} collectives {calls} are not the one-process "
+                    f"run's {one['collectives']}")
+        covered = set(t[0]["digests"]) | set(t[1]["digests"])
+        require(covered == set(one["digests"]),
+                "the two processes do not hold every shard once")
+        staged = [t[r]["collectives"].get("host_staged", {"bytes": 0})
+                  ["bytes"] for r in range(2)]
+        say(f"{tag} phase 27 (b) bitwise: losses equal across the two "
+            f"processes and to the one-process run, {len(covered)} shards "
+            f"(parameters and fp32 masters) equal by sha256; host-staged "
+            f"bytes over {MP_STEPS} steps {staged}; the two ranks' call "
+            f"took {wall:.1f} s with start-up and (a), (d)")
+        d = [res[r, "rpc"] for r in range(2)]
+        say(f"{tag} phase 27 (d) rpc: {d}")
+        require([x["value"] for x in d] == [17, 4]
+                and all(x["workers"] == 2 for x in d), f"(d) rpc {d}")
+        _mp_elastic(torch, device, wd, tag, say)
+    # rows 4, 5, 6 and 9 ran in both processes
+    launches = {k: t[0]["launches"][k] + t[1]["launches"][k]
+                for k in t[0]["launches"]}
+    say(f"{tag} phase 27 launches of the two processes together over "
+        f"{MP_STEPS} steps: {launches}; took "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def run(device, cfg, seed=0, say=print, card=None):
     """All phases on ``device``; returns the kernels line's rows."""
     import torch
@@ -6071,6 +6662,8 @@ def run(device, cfg, seed=0, say=print, card=None):
     phase_fleet_mp(torch, device, cfg, seed, tag, say)
     # the rest of fleet's hybrid training on logical ranks
     phase_fleet_hybrid(torch, device, cfg, seed, tag, say)
+    # training across two processes on the one card
+    phase_multiprocess(torch, device, cfg, seed, tag, say)
     return [rows[k] for k in ("paged_attention_ragged",
                               "paged_attention_ragged_int8",
                               "decode_attention", "w8a16_matmul", "gmm",
@@ -6082,7 +6675,16 @@ def run(device, cfg, seed=0, say=print, card=None):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--mp-child", default=None,
+                    help="run one rank of phase 27 from this JSON file "
+                         "(the port's launcher passes it)")
     args = ap.parse_args(argv)
+    if args.mp_child:
+        try:
+            return mp_child(args.mp_child)
+        except SmokeFailure as e:
+            print(f"chip_smoke: rank FAILED: {e}", file=sys.stderr)
+            return 1
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)

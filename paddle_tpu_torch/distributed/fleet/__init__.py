@@ -1,9 +1,10 @@
 """paddle.distributed.fleet (counterpart of paddle_tpu/distributed/
 fleet/__init__.py): ``init`` and its HybridCommunicateGroup, the
 wrappers (tensor, sharding and pipeline parallel), the ZeRO entry
-points, the meta-optimizers, ``utils`` and the mpu layers under
+points, the meta-optimizers, the elastic supervisor, ``utils`` and
+the mpu layers under
 ``meta_parallel`` and ``layers.mpu``."""
-from . import meta_optimizers, meta_parallel, utils  # noqa: F401
+from . import elastic, meta_optimizers, meta_parallel, utils  # noqa: F401
 from .fleet import (  # noqa: F401
     HybridParallelOptimizer, PaddleCloudRoleMaker, UserDefinedRoleMaker,
     barrier_worker, distributed_model, distributed_optimizer, init,

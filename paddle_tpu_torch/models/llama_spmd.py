@@ -55,6 +55,17 @@ the card the kernels are the port's path (the JAX trainer turns its
 Pallas path off on any multi-device mesh, where ``pallas_call`` does not
 partition under GSPMD; the port's per-rank programs have no such limit).
 
+Processes: the mesh may span ``torch.distributed`` processes
+(``parallel/mesh.py`` gives each rank an owning process). Each process
+then runs the step for the ranks it holds only, and the collectives
+fill in the others (``owners=``), in rank order, so every process's
+losses and parameters are bitwise those of the same ranks held by one
+process. The mp, dp and sharding axes may be split across processes;
+pp and sep stay inside one (their ``ppermute`` is one process's). The
+backward is seeded on the process that holds the first rank only; the
+others seed 0, so the loss psum's adjoint hands each rank 1, as it does
+in one process.
+
 Remat: ``full`` checkpoints each block; ``save_dots`` and ``save_attn``
 keep the reference's tags (``q``, ``k``, ``v``, ``attn_out``, and
 ``ffn_gate``, ``ffn_up`` for ``save_dots``) and recompute the rest, by an
@@ -276,6 +287,7 @@ class LlamaSpmdTrainer:
         self._scal = {}
         self.pipeline_stats = None
         self._specs = self._global_specs()
+        self._mp_owners = self._check_processes()
         self.params = self._init_params(seed)
         self.opt_state = self._init_opt_state()
 
@@ -302,10 +314,36 @@ class LlamaSpmdTrainer:
                 None)
         return specs
 
-    def _holders(self, path):
+    def _check_processes(self):
+        """The owning processes of the mp row this process's ranks lie
+        in when that row spans processes, else None; raises where pp or
+        sep would span processes."""
+        m = self.mesh
+        if not m.spans_processes:
+            return None
+        for ax in ("pp", "sep"):
+            k = _AX[ax]
+            for c in m.coords():
+                line = [c[:k] + (i,) + c[k + 1:] for i in range(m.shape[ax])]
+                if len({m.owner(x) for x in line}) > 1:
+                    raise NotImplementedError(
+                        f"the {ax} axis spans processes: pipeline stages "
+                        f"and sequence chunks stay inside one process")
+        rows = {c[:4] for c in m.local_coords()}
+        spans = [r for r in rows if len({m.owner(r + (i,)) for i in
+                                         range(self.mp)}) > 1]
+        if not spans:
+            return None
+        assert len(rows) == 1, rows
+        return [m.owner(spans[0] + (i,)) for i in range(self.mp)]
+
+    def _holders(self, path, local=True):
+        """The ranks holding leaf ``path`` (this process's only, unless
+        ``local=False``)."""
         stage = self._specs[path][2]
         return [c for c in self.mesh.coords()
-                if stage is None or c[_AX["pp"]] == stage]
+                if (stage is None or c[_AX["pp"]] == stage)
+                and (not local or self.mesh.owned(c))]
 
     def _local_slices(self, path, c):
         shape, spec, _ = self._specs[path]
@@ -342,7 +380,7 @@ class LlamaSpmdTrainer:
         spec = self._specs[path][1]
         axes = [_AX[a] for a in spec if a is not None]
         groups: Dict[tuple, list] = {}
-        for c in self._holders(path):
+        for c in self._holders(path, local=False):
             groups.setdefault(tuple(c[i] for i in axes), []).append(c)
         return list(groups.values())
 
@@ -414,7 +452,12 @@ class LlamaSpmdTrainer:
 
     def assemble(self, path, shards, owned=False):
         """The global array of leaf ``path`` from per-rank pieces: the
-        local shards, or (``owned``) the ZeRO-owned chunks."""
+        local shards, or (``owned``) the ZeRO-owned chunks. One process
+        must hold every rank (across processes, read the pieces)."""
+        if self.mesh.spans_processes:
+            raise NotImplementedError(
+                "assemble needs every rank's piece; this process holds "
+                "its own ranks only")
         shape = self._specs[path][0]
         pieces = self._shards(shards)
         first = next(iter(pieces.values()))
@@ -445,7 +488,10 @@ class LlamaSpmdTrainer:
         out = {}
         for q in range(self.sep):
             ks = [k for k in keys if k[0] == q]
-            for k, y in zip(ks, collective.psum([xs[k] for k in ks])):
+            if not ks:
+                continue
+            for k, y in zip(ks, collective.psum([xs[k] for k in ks],
+                                                owners=self._mp_owners)):
                 out[k] = y
         return out
 
@@ -620,16 +666,18 @@ class LlamaSpmdTrainer:
         D, P, Q, M = self.dp, self.pp, self.sep, self.mp
         B, T = ids.shape
         Bl, Tl = B // D, T // Q
-        keys = [(q, m) for q in range(Q) for m in range(M)]
 
         def rank(p, k):
             return (d, p, s) + k
 
+        keys = [(q, m) for q in range(Q) for m in range(M)
+                if self.mesh.owned(rank(0, (q, m)))]
         xs = {}
         for q in range(Q):
             part = ids[d * Bl:(d + 1) * Bl, q * Tl:(q + 1) * Tl]
             rows = []
-            for m in range(M):
+            ms = [m for m in range(M) if (q, m) in keys]
+            for m in ms:
                 E = self._local(params, ("embed",), rank(0, (q, m)))
                 i = part.to(E.device)
                 if M > 1:
@@ -641,7 +689,8 @@ class LlamaSpmdTrainer:
                 else:
                     e = E[i]
                 rows.append(e.to(self.compute_dtype))
-            xs.update(zip([(q, m) for m in range(M)], collective.psum(rows)))
+            xs.update(zip([(q, m) for m in ms], collective.psum(
+                rows, owners=self._mp_owners)))
         blocks = [("blocks", n) for n, _, _ in _BLOCK_SHAPES]
         if P == 1:
             stage = {}
@@ -712,6 +761,10 @@ class LlamaSpmdTrainer:
         return self._assemble_rows(lambda d, k, x: x, params, ids)
 
     def _assemble_rows(self, fn, params, ids, vocab=False):
+        if self.mesh.spans_processes:
+            raise NotImplementedError(
+                "forward assembles every rank's rows; this process holds "
+                "its own ranks only (train_step runs across processes)")
         rows = []
         for d in range(self.dp):
             xs = self._group_hidden(params, ids, d, 0)
@@ -742,8 +795,11 @@ class LlamaSpmdTrainer:
             C //= 2
         nC = Tl // C
         out = {}
+        own = self._mp_owners
         for q in range(Q):
-            keys = [(q, m) for m in range(M)]
+            keys = [(q, m) for m in range(M)
+                    if self.mesh.owned((d, P - 1, s, q, m))]
+            ms = [k[1] for k in keys]
             heads = [self._local(params, ("head",), (d, P - 1, s) + k)
                      for k in keys]
             tgt = tgt_all[:, q * Tl:(q + 1) * Tl]
@@ -756,16 +812,18 @@ class LlamaSpmdTrainer:
                     return [lse - logits[0].gather(
                         -1, tcs[0][..., None])[..., 0]]
                 Vl = logits[0].shape[-1]
-                mx = collective.pmax([lg.amax(-1) for lg in logits])
+                mx = collective.pmax([lg.amax(-1) for lg in logits],
+                                     owners=own)
                 se = collective.psum([torch.exp(lg - x[..., None]).sum(-1)
-                                      for lg, x in zip(logits, mx)])
+                                      for lg, x in zip(logits, mx)],
+                                     owners=own)
                 picked = []
-                for m, (lg, tc) in enumerate(zip(logits, tcs)):
+                for m, lg, tc in zip(ms, logits, tcs):
                     i = tc - m * Vl
                     ok = (i >= 0) & (i < Vl)
                     pk = lg.gather(-1, i.clamp(0, Vl - 1)[..., None])[..., 0]
                     picked.append(torch.where(ok, pk, torch.zeros_like(pk)))
-                picked = collective.psum(picked)
+                picked = collective.psum(picked, owners=own)
                 return [torch.log(e) + x - p
                         for e, x, p in zip(se, mx, picked)]
 
@@ -803,13 +861,23 @@ class LlamaSpmdTrainer:
         self._check_batch(ids)
         B, T = ids.shape
         w = 1.0 / (self.sharding * self.mp)
-        parts = []
+        parts, ranks = [], []
+        last = self.pp - 1
         for d in range(self.dp):
             for s in range(self.sharding):
+                ranks += [(d, last, s, q, m) for q in range(self.sep)
+                          for m in range(self.mp)]
+                if not any(self.mesh.owned(c)
+                           for c in ranks[-self.sep * self.mp:]):
+                    continue
                 xs = self._group_hidden(params, ids, d, s)
                 for ce in self._group_ce(params, xs, labels, d, s).values():
                     parts.append(ce.sum() if w == 1.0 else ce.sum() * w)
-        return collective.psum(parts)[0] / (B * (T - 1))
+        total = collective.psum(parts, owners=self.mesh.owners_of(ranks))[0]
+        if not self.mesh.owned(ranks[0]):
+            # the backward's seed: 1 on the first rank's process only
+            total = total.detach() + 0 * (total - total.detach())
+        return total / (B * (T - 1))
 
     def _ids(self, ids):
         if not isinstance(ids, torch.Tensor):
@@ -855,14 +923,18 @@ class LlamaSpmdTrainer:
             z = self._zdim(path)
             got = {}
             for group in self._replica_groups(path):
-                gs = [per_rank[c] for c in group]
+                mine = [c for c in group if c in per_rank]
+                if not mine:
+                    continue
+                gs = [per_rank[c] for c in mine]
+                owners = self.mesh.owners_of(group)
                 if z is not None:
                     red = collective.reduce_scatter(
                         gs, z, [c[_AX["sharding"]] for c in group],
-                        self.sharding)
+                        self.sharding, owners=owners)
                 else:
-                    red = collective.all_reduce(gs)
-                got.update(zip(group, red))
+                    red = collective.all_reduce(gs, owners=owners)
+                got.update(zip(mine, red))
             out[path] = got
         return out
 
@@ -883,13 +955,17 @@ class LlamaSpmdTrainer:
         if z is None:
             return
         lines: Dict[tuple, list] = {}
-        for c in shards:
+        for c in self._holders(path, local=False):
             key = c[:_AX["sharding"]] + c[_AX["sharding"] + 1:]
             lines.setdefault(key, []).append(c)
         for line in lines.values():
             line.sort(key=lambda c: c[_AX["sharding"]])
-            for c, full in zip(line, collective.all_gather(
-                    [new[c] for c in line], z)):
+            mine = [c for c in line if c in shards]
+            if not mine:
+                continue
+            for c, full in zip(mine, collective.all_gather(
+                    [new[c] for c in mine], z,
+                    owners=self.mesh.owners_of(line))):
                 shards[c].copy_(full)
 
     def _leaves(self, params) -> List[torch.Tensor]:

@@ -10,6 +10,17 @@ ranks are LOGICAL, several on one device, and keep their own tensors and
 their own collectives (``parallel/collective.py``); numerics and the
 collective schedule are those of a mesh of distinct devices. One H100,
 and the CPU, train so.
+
+Every rank has an owning PROCESS (``Mesh.owners``). Without a process
+group (``distributed.init_parallel_env``) one process owns them all.
+With one of ``W`` processes, ``build_mesh`` in every process gives the
+same global mesh: the ranks in row-major order go to process 0's
+devices, then process 1's, and so on, each process naming its own
+devices (the same number in each). A process holds the tensors of its
+own ranks only (``local_coords``), and the collectives fill in the
+others (``parallel/collective.py``). The processes share one card, or
+the CPU; a world whose processes sit on distinct cards raises
+(ROADMAP item 10b: NCCL, which needs one card a rank).
 """
 from __future__ import annotations
 
@@ -31,7 +42,7 @@ class Mesh:
     name of ``AXIS_ORDER``; ``shape`` maps each axis to its size, as a
     jax Mesh's does."""
 
-    def __init__(self, devices, axis_names=AXIS_ORDER):
+    def __init__(self, devices, axis_names=AXIS_ORDER, owners=None):
         self.devices = np.asarray(devices, dtype=object)
         self.axis_names = tuple(axis_names)
         if self.devices.ndim != len(self.axis_names):
@@ -42,6 +53,33 @@ class Mesh:
         if len(types) != 1:
             raise ValueError(f"a mesh runs on one kind of device, got "
                              f"{sorted(types)}")
+        self.owners = (np.zeros(self.devices.shape, dtype=np.int64)
+                       if owners is None else
+                       np.asarray(owners, dtype=np.int64).reshape(
+                           self.devices.shape))
+        self.process = _process_rank()
+
+    @property
+    def spans_processes(self) -> bool:
+        return int(self.owners.min()) != int(self.owners.max())
+
+    def owner(self, coord) -> int:
+        return int(self.owners[tuple(coord)])
+
+    def owned(self, coord) -> bool:
+        """Whether this process holds rank ``coord``."""
+        return self.owner(coord) == self.process
+
+    def owners_of(self, coords):
+        """The owning processes of ``coords`` (a group's ranks), or None
+        when this process holds the whole mesh."""
+        if not self.spans_processes:
+            return None
+        return [self.owner(c) for c in coords]
+
+    def local_coords(self):
+        """The coordinates of the ranks this process holds."""
+        return [c for c in self.coords() if self.owned(c)]
 
     @property
     def size(self) -> int:
@@ -58,6 +96,37 @@ class Mesh:
 _global_mesh: Optional[Mesh] = None
 
 
+def _process_rank() -> int:
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank()
+    return 0
+
+
+def _process_count() -> int:
+    import torch.distributed as dist
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_world_size()
+    return 1
+
+
+def _check_one_card(devices):
+    """Raise unless every process of the world runs on the same card
+    (or the CPU): ranks of distinct cards need NCCL, item 10b."""
+    import torch.distributed as dist
+    local = sorted({str(torch.cuda.get_device_properties(d).uuid)
+                    for d in devices if d.type == "cuda"})
+    seen = [None] * dist.get_world_size()
+    dist.all_gather_object(seen, local)
+    cards = {u for s in seen for u in s}
+    if len(cards) > 1:
+        raise NotImplementedError(
+            f"the processes' ranks sit on {len(cards)} distinct cards: a "
+            f"world over distinct cards needs NCCL process groups "
+            f"(ROADMAP item 10b), which is not ported; run every process "
+            f"on one card")
+
+
 def _default_devices() -> List[torch.device]:
     """Every card (``device.resolve_device``: raises without one)."""
     resolve_device(None)
@@ -68,10 +137,18 @@ def build_mesh(dp=1, pp=1, sharding=1, sep=1, mp=1, devices=None) -> Mesh:
     """Create and install the global mesh over ``devices`` (default: every
     card), ``mp`` innermost as in the reference. ``dp=-1`` fills the
     devices left; a product above the device count raises. Repeat a
-    device in the list to place several ranks on it."""
+    device in the list to place several ranks on it. In a world of
+    several processes ``devices`` are this process's (see the module
+    docstring), and every process calls ``build_mesh`` alike."""
     global _global_mesh
     devices = [torch.device(d) for d in (
         devices if devices is not None else _default_devices())]
+    W = _process_count()
+    owners = None
+    if W > 1:
+        _check_one_card(devices)
+        owners = np.repeat(np.arange(W), len(devices))
+        devices = devices * W
     sizes = {"dp": dp, "pp": pp, "sharding": sharding, "sep": sep, "mp": mp}
     total = int(np.prod(list(sizes.values())))
     if total > len(devices):
@@ -80,9 +157,14 @@ def build_mesh(dp=1, pp=1, sharding=1, sep=1, mp=1, devices=None) -> Mesh:
     if total < len(devices) and dp == -1:
         sizes["dp"] = len(devices) // (pp * sharding * sep * mp)
         total = len(devices)
+    if owners is not None and total != len(devices):
+        raise ValueError(f"a mesh over {W} processes takes every "
+                         f"process's {len(devices) // W} device(s): "
+                         f"{len(devices)} ranks, the axes give {total}")
     arr = np.empty(total, dtype=object)
     arr[:] = devices[:total]
-    _global_mesh = Mesh(arr.reshape([sizes[a] for a in AXIS_ORDER]))
+    _global_mesh = Mesh(arr.reshape([sizes[a] for a in AXIS_ORDER]),
+                        owners=owners)
     return _global_mesh
 
 
@@ -108,7 +190,8 @@ def on_device(device) -> Mesh:
              else (1,) * len(AXIS_ORDER))
     arr = np.empty(int(np.prod(shape)), dtype=object)
     arr[:] = [dev] * arr.size
-    return Mesh(arr.reshape(shape))
+    return Mesh(arr.reshape(shape), owners=None if _global_mesh is None
+                else _global_mesh.owners)
 
 
 def mesh_axis_size(axis: str) -> int:

@@ -222,6 +222,35 @@ def llama_spmd_state_np(trainer: LlamaSpmdTrainer):
     return params, opt
 
 
+def save_tree(path, tree) -> None:
+    """Write a nested dict of arrays (``llama_spmd_trainer``'s
+    ``params_np``) to an ``.npz`` file, keys the '/'-joined paths: the
+    hand-off of a trainer's weights to the processes of a world."""
+    flat = {}
+
+    def walk(node, pre):
+        for k, v in node.items():
+            if isinstance(v, dict):
+                walk(v, pre + (k,))
+            else:
+                flat["/".join(pre + (k,))] = np.asarray(v)
+    walk(tree, ())
+    np.savez(path, **flat)
+
+
+def load_tree(path):
+    """``save_tree``'s nested dict of numpy arrays."""
+    out: dict = {}
+    with np.load(path) as z:
+        for key in z.files:
+            node = out
+            *head, last = key.split("/")
+            for k in head:
+                node = node.setdefault(k, {})
+            node[last] = z[key]
+    return out
+
+
 def bert_for_pretraining(state_np: Dict[str, np.ndarray], config: BertConfig,
                          *, device=None, generator=None) -> BertForPretraining:
     """A port BertForPretraining holding ``state_np`` (the JAX model's

@@ -30,6 +30,7 @@ from paddle_tpu_torch.framework import op
 from paddle_tpu_torch.models import BertConfig, BertForPretraining
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.optimizer import AdamW
+from tests.torch_twins import shared_jax_cache  # noqa: F401
 
 jax_cast = importlib.import_module("paddle_tpu.amp.auto_cast")
 port_cast = importlib.import_module("paddle_tpu_torch.amp.auto_cast")

@@ -43,6 +43,7 @@ from paddle_tpu_torch.framework import op
 from paddle_tpu_torch.models import BertConfig
 from paddle_tpu_torch.optimizer import AdamW
 from tests.torch_twins import op_by_op
+from tests.torch_twins import shared_jax_cache  # noqa: F401
 
 torch.set_num_threads(1)
 TINY = dict(vocab=1000, hidden=64, layers=2, heads=4, inter=128)

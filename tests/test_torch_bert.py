@@ -35,6 +35,7 @@ from paddle_tpu_torch import weights
 from paddle_tpu_torch.models import BertConfig, BertForPretraining
 from paddle_tpu_torch.optimizer import AdamW
 from tests.test_torch_serving import jax_op_by_op  # noqa: F401
+from tests.torch_twins import shared_jax_cache  # noqa: F401
 
 torch.set_num_threads(1)
 TINY = dict(vocab=1000, hidden=64, layers=2, heads=4, inter=128)

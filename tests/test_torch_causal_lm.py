@@ -38,6 +38,7 @@ from paddle_tpu_torch.models import (GPTConfig, GPTForCausalLM, LlamaConfig,
                                      LlamaForCausalLM)
 from paddle_tpu_torch.optimizer import AdamW
 from tests.torch_twins import op_by_op
+from tests.torch_twins import shared_jax_cache  # noqa: F401
 
 torch.set_num_threads(1)
 LLAMA = dict(vocab=64, hidden=32, layers=2, heads=4, kv_heads=2, inter=64,

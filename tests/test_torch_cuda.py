@@ -1917,3 +1917,19 @@ def test_pipeline_zero1_step_on_the_card_matches_the_twin():
             assert torch.equal(got[n], m), n
     finally:
         cs._hybrid_init(torch, dev)
+
+
+def test_two_processes_all_reduce_on_the_card(tmp_path):
+    """Phase 27 (a) on the card: two processes on cuda:0 over Gloo,
+    spawned by the port's launcher; all_reduce of rank + 1 gives 3 and
+    int32 stays int32, with every other eager collective, each checked
+    exactly in the ranks (a rank exits non-zero on a wrong value)."""
+    _need_cuda()
+    import chip_smoke as cs
+    rc, res, text = cs.mp_finish(cs.mp_start(
+        dict(device="cuda", collectives=True), str(tmp_path), timeout=300))
+    assert rc == 0, text[-4000:]
+    for r in range(2):
+        c = res[r, "collectives"]
+        assert c["all_reduce"]["calls"] == 8, c
+        assert c["all_reduce"]["bytes"] == 8 * 2 * 16, c

@@ -45,6 +45,7 @@ from paddle_tpu_torch.models import GPTConfig, LlamaConfig
 from paddle_tpu_torch.models import LlamaForCausalLM as PortLlama
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.parallel import collective
+from tests.torch_twins import shared_jax_cache  # noqa: F401
 
 torch.set_num_threads(1)
 SEED = 1234               # tensor_init_seed of every fleet.init here

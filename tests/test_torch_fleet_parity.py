@@ -30,6 +30,7 @@ import paddle_tpu_torch.inference as P
 from paddle_tpu.inference import router as j_router
 from paddle_tpu_torch.inference import router as p_router
 from tests.torch_twins import op_by_op
+from tests.torch_twins import shared_jax_cache  # noqa: F401
 
 VOCAB, BS, N_NEW = 50, 4, 8
 BASE = dict(head_roll=1, block_size=BS, num_blocks=80,

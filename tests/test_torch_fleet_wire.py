@@ -23,6 +23,7 @@ from paddle_tpu_torch.inference.recovery import (FRAME_HEADER_SIZE,
                                                  frame_body_size,
                                                  frame_message,
                                                  unframe_message)
+from tests.torch_twins import shared_jax_cache  # noqa: F401
 
 BASE = dict(head_roll=1, block_size=4, num_blocks=80,
             max_blocks_per_seq=10)

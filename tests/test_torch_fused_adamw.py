@@ -16,6 +16,7 @@ import torch
 
 from paddle_tpu.ops.pallas.fused_adamw import fused_adamw_update as jadamw
 from paddle_tpu_torch.ops.hopper import fused_adamw as tfw
+from tests.torch_twins import shared_jax_cache  # noqa: F401
 
 torch.set_num_threads(1)
 HYPER = dict(lr=3e-4, beta1=0.9, beta2=0.95, eps=1e-8, wd=0.1)

@@ -32,6 +32,7 @@ import torch
 
 from paddle_tpu.ops.pallas import fused_norm as jfn
 from paddle_tpu_torch.ops.hopper import fused_norm as tfn
+from tests.torch_twins import shared_jax_cache  # noqa: F401
 
 torch.set_num_threads(1)
 EPS = 1e-5

@@ -36,6 +36,7 @@ from paddle_tpu_torch.distributed import fleet as pfleet
 from paddle_tpu_torch.distributed.fleet import meta_parallel as pmp
 from paddle_tpu_torch.parallel import collective
 from paddle_tpu_torch.parallel import mesh as pmesh
+from tests.torch_twins import shared_jax_cache  # noqa: F401
 
 torch.set_num_threads(1)
 

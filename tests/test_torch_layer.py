@@ -31,8 +31,19 @@ from paddle_tpu_torch import nn
 from paddle_tpu_torch.models import (GPTConfig, GPTForCausalLM, LlamaConfig,
                                      LlamaForCausalLM)
 from paddle_tpu_torch.nn import initializer as I
+from tests.torch_twins import no_fleet, shared_jax_cache  # noqa: F401
 
 torch.set_num_threads(1)
+
+
+@pytest.fixture(autouse=True)
+def _no_fleet():
+    """Each test starts from no HybridCommunicateGroup and no mesh in
+    either package (a JAX fleet left at mp > 1 by an earlier test file
+    makes the JAX models build their mpu layers); both packages' state
+    is restored after."""
+    with no_fleet():
+        yield
 
 
 def _np(t):

@@ -39,6 +39,7 @@ from paddle_tpu.parallel import mesh as mesh_mod
 from paddle_tpu_torch import weights
 from paddle_tpu_torch.models import LlamaConfig, LlamaSpmdTrainer
 from paddle_tpu_torch.models.llama_spmd import tree_get, tree_paths
+from tests.torch_twins import shared_jax_cache  # noqa: F401
 
 torch.set_num_threads(1)
 LR = 1e-3

@@ -34,6 +34,7 @@ from paddle_tpu_torch.models import llama_spmd as port_spmd
 from paddle_tpu_torch.models.llama_spmd import tree_get, tree_paths
 from paddle_tpu_torch.parallel import collective
 from paddle_tpu_torch.parallel import mesh as port_mesh
+from tests.torch_twins import shared_jax_cache  # noqa: F401
 
 torch.set_num_threads(1)
 LR = 1e-3

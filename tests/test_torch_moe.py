@@ -24,6 +24,7 @@ import paddle_tpu as paddle
 from paddle_tpu.incubate import moe as jmoe
 from paddle_tpu_torch import weights
 from paddle_tpu_torch.incubate import moe
+from tests.torch_twins import shared_jax_cache  # noqa: F401
 
 torch.set_num_threads(1)
 D, E, H, N = 16, 4, 32, 24

@@ -32,6 +32,7 @@ from paddle_tpu_torch.inference import (MoeServingCore, PagedKVCache,
                                         TokenServingModel, moe_capacity)
 from paddle_tpu_torch.inference import moe_serving as tms
 from paddle_tpu_torch.ops.hopper import grouped_gemm as tgg
+from tests.torch_twins import shared_jax_cache  # noqa: F401
 
 torch.set_num_threads(1)
 D, H, FFN, LAYERS, VOCAB, BS = 32, 4, 64, 2, 50, 4

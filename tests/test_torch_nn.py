@@ -22,6 +22,7 @@ import paddle_tpu_torch
 from paddle_tpu_torch import nn
 from paddle_tpu_torch.nn import functional as F
 from paddle_tpu_torch.ops.hopper import fused_norm as tfn
+from tests.torch_twins import shared_jax_cache  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -33,6 +33,7 @@ from paddle_tpu_torch.inference import router as p_router
 from paddle_tpu_torch.inference import telemetry as p_tel
 from tests.torch_twins import (D, EMBED, VOCAB, jax_model, op_by_op,
                                port_model)
+from tests.torch_twins import shared_jax_cache  # noqa: F401
 
 N_GEN = 12
 

@@ -39,6 +39,7 @@ from paddle_tpu_torch.inference import (SpeculativeEngine,
                                         logit_mask_fn, register_logit_mask)
 from paddle_tpu_torch.inference.scheduler import _GroupTable
 from tests.torch_ref_suite import suite
+from tests.torch_twins import shared_jax_cache  # noqa: F401
 
 pytestmark = pytest.mark.parallel
 torch.set_num_threads(1)

@@ -22,6 +22,7 @@ from paddle_tpu_torch.parallel import mesh as port_mesh
 from paddle_tpu_torch.parallel.pipeline import (interleave_stage_params,
                                                 schedule, spmd_pipeline,
                                                 stack_stage_params)
+from tests.torch_twins import shared_jax_cache  # noqa: F401
 
 torch.set_num_threads(1)
 

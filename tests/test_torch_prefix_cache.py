@@ -26,6 +26,7 @@ from paddle_tpu_torch.inference import (PagedKVCache, PagedServingEngine,
                                         SpeculativeEngine,
                                         TokenServingModel,
                                         chain_block_hashes)
+from tests.torch_twins import shared_jax_cache  # noqa: F401
 
 torch.set_num_threads(1)
 D, HEADS, FFN, LAYERS, VOCAB = 64, 4, 128, 2, 128

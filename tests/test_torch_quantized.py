@@ -47,6 +47,7 @@ from paddle_tpu_torch.inference import paged_cache as tpc
 from paddle_tpu_torch.ops.hopper import int8_matmul as tim
 from paddle_tpu_torch.ops.hopper import paged_attention as tpa
 from paddle_tpu_torch.quantization import functional as tqf
+from tests.torch_twins import shared_jax_cache  # noqa: F401
 
 jpc = importlib.import_module("paddle_tpu.inference.paged_cache")
 jqf = importlib.import_module("paddle_tpu.quantization.functional")

@@ -23,6 +23,7 @@ from paddle_tpu_torch.inference import (PagedServingEngine,
 from paddle_tpu_torch.inference import paged_cache as pc
 from tests.torch_twins import (D, EMBED, HID, LAYERS, jax_model,
                                port_model, to_jax, to_port, tok_of)
+from tests.torch_twins import shared_jax_cache  # noqa: F401
 
 CAP_BS, CAP_MB = 16, 12
 TIGHT = dict(atol=1e-5, rtol=1e-5)

@@ -16,6 +16,7 @@ from paddle_tpu_torch.inference import recovery as p_rec
 from tests.test_torch_obs_parity import _prompts
 from tests.torch_twins import (EMBED, assert_snapshots_match, jax_model,
                                op_by_op, port_model)
+from tests.torch_twins import shared_jax_cache  # noqa: F401
 
 GEOMETRY = dict(k=0, max_batch=2, block_size=4, num_blocks=12,
                 max_blocks_per_seq=8)

@@ -19,6 +19,7 @@ from paddle_tpu_torch.parallel import collective
 from paddle_tpu_torch.parallel import mesh as port_mesh
 from paddle_tpu_torch.parallel.ring_attention import (_dense_reference,
                                                       ring_attention)
+from tests.torch_twins import shared_jax_cache  # noqa: F401
 
 torch.set_num_threads(1)
 SEP = 4

@@ -17,6 +17,7 @@ from paddle_tpu.incubate.nn import FusedMultiTransformer as JaxFMT
 from paddle_tpu.inference import PagedServingEngine as JaxPSE
 from paddle_tpu_torch import weights
 from paddle_tpu_torch.inference import PagedServingEngine
+from tests.torch_twins import shared_jax_cache  # noqa: F401
 
 torch.set_num_threads(1)
 D, HEADS, FFN, LAYERS = 64, 4, 128, 2

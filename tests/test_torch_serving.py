@@ -29,6 +29,7 @@ from paddle_tpu_torch.inference import (ContinuousBatchingEngine,
                                         SpeculativeEngine)
 from paddle_tpu_torch.nn import LayerNorm, Linear
 from tests.torch_twins import op_by_op
+from tests.torch_twins import shared_jax_cache  # noqa: F401
 
 torch.set_num_threads(1)
 D, HEADS, FFN, LAYERS, VOCAB = 64, 4, 128, 2, 128

@@ -30,6 +30,7 @@ from paddle_tpu_torch.inference import SpeculativeEngine, TokenServingModel
 from tests.test_torch_serving import jax_op_by_op  # noqa: F401
 from tests.test_torch_snapshot import _pair
 from tests.torch_twins import D, HID, VOCAB, assert_snapshots_match
+from tests.torch_twins import shared_jax_cache  # noqa: F401
 
 BS = 4
 _RNG = np.random.RandomState(21)

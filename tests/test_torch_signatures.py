@@ -7,7 +7,9 @@ packages export from ``nn``, ``nn.functional``, ``optimizer``,
 ``nn.initializer``, ``distributed.fleet``,
 ``distributed.fleet.meta_parallel``, ``distributed.fleet.meta_optimizers``,
 ``distributed.fleet.utils``, ``distributed.checkpoint``,
-``distributed.sharding``, ``parallel.train_step`` and ``framework.io``,
+``distributed.sharding``, ``parallel.train_step``, ``framework.io``,
+``distributed``, ``distributed.communication``, ``distributed.launch``,
+``distributed.fleet.elastic`` and ``distributed.rpc``,
 the port's positional parameter names
 are the reference's, in order (the port may stop early: a longer
 positional call then fails loudly). The port's own extras (``device``,
@@ -32,7 +34,9 @@ MODULES = ("nn", "nn.functional", "optimizer", "inference", "incubate.nn",
            "distributed.fleet", "distributed.fleet.meta_parallel",
            "distributed.fleet.meta_optimizers", "distributed.fleet.utils",
            "distributed.checkpoint", "distributed.sharding",
-           "parallel.train_step", "framework.io")
+           "parallel.train_step", "framework.io", "distributed",
+           "distributed.communication", "distributed.launch",
+           "distributed.fleet.elastic", "distributed.rpc")
 _POSITIONAL = (inspect.Parameter.POSITIONAL_ONLY,
                inspect.Parameter.POSITIONAL_OR_KEYWORD)
 

@@ -27,6 +27,7 @@ from paddle_tpu_torch.inference import (BlockOOM, PagedKVCache,
 from tests.torch_twins import (D, HEADS, HID, LAYERS,
                                assert_snapshots_match, port_model, to_jax,
                                to_port)
+from tests.torch_twins import shared_jax_cache  # noqa: F401
 
 
 # -- the pool ---------------------------------------------------------
@@ -51,6 +52,13 @@ def _loaded_caches():
             v = rng.randn(1, T, HEADS, D // HEADS).astype(np.float32)
             jc.write_prefill_chunk(slot, layer, to_jax(k), to_jax(v), 0)
             tc.write_prefill_chunk(slot, layer, to_port(k), to_port(v), 0)
+        # wait for the JAX writes: each reads the slot's block-table row
+        # through a device copy that JAX may still be making when the
+        # next host step (free_seq) zeroes that row in place; under load
+        # the writes then landed in the trash block and the snapshot
+        # held zeros where these rows belong
+        for layer in range(LAYERS):
+            _pool(jc, layer)
 
     t0 = rng.randn(10, D).astype(np.float32)     # 2 full blocks
     fill(0, t0)

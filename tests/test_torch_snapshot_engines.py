@@ -18,6 +18,7 @@ from paddle_tpu_torch.inference import (PagedKVCache, SpeculativeEngine,
 from tests.test_torch_serving import jax_op_by_op  # noqa: F401
 from tests.test_torch_snapshot import _assert_state_equal, _pair
 from tests.torch_twins import (D, LAYERS, VOCAB, assert_snapshots_match)
+from tests.torch_twins import shared_jax_cache  # noqa: F401
 
 
 def _serve(eng, rids, n):

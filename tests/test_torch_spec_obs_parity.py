@@ -13,6 +13,7 @@ from tests.test_torch_obs_parity import (_observers, _prompts, _record,
                                          _serve)
 from tests.torch_twins import (D, EMBED, W_OUT, jax_model, op_by_op,
                                port_model)
+from tests.torch_twins import shared_jax_cache  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -24,6 +24,7 @@ from paddle_tpu.inference import TokenServingModel as JaxTSM
 from paddle_tpu_torch import weights
 from paddle_tpu_torch.inference import SpeculativeEngine, TokenServingModel
 from tests.torch_twins import op_by_op
+from tests.torch_twins import shared_jax_cache  # noqa: F401
 
 torch.set_num_threads(1)
 D, HEADS, FFN, LAYERS, VOCAB = 64, 4, 128, 2, 128

@@ -19,6 +19,7 @@ from paddle_tpu_torch.inference import (FaultInjector, PagedServingEngine,
                                         TokenServingModel)
 from tests.torch_twins import (D, EMBED, VOCAB, drive, jax_model,
                                port_model)
+from tests.torch_twins import shared_jax_cache  # noqa: F401
 
 N_GEN = 18
 STORM = dict(seed=11, oom_at=[5, 11, 17, 23], nan_at={3: [1], 8: [3]})

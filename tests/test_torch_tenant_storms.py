@@ -22,6 +22,7 @@ from paddle_tpu_torch.inference import (FaultInjector, PagedServingEngine,
                                         TokenServingModel)
 from tests.torch_twins import (D, EMBED, VOCAB, drive, jax_model,
                                port_model)
+from tests.torch_twins import shared_jax_cache  # noqa: F401
 
 # 22 generated + 10 prompt tokens fill the victims' 8-block floors; the
 # flooder's quota of 6 blocks caps it at 24 held tokens

@@ -22,6 +22,7 @@ from paddle_tpu_torch.inference import (DEFAULT_TENANT, BlockOOM,
 from tests.torch_ref_suite import suite
 from tests.torch_twins import (D, HEADS, LAYERS, drive, jax_model,
                                port_model, to_jax, to_port)
+from tests.torch_twins import shared_jax_cache  # noqa: F401
 
 
 @pytest.fixture(scope="module")

@@ -36,6 +36,7 @@ import paddle_tpu as paddle
 from paddle_tpu_torch import nn, weights
 from paddle_tpu_torch.nn import functional as F
 from tests.torch_twins import op_by_op
+from tests.torch_twins import shared_jax_cache  # noqa: F401
 
 torch.set_num_threads(1)
 D, HEADS, FFN, B, LS, LT = 32, 4, 64, 2, 7, 5

@@ -34,6 +34,7 @@ from paddle_tpu_torch import weights
 from paddle_tpu_torch.distributed import checkpoint as pckpt
 from paddle_tpu_torch.distributed.fleet.meta_parallel import sharding as psh
 from paddle_tpu_torch.parallel import mesh as pmesh
+from tests.torch_twins import shared_jax_cache  # noqa: F401
 
 torch.set_num_threads(1)
 

@@ -7,6 +7,7 @@ tolerance)."""
 import contextlib
 
 import numpy as np
+import pytest
 import torch
 
 import paddle_tpu as paddle
@@ -189,3 +190,81 @@ def assert_snapshots_match(a, b, path="", numeric=False):
         assert type(a) is type(b) or {type(a), type(b)} <= {int, bool}, \
             (path, type(a), type(b))
         assert a == b, (path, a, b)
+
+
+# -- both packages' topology, mesh and fleet state --------------------
+_FLEET_STATE = {
+    "jax": ("paddle_tpu.distributed.fleet.topology",
+            "paddle_tpu.distributed.env", "paddle_tpu.parallel.mesh",
+            "paddle_tpu.distributed.fleet.fleet"),
+    "port": ("paddle_tpu_torch.distributed.fleet.topology",
+             "paddle_tpu_torch.distributed.env",
+             "paddle_tpu_torch.parallel.mesh",
+             "paddle_tpu_torch.distributed.fleet.fleet"),
+}
+
+
+@contextlib.contextmanager
+def no_fleet():
+    """Both packages with no HybridCommunicateGroup and no installed mesh
+    inside the block, their topology, env, mesh and fleet state as
+    before it after (tests/test_torch_hybrid.py's ``_isolated``, which
+    keeps whatever state it finds)."""
+    import importlib
+    saved = []
+    for pkg, names in _FLEET_STATE.items():
+        topo, env, mesh, fl = (importlib.import_module(m) for m in names)
+        saved.append((topo, topo._HYBRID_PARALLEL_GROUP, env,
+                      dict(env._state), mesh, mesh._global_mesh, fl,
+                      dict(vars(fl._fleet))))
+        topo._HYBRID_PARALLEL_GROUP = None
+        if "hcg" in env._state:
+            env._state["hcg"] = None
+        mesh._global_mesh = None
+    try:
+        yield
+    finally:
+        for topo, hcg, env, env_state, mesh, m, fl, fleet_state in saved:
+            topo._HYBRID_PARALLEL_GROUP = hcg
+            env._state.clear()
+            env._state.update(env_state)
+            mesh._global_mesh = m
+            vars(fl._fleet).clear()
+            vars(fl._fleet).update(fleet_state)
+
+
+
+@pytest.fixture(scope="module", autouse=True)
+def shared_jax_cache(tmp_path_factory):
+    """The JAX package's compiled executables kept on disk for the
+    module (imported into a test module, this autouse fixture applies
+    to it): the JAX references of these twins compile the same programs
+    again and again (the package's layer captures compile per layer
+    instance; op by op, every primitive per shape), and under xdist
+    every worker compiles them anew. The directory is the test
+    session's (the workers' common parent under xdist), so a program
+    one module or worker compiled is read back by the next. The
+    executables are the ones a compile gives; nothing else changes.
+    The JAX settings are restored after the module."""
+    import os
+    from jax._src import compilation_cache as cc
+    import jax
+    base = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        base = base.parent
+    root = base / "jax-compile-cache"
+    root.mkdir(exist_ok=True)
+    keys = ("jax_compilation_cache_dir",
+            "jax_persistent_cache_min_compile_time_secs",
+            "jax_persistent_cache_min_entry_size_bytes")
+    before = {k: jax.config.values[k] for k in keys}
+    jax.config.update("jax_compilation_cache_dir", str(root))
+    jax.config.update("jax_persistent_cache_min_compile_time_secs", 0)
+    jax.config.update("jax_persistent_cache_min_entry_size_bytes", 0)
+    cc.reset_cache()
+    try:
+        yield root
+    finally:
+        for k, v in before.items():
+            jax.config.update(k, v)
+        cc.reset_cache()
