@@ -308,7 +308,23 @@ fails the run:
    each holding a CUDA context, under ``ElasticSupervisor``: rank 1
    SIGKILLed mid-run, the pod relaunched once, the supervisor exits 0;
    (d) rpc between the two ranks;
-28. print the kernels line, the card line and, last, the contract line.
+28. (run after phase 27) Paddle's Tensor and ops surface
+   (``paddle_tpu_torch.Tensor`` over torch tensors, ``ops/``): the Llama
+   decoder layer written in Paddle ops (``paddle_decoder_layer``, op for
+   op the JAX package's ``models/llama.py:76-198``) at bench.py's
+   Llama-2-7B proxy widths (hidden 4096, 32 heads, FFN 11008), batch
+   4 x 2048, bf16, weights from --seed: (a) its output and, after
+   ``loss.backward()`` on a handle, the gradients of x and every weight
+   against the port's torch-native ``LlamaDecoderLayer`` on the same
+   weights (within BOUND_PADDLE_OPS; whether bitwise printed); (b) the
+   launches of one step exactly flash forward 1, flash backward 1,
+   RMSNorm 2 (the profiler's counts and all launches, host time and
+   step time printed for both layers); (c) one warm step under
+   ``torch.cuda.set_sync_debug_mode("warn")`` syncs no more than the
+   native layer's; (d) every op of ``ops/*.__all__`` that runs on
+   generated float / int / bool inputs, once on CUDA handles and once on
+   CPU handles: outputs on the card with the CPU's dtype and shape;
+29. print the kernels line, the card line and, last, the contract line.
 Every number printed carries the card's name and power limit; each row
 of the kernels line says in ``timed`` which call it timed and how.
 """
@@ -430,7 +446,11 @@ FULL = dict(vocab=50304, d=1024, layers=24, heads=16, ffn=4096,
             tf_vocab=1000, tf_new=16, moe_tokens=8192, moe_d=1024,
             moe_hidden=4096,
             # phase 25 (c): rows through the mpu layers alone
-            mp_rows=4096)
+            mp_rows=4096,
+            # phase 28: the decoder layer in Paddle ops at bench.py's
+            # Llama-2-7B proxy widths (bench.py:58-61), one layer
+            paddle_ops=dict(hidden=4096, heads=32, kv_heads=32, ffn=11008,
+                            theta=10000.0, eps=1e-5, batch=4, seq=2048))
 
 
 class SmokeFailure(RuntimeError):
@@ -6556,6 +6576,378 @@ def phase_multiprocess(torch, device, cfg, seed, tag, say):
     return launches
 
 
+# -- phase 28: Paddle's Tensor and the ops surface ------------------------
+# (a) the decoder layer written in Paddle ops against the port's
+# torch-native LlamaDecoderLayer on the same bf16 weights. Both run the
+# same torch ops in the same order (the same matmuls, the same RMSNorm and
+# flash kernels, the rotary products and residual sums in the same bf16),
+# so they should be bitwise equal; the bound covers a library GEMM that
+# picks another algorithm for another stride of the same values: each
+# output and gradient within 2**-6 x its max|ref| (two bf16 ulps of the
+# largest entry).
+BOUND_PADDLE_OPS = 2.0 ** -6
+# (d) an op on CUDA handles against the same op on CPU handles: values
+# within this x max(1, max|cpu|) (float32 libraries on two devices:
+# summation order); reported, not required (the check is device, dtype
+# and shape)
+TOL_OP_SWEEP = 1e-3
+# ops whose outputs are draws, or decompositions free up to signs and
+# order: their values are not compared across devices
+SWEEP_NO_VALUES = {
+    "rand", "randn", "standard_normal", "randint", "randint_like",
+    "randperm", "uniform", "normal", "bernoulli", "multinomial", "poisson",
+    "uniform_", "normal_", "exponential_", "svd_lowrank", "create_parameter",
+    "qr", "svd", "eig", "eigh", "eigvals", "lu", "lu_unpack", "pca_lowrank"}
+
+
+def paddle_decoder_layer(paddle, x, w, cos, sin, heads, kv_heads, eps):
+    """The Llama decoder layer written in Paddle ops, op for op the JAX
+    package's ``models/llama.py:76-198`` (``rotate_half``,
+    ``apply_rotary_pos_emb``, ``LlamaRotaryEmbedding.forward``,
+    ``LlamaAttention``, ``LlamaMLP``, ``LlamaDecoderLayer.forward``
+    without a cache or mask). ``paddle`` is either package; ``w`` maps
+    the layer's parameter names (``self_attn.q_proj.weight``, ...,
+    Linear weights [in, out]) to Tensors; ``cos`` / ``sin`` are the
+    rotary tables [max_pos, head_dim]."""
+    F = paddle.nn.functional
+    b, l, d = x.shape
+    hd = d // heads
+
+    def rotate_half(t):
+        a, c = paddle.split(t, 2, axis=-1)
+        return paddle.concat([paddle.neg(c), a], axis=-1)
+
+    residual = x
+    h = F.rms_norm(x, w["input_layernorm.weight"], eps)
+    q = paddle.reshape(h @ w["self_attn.q_proj.weight"], [b, l, heads, hd])
+    k = paddle.reshape(h @ w["self_attn.k_proj.weight"],
+                       [b, l, kv_heads, hd])
+    v = paddle.reshape(h @ w["self_attn.v_proj.weight"],
+                       [b, l, kv_heads, hd])
+    c = paddle.unsqueeze(cos[0:l], [0, 2])
+    s = paddle.unsqueeze(sin[0:l], [0, 2])
+    q = q * c + rotate_half(q) * s
+    k = k * c + rotate_half(k) * s
+    if kv_heads != heads:
+        k = paddle.repeat_interleave(k, heads // kv_heads, axis=2)
+        v = paddle.repeat_interleave(v, heads // kv_heads, axis=2)
+    o = F.scaled_dot_product_attention(q, k, v, attn_mask=None,
+                                       is_causal=l > 1)
+    o = paddle.reshape(o, [b, l, heads * hd])
+    x = residual + o @ w["self_attn.o_proj.weight"]
+    residual = x
+    h = F.rms_norm(x, w["post_attention_layernorm.weight"], eps)
+    m = F.silu(h @ w["mlp.gate_proj.weight"]) * (h @ w["mlp.up_proj.weight"])
+    return residual + m @ w["mlp.down_proj.weight"]
+
+
+def paddle_ops_expected():
+    """Phase 28 (b): the kernels' launches in one forward + backward of
+    the decoder layer (each wrapper's count): flash forward and backward
+    once, RMSNorm twice (its backward is plain PyTorch)."""
+    return {"flash_attention_fwd": 1, "flash_attention_bwd": 1,
+            "fused_rms_norm": 2}
+
+
+def _paddle_ops_counts():
+    c = _train_counts()
+    return {k: c[k] for k in paddle_ops_expected()}
+
+
+def _count_syncs(torch, step):
+    """Host-device syncs of one call of ``step`` (torch's sync debug
+    mode, one warning each)."""
+    import warnings
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            step()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    # the mode's own notice ("a prototype feature") is not a sync
+    return [str(w.message).splitlines()[0] for w in caught
+            if "called a synchronizing" in str(w.message)]
+
+
+def _step_profile(torch, step):
+    """(every kernel launch of one call of ``step``, launches by our
+    kernels' names) as torch.profiler recorded them (it may drop some:
+    printed, not checked)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        step()
+        torch.cuda.synchronize()
+    total, ours = 0, {}
+    for e in prof.key_averages():
+        if getattr(e, "self_device_time_total",
+                   getattr(e, "self_cuda_time_total", 0)) <= 0:
+            continue
+        total += e.count
+        for key in ("flash_fwd", "flash_delta", "flash_dq", "flash_dkv",
+                    "rms_kernel"):
+            if key in e.key:
+                ours[key] = ours.get(key, 0) + e.count
+    return total, ours
+
+
+def _host_and_step_ms(torch, device, step, iters=3):
+    """Median (host ms to issue one call, ms until its work is done)."""
+    host, wall = [], []
+    for _ in range(iters):
+        _sync(torch, device)
+        t0 = time.perf_counter()
+        step()
+        host.append((time.perf_counter() - t0) * 1e3)
+        _sync(torch, device)
+        wall.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(host)), float(np.median(wall))
+
+
+def _rel(torch, got, ref):
+    got, ref = got.detach().float(), ref.detach().float()
+    return float((got - ref).abs().max()) / max(float(ref.abs().max()),
+                                                1e-30)
+
+
+def _handles(x):
+    from paddle_tpu_torch.framework.tensor import Tensor
+    if isinstance(x, Tensor):
+        return [x]
+    if isinstance(x, (tuple, list)):
+        return [t for v in x for t in _handles(v)]
+    return []
+
+
+def op_sweep(torch, device, seed, tag, say):
+    """Phase 28 (d): every op of ``ops/*.__all__`` that runs on generated
+    inputs (float32 [4, 4] in (0.1, 0.9), int32 [4, 4] in [1, 3], bool
+    [4, 4], their pairs, a list of two, the shape [4, 4]) is called once
+    on ``device`` handles and once on CPU handles with the first pattern
+    the CPU accepts. Every output must lie on ``device`` with the CPU
+    output's dtype and shape; values are compared (reported) except for
+    draws and decompositions. Returns (ops called, host-only ops,
+    value mismatches)."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch import ops
+    rng = np.random.RandomState(seed)
+    data = {"f": rng.uniform(0.1, 0.9, (4, 4)).astype(np.float32),
+            "f2": rng.uniform(0.1, 0.9, (4, 4)).astype(np.float32),
+            "i": rng.randint(1, 4, (4, 4)).astype(np.int32),
+            "i2": rng.randint(1, 4, (4, 4)).astype(np.int32)}
+    data["b"], data["b2"] = data["f"] > 0.5, data["f2"] > 0.5
+    patterns = [("f",), ("f", "f2"), ("i",), ("i", "i2"), ("b",),
+                ("b", "b2"), ("f", "i"), ("pair",), ("shape",)]
+
+    def args(pat, place):
+        out = []
+        for a in pat:
+            if a == "shape":
+                out.append([4, 4])
+            elif a == "pair":
+                out.append([paddle.to_tensor(data["f"], place=place),
+                            paddle.to_tensor(data["f2"], place=place)])
+            else:
+                out.append(paddle.to_tensor(data[a], place=place))
+        return out
+
+    def call(fn, pat, dev_name):
+        paddle.set_device(dev_name)
+        paddle.seed(seed)
+        return fn(*args(pat, dev_name))
+
+    dev_name = "gpu" if device.type == "cuda" else "cpu"
+    called, host_only, mismatch, failed = [], [], [], []
+    for mod in (ops.creation, ops.math, ops.manipulation, ops.linalg,
+                ops.logic, ops.search):
+        for name in mod.__all__:
+            fn = getattr(mod, name)
+            for pat in patterns:
+                try:
+                    ref = call(fn, pat, "cpu")
+                except Exception:
+                    continue
+                break
+            else:
+                continue
+            ref_t = _handles(ref)
+            if not ref_t:
+                host_only.append(name)
+                continue
+            try:
+                got = call(fn, pat, dev_name)
+            except Exception as e:  # reported with the op's name below
+                failed.append(f"{name}{pat}: {type(e).__name__}: {e}"[:200])
+                continue
+            got_t = _handles(got)
+            ok = len(got_t) == len(ref_t) and all(
+                g._data.device.type == device.type and g.dtype == r.dtype
+                and g.shape == r.shape for g, r in zip(got_t, ref_t))
+            if not ok:
+                failed.append(f"{name}{pat}: got "
+                              f"{[(str(g._data.device), g.dtype, g.shape) for g in got_t]}"
+                              f", cpu {[(r.dtype, r.shape) for r in ref_t]}")
+                continue
+            called.append(f"{mod.__name__.rsplit('.', 1)[-1]}.{name}")
+            if name in SWEEP_NO_VALUES:
+                continue
+            for g, r in zip(got_t, ref_t):
+                a, b = g.numpy().astype(np.complex128), \
+                    r.numpy().astype(np.complex128)
+                scale = max(1.0, float(np.nanmax(np.abs(b))) if b.size
+                            and not np.all(np.isnan(b)) else 1.0)
+                if not np.allclose(a, b, rtol=0, atol=TOL_OP_SWEEP * scale,
+                                   equal_nan=True):
+                    mismatch.append(name)
+                    break
+    paddle.set_device("cpu")
+    say(f"{tag} phase 28 (d) op sweep on {device.type} handles against "
+        f"CPU handles: {len(called)} ops called, every output on "
+        f"{device.type} with the CPU's dtype and shape; host results "
+        f"(no tensor) {host_only}; values beyond {TOL_OP_SWEEP} x "
+        f"max(1, max|cpu|): {mismatch}; failures {failed}")
+    require(not failed, f"phase 28 (d): {failed}")
+    return called, host_only, mismatch
+
+
+def phase_paddle_ops(torch, device, cfg, seed, tag, say):
+    """Phase 28: Paddle's Tensor and ops surface on the card. The Llama
+    decoder layer written in Paddle ops (``paddle_decoder_layer``) at the
+    Llama-2-7B proxy widths of PERF.md §4 (``cfg["paddle_ops"]``), bf16,
+    weights from ``seed``: (a) its output and, after ``loss.backward()``
+    on a handle, the gradients of x and every weight against the port's
+    torch-native ``LlamaDecoderLayer`` on the same weights (bitwise
+    printed, BOUND_PADDLE_OPS required); (b) the kernels' launches in one
+    step exactly ``paddle_ops_expected`` (wrapper counts; the profiler's
+    launches by kernel and in all, host time and step time printed for
+    both layers); (c) host-device syncs of one warm step of each under
+    ``torch.cuda.set_sync_debug_mode("warn")``: the handle layer adds
+    none; (d) ``op_sweep``."""
+    import paddle_tpu_torch as paddle
+    from paddle_tpu_torch.framework import device as pdevice
+    from paddle_tpu_torch.models.llama import LlamaConfig, LlamaDecoderLayer
+    t_phase = time.perf_counter()
+    c = cfg["paddle_ops"]
+    B, L, H = c["batch"], c["seq"], c["hidden"]
+    lc = LlamaConfig(hidden_size=H, intermediate_size=c["ffn"],
+                     num_hidden_layers=1, num_attention_heads=c["heads"],
+                     num_key_value_heads=c["kv_heads"],
+                     max_position_embeddings=L, rms_norm_eps=c["eps"],
+                     rope_theta=c["theta"])
+    before = pdevice._CURRENT_DEVICE
+    paddle.set_device("gpu" if device.type == "cuda" else "cpu")
+    try:
+        gen = torch.Generator().manual_seed(seed)
+        layer = LlamaDecoderLayer(lc, device=device, generator=gen).to(
+            torch.bfloat16)
+        with torch.no_grad():
+            for n in ("input_layernorm.weight",
+                      "post_attention_layernorm.weight"):
+                p = layer.get_parameter(n)
+                p.copy_(1 + 0.1 * torch.randn(p.shape, generator=gen))
+        x = torch.randn(B, L, H, generator=gen).to(device, torch.bfloat16)
+        gy = torch.randn(B, L, H, generator=gen).to(device)
+        xn = x.clone().requires_grad_(True)
+        wh = {n: paddle.to_tensor(p.detach().clone(), stop_gradient=False)
+              for n, p in layer.named_parameters()}
+        rot = layer.self_attn.rotary
+        cos, sin = (paddle.to_tensor(t) for t in (rot.cos_cached,
+                                                  rot.sin_cached))
+        xh = paddle.to_tensor(x, stop_gradient=False)
+        gyh = paddle.to_tensor(gy)
+        kw = dict(heads=c["heads"], kv_heads=c["kv_heads"], eps=c["eps"])
+
+        def native_step():
+            out = layer(xn)
+            (out.float() * gy).sum().backward()
+            return out
+
+        def handle_step():
+            out = paddle_decoder_layer(paddle, xh, wh, cos, sin, **kw)
+            paddle.sum(out.astype("float32") * gyh).backward()
+            return out
+
+        def clear():
+            xn.grad = None
+            layer.zero_grad(set_to_none=True)
+            xh.clear_grad()
+            for t in wh.values():
+                t.clear_grad()
+
+        # (a) one step of each from cleared gradients
+        clear()
+        _reset_train_counts()
+        out_h = handle_step()
+        _sync(torch, device)
+        counts = _paddle_ops_counts()
+        out_n = native_step()
+        pairs = [("out", out_h._data, out_n), ("x", xh.grad._data, xn.grad)]
+        pairs += [(n, wh[n].grad._data, p.grad)
+                  for n, p in layer.named_parameters()]
+        errs = {n: _rel(torch, a, b) for n, a, b in pairs}
+        bitwise = [n for n, a, b in pairs if torch.equal(a, b)]
+        for n, a, _ in pairs:
+            require(bool(torch.isfinite(a).all()), f"phase 28: {n} not "
+                    "finite")
+        worst = max(errs, key=errs.get)
+        say(f"{tag} phase 28 (a) the decoder layer in Paddle ops at "
+            f"hidden {H}, {c['heads']} heads ({c['kv_heads']} kv), FFN "
+            f"{c['ffn']}, batch {B} x {L}, bf16, against the torch-native "
+            f"LlamaDecoderLayer on the same weights: "
+            f"{len(bitwise)} of {len(pairs)} tensors bitwise (output, "
+            f"grad x, {len(pairs) - 2} weight grads); worst max|err|/"
+            f"max|ref| {errs[worst]:.3e} ({worst}); not bitwise: "
+            f"{[n for n, _, _ in pairs if n not in bitwise]}")
+        require(errs[worst] <= BOUND_PADDLE_OPS,
+                f"phase 28 (a): {worst} off by {errs[worst]:.3e} of max|ref|")
+        del out_h, out_n, pairs
+        # (b) launches in one step
+        if device.type == "cuda":
+            want = paddle_ops_expected()
+            require(counts == want, f"phase 28 (b): launches {counts}, not "
+                    f"{want}")
+            clear()
+            _reset_train_counts()
+            n_all_h, ours_h = _step_profile(torch, handle_step)
+            n_all_n, ours_n = _step_profile(torch, native_step)
+            clear()
+            host_h, step_h = _host_and_step_ms(torch, device, lambda: (
+                clear(), handle_step()))
+            host_n, step_n = _host_and_step_ms(torch, device, lambda: (
+                clear(), native_step()))
+            say(f"{tag} phase 28 (b) launches in one step: wrappers "
+                f"{counts}; profiler, our kernels: Paddle ops {ours_h}, "
+                f"native {ours_n}; every kernel launch: Paddle ops "
+                f"{n_all_h}, native {n_all_n}; host ms to issue a step: "
+                f"Paddle ops {host_h:.2f}, native {host_n:.2f}; step ms: "
+                f"Paddle ops {step_h:.2f}, native {step_n:.2f}")
+            # the wrappers' counts are the check: late in the whole
+            # script the profiler has dropped kernels of a step (on an
+            # H100, 87 of 127 recorded, flash_fwd and rms_kernel among
+            # the lost), as phase 12 saw for flash
+            # (c) host-device syncs of one warm step
+            clear()
+            syncs_h = _count_syncs(torch, handle_step)
+            clear()
+            syncs_n = _count_syncs(torch, native_step)
+            say(f"{tag} phase 28 (c) host-device syncs in one warm step: "
+                f"Paddle ops {len(syncs_h)}, native {len(syncs_n)}"
+                + (f" ({sorted(set(syncs_h))[:3]})" if syncs_h else ""))
+            require(len(syncs_h) <= len(syncs_n),
+                    f"phase 28 (c): the handle layer syncs {len(syncs_h)} "
+                    f"times, the native {len(syncs_n)}")
+        del layer, wh, xh, xn
+        _free(torch, device)
+        op_sweep(torch, device, seed, tag, say)
+    finally:
+        pdevice._CURRENT_DEVICE = before
+    say(f"{tag} phase 28 took {time.perf_counter() - t_phase:.1f} s")
+    return counts
+
+
 def run(device, cfg, seed=0, say=print, card=None):
     """All phases on ``device``; returns the kernels line's rows."""
     import torch
@@ -6664,6 +7056,10 @@ def run(device, cfg, seed=0, say=print, card=None):
     phase_fleet_hybrid(torch, device, cfg, seed, tag, say)
     # training across two processes on the one card
     phase_multiprocess(torch, device, cfg, seed, tag, say)
+    # Paddle's Tensor and ops: the decoder layer in Paddle ops
+    for name, n in phase_paddle_ops(torch, device, cfg, seed, tag,
+                                    say).items():
+        rows[name]["launches_paddle_ops"] = n
     return [rows[k] for k in ("paged_attention_ragged",
                               "paged_attention_ragged_int8",
                               "decode_attention", "w8a16_matmul", "gmm",

@@ -17,6 +17,8 @@ import threading
 
 import torch
 
+from ..framework.dtype import convert_dtype
+
 __all__ = ["BLACK_LIST", "WHITE_LIST", "amp_global_state", "amp_guard",
            "amp_state", "auto_cast", "decorate", "maybe_cast_inputs"]
 
@@ -35,17 +37,15 @@ BLACK_LIST = {
     "bicubic_interp_v2", "trilinear_interp_v2",
 }
 
-_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
-           "float32": torch.float32}
+_AMP_DTYPES = (torch.bfloat16, torch.float16, torch.float32)
 
 
-def convert_dtype(dtype):
-    """A torch floating dtype from Paddle's name or a torch dtype."""
-    if isinstance(dtype, torch.dtype):
-        return dtype
-    if dtype not in _DTYPES:
+def _amp_dtype(dtype):
+    """The torch dtype of an amp dtype (bfloat16, float16 or float32)."""
+    d = convert_dtype(dtype)
+    if d not in _AMP_DTYPES:
         raise ValueError(f"unsupported amp dtype {dtype!r}")
-    return _DTYPES[dtype]
+    return d
 
 
 class _AmpState(threading.local):
@@ -79,7 +79,7 @@ class auto_cast:
             raise ValueError(f"unsupported amp level {level}")
         self._enable = enable and level != "O0"
         self._level = level
-        self._dtype = convert_dtype(dtype)
+        self._dtype = _amp_dtype(dtype)
         self._white = set(WHITE_LIST)
         self._black = set(BLACK_LIST)
         if custom_white_list:
@@ -141,7 +141,7 @@ def decorate(models, optimizers=None, level="O2", dtype="bfloat16",
     keep their dtype, as in the reference. ``master_weight`` and
     ``save_dtype`` are accepted and unused, as in the reference (the
     optimizer's ``multi_precision`` keeps the masters)."""
-    d = convert_dtype(dtype)
+    d = _amp_dtype(dtype)
     single_model = not isinstance(models, (list, tuple))
     model_list = [models] if single_model else list(models)
     if level == "O2":

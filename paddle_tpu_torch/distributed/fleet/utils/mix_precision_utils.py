@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from ....nn.initializer import convert_dtype
+from ....framework.dtype import convert_dtype
 from ....nn.layer.layers import Layer
 
 __all__ = ["MixPrecisionLayer", "MixPrecisionOptimizer"]

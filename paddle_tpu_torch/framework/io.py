@@ -11,7 +11,8 @@ a bfloat16 tensor as its exact float32 values with one more key,
 JAX package ignores the key and loads the float32 values. A file the
 JAX package wrote holds an ``ml_dtypes`` bfloat16 array, which the port
 reads through its 16-bit pattern (unpickling it needs ``ml_dtypes``
-installed, as it does for the JAX package).
+installed, as it does for the JAX package). A Paddle ``Tensor`` handle
+is saved as its torch tensor; ``load`` gives torch tensors.
 """
 from __future__ import annotations
 
@@ -21,6 +22,8 @@ import pickle
 
 import numpy as np
 import torch
+
+from .tensor import Tensor
 
 __all__ = ["load", "save"]
 
@@ -61,6 +64,8 @@ def from_numpy(a, dtype=None) -> torch.Tensor:
 
 
 def _to_saveable(obj):
+    if isinstance(obj, Tensor):
+        obj = obj._data
     if isinstance(obj, torch.Tensor):
         out = {"__paddle_tensor__": True, "data": to_numpy(obj),
                "name": tensor_name(obj),

@@ -24,18 +24,34 @@ counterparts go through the hook (``Tensor.__add__`` is
 ``elementwise_add`` through ``apply``, ``paddle_tpu/ops/math.py:44-53``):
 under O2 an fp32 and a bf16 input meet in bf16 there, where torch's type
 promotion would give fp32. The serving modules call no hook.
+
+The Paddle surface (``framework/tensor.py``, ``ops/``) runs every op
+through ``apply`` (``paddle_tpu/framework/op.py:197-279``): it unwraps
+the ``Tensor`` handles, passes plain torch tensors through, calls
+``op_inputs(op_name, ...)`` (so amp, operator stats and
+``FLAGS_check_nan_inf`` see every Paddle op as in the reference), runs
+the torch impl and wraps what it returns. Gradients are torch's: there
+is no tape and no executable cache (``_op_exec_for`` is XLA's; eager
+torch needs none). ``apply_inplace`` writes the result into the
+target's ``_data`` in place. ``takes_handles`` is the boundary of the
+port's torch-native functionals and layers: handles in, handles out.
 """
 from __future__ import annotations
 
+import functools
 from collections import Counter
 
+import numpy as np
 import torch
 
 from ..amp.auto_cast import _state as _amp
 from ..amp.auto_cast import maybe_cast_inputs
+from .device import current_device
+from .tensor import Tensor
 
-__all__ = ["add", "concat", "counter", "matmul", "multiply", "op_inputs",
-           "refresh_watch", "unwatch", "watch"]
+__all__ = ["add", "apply", "apply_inplace", "check_inplace", "concat",
+           "counter", "matmul", "multiply", "op_inputs", "refresh_watch",
+           "takes_handles", "unwatch", "unwrap", "wrap", "watch"]
 
 
 class _Watch:
@@ -126,3 +142,132 @@ def matmul(x, y, transpose_x=False, transpose_y=False):
     if transpose_y and y.ndim > 1:
         y = y.transpose(-1, -2)
     return x @ y
+
+
+# -- the Paddle surface: handles over torch tensors --------------------------
+
+def unwrap(x):
+    """A handle's torch tensor; anything else as it is."""
+    return x._data if isinstance(x, Tensor) else x
+
+
+def wrap(x, stop_gradient=None):
+    """A handle over the torch tensor ``x`` (a Python or numpy value
+    becomes a tensor on the current device first); ``stop_gradient=True``
+    detaches it."""
+    if not isinstance(x, torch.Tensor):
+        x = torch.as_tensor(np.asarray(x), device=current_device())
+    if stop_gradient and x.requires_grad:
+        x = x.detach()
+    return Tensor._wrap(x)
+
+
+def _arrays(tensor_args):
+    """The op's inputs as torch tensors: handles unwrapped, numpy arrays
+    moved to the device of the first tensor, numpy scalars as Python
+    numbers."""
+    arrays = [unwrap(a) for a in tensor_args]
+    dev = next((a.device for a in arrays if isinstance(a, torch.Tensor)),
+               None)
+    for i, a in enumerate(arrays):
+        if isinstance(a, np.ndarray):
+            arrays[i] = torch.from_numpy(np.ascontiguousarray(a)).to(
+                dev if dev is not None else current_device())
+        elif isinstance(a, np.generic):
+            arrays[i] = a.item()
+    return arrays
+
+
+def _wrap_out(out):
+    if isinstance(out, (tuple, list)):
+        return tuple(_wrap_out(o) for o in out)
+    return wrap(out)
+
+
+def apply(impl, tensor_args, kwargs=None, differentiable=True, op_name=None):
+    """``impl(*torch_tensors, **kwargs)`` for one Paddle op: handles
+    unwrapped, the inputs through ``op_inputs(op_name, ...)``, the
+    outputs wrapped (a tuple for a tuple). ``differentiable=False`` runs
+    under no_grad."""
+    arrays = op_inputs(op_name, *_arrays(tensor_args))
+    if differentiable:
+        out = impl(*arrays, **(kwargs or {}))
+    else:
+        with torch.no_grad():
+            out = impl(*arrays, **(kwargs or {}))
+    return _wrap_out(out)
+
+
+def check_inplace(target):
+    """Paddle's rule: an in-place op on a leaf that needs a gradient
+    raises while gradients are recorded."""
+    t = target._data
+    if t.requires_grad and t.grad_fn is None and torch.is_grad_enabled():
+        raise ValueError(
+            f"Leaf Tensor {target.name} that doesn't stop gradient can't "
+            "use an inplace strategy")
+
+
+def apply_inplace(target, impl, tensor_args, kwargs=None,
+                  differentiable=True):
+    """The in-place variant: ``impl``'s result is written into
+    ``target._data`` in place (cast to its dtype), or, where the shape
+    changes (``reshape_``, ``squeeze_``), rebinds it. While gradients are
+    recorded the op reads a clone of the target, so nothing it saves for
+    its backward is overwritten."""
+    check_inplace(target)
+    arrays = _arrays(tensor_args)
+    t = target._data
+    grad_on = differentiable and torch.is_grad_enabled()
+    if grad_on and any(isinstance(a, torch.Tensor) and a.requires_grad
+                       for a in arrays):
+        arrays = [a.clone() if a is t else a for a in arrays]
+    with torch.set_grad_enabled(grad_on):
+        out = impl(*arrays, **(kwargs or {}))
+        if tuple(out.shape) == tuple(t.shape):
+            t.copy_(out)
+        else:
+            target._data = out.to(t.dtype)
+    return target
+
+
+def _tree(x, leaf):
+    if isinstance(x, (list, tuple)) and not hasattr(x, "_fields"):
+        return type(x)(_tree(v, leaf) for v in x)
+    if isinstance(x, dict):
+        return {k: _tree(v, leaf) for k, v in x.items()}
+    return leaf(x)
+
+
+def _has_handle(x):
+    if isinstance(x, Tensor):
+        return True
+    if isinstance(x, (list, tuple)):
+        return any(_has_handle(v) for v in x)
+    if isinstance(x, dict):
+        return any(_has_handle(v) for v in x.values())
+    return False
+
+
+def _wrap_tree(x):
+    return _tree(x, lambda v: wrap(v) if isinstance(v, torch.Tensor) else v)
+
+
+def call_with_handles(fn, args, kwargs):
+    """``fn(*args, **kwargs)`` with every handle in ``args`` / ``kwargs``
+    (in lists, tuples and dicts too) unwrapped, and every torch tensor it
+    returns wrapped."""
+    args, kwargs = _tree((args, kwargs), unwrap)
+    return _wrap_tree(fn(*args, **kwargs))
+
+
+def takes_handles(fn):
+    """The boundary of a torch-native functional: called with a
+    ``Tensor`` handle anywhere in its arguments it unwraps them and
+    returns handles; called with torch tensors it is ``fn``."""
+    @functools.wraps(fn)
+    def wrapper(*args, **kwargs):
+        if _has_handle(args) or _has_handle(kwargs):
+            return call_with_handles(fn, args, kwargs)
+        return fn(*args, **kwargs)
+    return wrapper

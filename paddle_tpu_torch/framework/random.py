@@ -36,5 +36,16 @@ def bernoulli_keep(shape, keep_prob, device, generator=None):
 def seed(value: int) -> None:
     """Seed torch's default generators (``paddle.seed``): the draws
     that take no generator (``draw_seed(None)``, the initializers'
-    default) start again from ``value``."""
+    default, the random creation ops of every device) start again from
+    ``value``."""
     torch.manual_seed(int(value))
+
+
+def get_rng_state():
+    """The state of torch's default CPU generator."""
+    return torch.get_rng_state()
+
+
+def set_rng_state(key):
+    """Restore ``key``, a state ``get_rng_state`` returned."""
+    torch.set_rng_state(key)

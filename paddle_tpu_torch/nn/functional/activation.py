@@ -5,6 +5,7 @@ from __future__ import annotations
 
 import torch
 
+from ...framework.dtype import convert_dtype
 from ...framework.op import op_inputs
 
 
@@ -35,6 +36,5 @@ def softmax(x, axis=-1, dtype=None, name=None):
     "bfloat16", "float16" or a torch dtype)."""
     x, = op_inputs("softmax", x)
     if dtype is not None:
-        from ...amp.auto_cast import convert_dtype
         x = x.to(convert_dtype(dtype))
     return torch.softmax(x, dim=axis)

@@ -21,6 +21,7 @@ import torch
 
 from ...framework.op import op_inputs
 from ...framework.random import bernoulli_keep, draw_seed
+from ...framework.unported import require_defaults
 from ...ops.hopper.flash_attention import flash_attention_blhd
 
 NEG_INF = -1e30
@@ -74,3 +75,20 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
                 dropout_rate=rate, seed=draw_seed(generator))
     return _sdpa(query, key, value, attn_mask, is_causal, scale, rate,
                  generator)
+
+
+def flash_attention(query, key, value, dropout=0.0, causal=False,
+                    return_softmax=False, fixed_seed_offset=None,
+                    rng_name="", training=True, name=None, *,
+                    generator=None):
+    """Paddle's ``nn.functional.flash_attention`` (``paddle_tpu/nn/
+    functional/attention.py:129-136``): ``scaled_dot_product_attention``
+    without a mask, returning ``(out, None)``; the softmax is not
+    returned."""
+    require_defaults("nn.functional.flash_attention",
+                     return_softmax=(return_softmax, False),
+                     fixed_seed_offset=(fixed_seed_offset, None))
+    out = scaled_dot_product_attention(query, key, value, None, dropout,
+                                       causal, training,
+                                       generator=generator)
+    return out, None

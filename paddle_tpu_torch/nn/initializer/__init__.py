@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from ...device import resolve_device
+from ...framework.dtype import convert_dtype, get_default_dtype
 
 __all__ = [
     "Initializer", "Constant", "Normal", "TruncatedNormal", "Uniform",
@@ -36,19 +37,6 @@ def set_global_initializer(weight_init, bias_init=None):
     global _global_weight_init, _global_bias_init
     _global_weight_init = weight_init
     _global_bias_init = bias_init
-
-
-def convert_dtype(dtype):
-    """A torch dtype from a Paddle dtype name or a torch dtype (None:
-    float32, the default dtype)."""
-    if dtype is None:
-        return torch.float32
-    if isinstance(dtype, torch.dtype):
-        return dtype
-    out = getattr(torch, str(dtype), None)
-    if not isinstance(out, torch.dtype):
-        raise ValueError(f"unknown dtype {dtype!r}")
-    return out
 
 
 def _compute_fans(shape):
@@ -72,8 +60,8 @@ def _fans(shape, fan_in, fan_out=None):
 class Initializer:
     def __call__(self, shape, dtype=None, *, generator=None, device=None):
         g = torch.default_generator if generator is None else generator
-        out = self._draw(tuple(int(s) for s in shape), convert_dtype(dtype),
-                         g)
+        out = self._draw(tuple(int(s) for s in shape),
+                         convert_dtype(dtype) or get_default_dtype(), g)
         return out.to(resolve_device(device))
 
     def _draw(self, shape, dtype, generator):

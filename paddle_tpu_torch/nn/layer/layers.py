@@ -12,6 +12,11 @@ here are ``add_parameter``, ``add_sublayer``, ``astype``,
 ``named_sublayers``, ``sublayers``, ``register_forward_post_hook`` and
 ``set_state_dict`` (alias ``set_dict``, ``load_dict``).
 
+Called with Paddle ``Tensor`` handles (``framework/tensor.py``), a
+layer unwraps them and returns handles (``__call__``); its parameters
+stay ``torch.nn.Parameter``s, which the optimizers, ZeRO and the
+checkpoints rest on.
+
 ``create_parameter`` draws through ``nn.initializer`` with the layer's
 ``generator`` (a CPU torch.Generator; torch's default one when None) on
 the layer's ``device`` (``cuda`` unless the layer was given another),
@@ -24,7 +29,8 @@ import torch
 
 from ...device import resolve_device
 from .. import initializer as I
-from ..initializer import convert_dtype
+from ...framework.dtype import convert_dtype, get_default_dtype
+from ...framework.op import _has_handle, call_with_handles
 
 __all__ = ["HookRemoveHelper", "Layer", "ParamAttr"]
 
@@ -100,9 +106,14 @@ class Layer(torch.nn.Module):
                  generator=None):
         super().__init__()
         self._full_name = name_scope or type(self).__name__.lower()
-        self._dtype = convert_dtype(dtype)
+        self._dtype = convert_dtype(dtype) or get_default_dtype()
         self._device = device
         self._generator = generator
+
+    def __call__(self, *args, **kwargs):
+        if _has_handle(args) or _has_handle(kwargs):
+            return call_with_handles(super().__call__, args, kwargs)
+        return super().__call__(*args, **kwargs)
 
     # -- construction helpers ---------------------------------------------
     def create_parameter(self, shape, attr=None, dtype=None, is_bias=False,

@@ -33,7 +33,9 @@ same arguments; ``pipeline_layer`` does so for a ``PipelineLayer`` built
 from the same ``LayerDesc``s (``run_function.<i>.*``).
 ``carry_param_names`` gives a port module's parameters the JAX
 parameters' names, and ``optimizer_state`` turns a JAX optimizer's
-``state_dict()`` (as numpy) into one the port's optimizers load. Every
+``state_dict()`` (as numpy) into one the port's optimizers load;
+``tensor_from_jax`` turns a JAX package ``Tensor`` (its numpy value,
+dtype name and ``stop_gradient``) into a port ``Tensor`` handle. Every
 loader keeps the port module's
 dtypes: a bf16 JAX model's arrays (after ``paddle.amp.decorate``) go
 into a port model exactly (bf16 -> float32 -> bf16 is exact), which
@@ -48,6 +50,8 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from .device import resolve_device
+
 from .incubate.moe import MoELayer
 from .incubate.nn import FusedMultiTransformer, FusedMultiTransformerInt8
 from .inference.moe_serving import MoeServingCore
@@ -57,7 +61,7 @@ from .models.gpt import GPTConfig, GPTForCausalLM
 from .models.llama import LlamaConfig, LlamaForCausalLM
 from .models.llama_spmd import LlamaSpmdTrainer, tree_get, tree_paths
 
-__all__ = ["bert_for_pretraining", "carry_param_names",
+__all__ = ["bert_for_pretraining", "carry_param_names", "tensor_from_jax",
            "fused_multi_transformer", "gpt_for_causal_lm",
            "llama_for_causal_lm", "llama_spmd_state_np",
            "llama_spmd_trainer", "moe_layer", "moe_serving_core",
@@ -329,3 +333,15 @@ def optimizer_state(state_np):
     if isinstance(state_np, np.ndarray):
         return torch.from_numpy(np.array(state_np, np.float32))
     return state_np
+
+
+def tensor_from_jax(t, device=None):
+    """A port ``Tensor`` of a JAX package ``Tensor``: its value (through
+    ``t.numpy()``; bfloat16 by its bit pattern), its dtype by name and
+    its ``stop_gradient``, on ``device`` (``cuda`` unless named)."""
+    from .framework.device import parse_place
+    from .framework.tensor import Tensor
+    dev = resolve_device(device)
+    return Tensor(np.asarray(t.numpy()), dtype=np.dtype(t.dtype).name,
+                  stop_gradient=bool(t.stop_gradient),
+                  place=parse_place(str(dev)))

@@ -1933,3 +1933,26 @@ def test_two_processes_all_reduce_on_the_card(tmp_path):
         c = res[r, "collectives"]
         assert c["all_reduce"]["calls"] == 8, c
         assert c["all_reduce"]["bytes"] == 8 * 2 * 16, c
+
+
+def test_paddle_ops_decoder_layer_on_the_card():
+    """Phase 28 at a narrow width on the card (hidden 256, 2 heads of
+    128, FFN 512, batch 2 x 256, bf16): (a) the decoder layer in Paddle
+    ops on CUDA handles bitwise the torch-native LlamaDecoderLayer in
+    output and every gradient, through the flash and RMSNorm kernels;
+    (c) no host-device sync beyond the native layer's in a warm step;
+    the launches of (b) and the op sweep of (d) as the phase checks
+    them."""
+    _need_cuda()
+    import chip_smoke as cs
+    cfg = dict(cs.FULL, paddle_ops=dict(hidden=256, heads=2, kv_heads=2,
+                                        ffn=512, theta=10000.0, eps=1e-5,
+                                        batch=2, seq=256))
+    lines = []
+    counts = cs.phase_paddle_ops(torch, torch.device("cuda"), cfg, 0,
+                                 "[card]", lines.append)
+    assert counts == cs.paddle_ops_expected()
+    a = next(ln for ln in lines if "phase 28 (a)" in ln)
+    assert "not bitwise: []" in a, a
+    c = next(ln for ln in lines if "phase 28 (c)" in ln)
+    assert "Paddle ops 0," in c, c

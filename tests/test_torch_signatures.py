@@ -9,7 +9,9 @@ packages export from ``nn``, ``nn.functional``, ``optimizer``,
 ``distributed.fleet.utils``, ``distributed.checkpoint``,
 ``distributed.sharding``, ``parallel.train_step``, ``framework.io``,
 ``distributed``, ``distributed.communication``, ``distributed.launch``,
-``distributed.fleet.elastic`` and ``distributed.rpc``,
+``distributed.fleet.elastic``, ``distributed.rpc``, ``framework``,
+``tensor`` and the op modules ``ops.creation``, ``math``,
+``manipulation``, ``linalg``, ``logic`` and ``search``,
 the port's positional parameter names
 are the reference's, in order (the port may stop early: a longer
 positional call then fails loudly). The port's own extras (``device``,
@@ -36,7 +38,9 @@ MODULES = ("nn", "nn.functional", "optimizer", "inference", "incubate.nn",
            "distributed.checkpoint", "distributed.sharding",
            "parallel.train_step", "framework.io", "distributed",
            "distributed.communication", "distributed.launch",
-           "distributed.fleet.elastic", "distributed.rpc")
+           "distributed.fleet.elastic", "distributed.rpc", "framework",
+           "tensor", "ops.creation", "ops.math", "ops.manipulation",
+           "ops.linalg", "ops.logic", "ops.search")
 _POSITIONAL = (inspect.Parameter.POSITIONAL_ONLY,
                inspect.Parameter.POSITIONAL_OR_KEYWORD)
 
@@ -74,7 +78,9 @@ def test_positional_parameters_keep_the_reference_order(mod, name):
     port = _positional(getattr(importlib.import_module(
         "paddle_tpu_torch." + mod), name))
     assert port == ref[:len(port)], (port, ref)
-    assert not {"device", "generator"} & set(port), port
+    # the port's own extras are keyword-only (a reference parameter of
+    # the same name, set_device's ``device``, is the reference's)
+    assert not {"device", "generator"} & (set(port) - set(ref)), port
 
 
 # the training mesh's entry points, which their modules do not share
@@ -303,6 +309,17 @@ _GAPS = {
        for c in ("DGCMomentum", "LarsMomentum")},
     # item 12: the dense-scratch -> pages path of the long tail
     ("inference", "PagedKVCache"): {"write_prefill": 12},
+    # item 12.8: paddle.sparse installs these Tensor methods
+    **{(m, c): {"to_sparse_coo": "12.8", "to_sparse_csr": "12.8"}
+       for m in ("framework", "framework.io", "ops.creation", "ops.math",
+                 "ops.manipulation", "ops.logic", "ops.search")
+       for c in ("Tensor", "Parameter") if c == "Tensor" or
+       m == "framework"},
+    # never ported: a Place resolves to a jax.Device in the reference;
+    # the port's Place has torch_device()
+    **{("framework", c): {"jax_device": "none (JAX's device)"}
+       for c in ("CPUPlace", "CUDAPinnedPlace", "CUDAPlace", "CustomPlace",
+                 "Place", "TPUPlace", "XPUPlace")},
 }
 
 
